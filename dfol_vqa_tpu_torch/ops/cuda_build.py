@@ -1,0 +1,100 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each library is compiled at first use, from the sources in the checkout,
+into ``dfol_vqa_tpu_torch/_build/<name>-<hash>/`` (listed in .gitignore),
+where the hash covers the sources and the nvcc flags. The sources expose a
+plain C interface, so the build needs no PyTorch headers and takes seconds.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class Built:
+    """How a library was obtained: the nvcc command, its seconds (0 when an
+    earlier build with the same hash was reused), and the compiler's output
+    (ptxas registers / shared memory / spills)."""
+
+    path: str
+    command: List[str]
+    seconds: float
+    log: str
+
+
+_LOCK = threading.Lock()
+_LOADED: Dict[str, Tuple[ctypes.CDLL, Built]] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc") if os.environ.get("CUDA_HOME") else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest(sources: Sequence[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(name: str, sources: Sequence[str]) -> Built:
+    out_dir = os.path.join(BUILD_DIR, f"{name}-{_digest(sources)}")
+    out = os.path.join(out_dir, f"lib{name}.so")
+    log_path = os.path.join(out_dir, "build.log")
+    nvcc = find_nvcc()
+    shown = [nvcc, *NVCC_FLAGS, "-o", out, *sources]
+    if os.path.isfile(out):
+        with open(log_path) as f:
+            return Built(out, shown, 0.0, f.read())
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return Built(out, shown, seconds, log)
+
+
+def load(name: str, sources: Sequence[str],
+         configure: Optional[Callable[[ctypes.CDLL], None]] = None) -> Tuple[ctypes.CDLL, Built]:
+    """Build (once per source hash) and load ``lib<name>.so``; ``configure``
+    declares the argtypes/restype of its functions."""
+    with _LOCK:
+        hit = _LOADED.get(name)
+        if hit is None:
+            built = _build(name, [os.path.join(CSRC_DIR, s) for s in sources])
+            lib = ctypes.CDLL(built.path)
+            if configure is not None:
+                configure(lib)
+            hit = _LOADED[name] = (lib, built)
+        return hit

@@ -1,0 +1,47 @@
+"""The JAX golden that the port meets on the GPU (``chip_smoke.py`` phase 5).
+
+``tests/data/torch_port_golden.npz`` holds the tiny demo engine's weights,
+a dozen compiled requests and the JAX package's log-probabilities and
+answers for them. It is regenerated here and must match the checked-in
+copy, so it cannot go stale; and the port, on the CPU, must meet it with
+the check ``chip_smoke.py`` runs on the card (atol 1e-5 here, float32 on
+the same host type; 1e-4 on the card).
+"""
+
+import importlib.util
+import os
+
+import numpy as np
+import torch
+
+import chip_smoke
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_script():
+    path = os.path.join(ROOT, "scripts", "make_torch_golden.py")
+    spec = importlib.util.spec_from_file_location("make_torch_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_golden_is_current():
+    fresh = load_script().build_golden()
+    stored = np.load(chip_smoke.GOLDEN)
+    assert set(fresh) == set(stored.files)
+    assert sum(k.endswith("/question") for k in fresh) >= 12
+    for k, v in fresh.items():
+        if k.endswith("/log_probability"):
+            # XLA:CPU may vectorise differently on another host type
+            np.testing.assert_allclose(v, stored[k], atol=1e-6, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, stored[k], err_msg=k)
+    assert os.path.getsize(chip_smoke.GOLDEN) < 300_000
+
+
+def test_port_meets_golden_on_cpu():
+    assert chip_smoke.check_golden("cpu", atol=1e-5) >= 12
