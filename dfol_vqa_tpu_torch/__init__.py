@@ -7,10 +7,14 @@ It imports ``torch`` and never ``jax``; the numpy-only host modules
 (ontology, config, program compiler, loader, features, planted world) are
 shared with ``dfol_vqa_tpu``.
 
-Ported so far (the serving slice): ``logic``, ``types``, ``nn``,
+Ported so far — the serving slice: ``logic``, ``types``, ``nn``,
 ``models.featurizer``, ``models.oracle``, ``ops.cells``,
 ``ops.relation_oracle`` (+ ``csrc/relation_oracle.cu``),
-``models.interpreter``, ``data.transfer``, ``serve`` and ``convert``.
+``models.interpreter``, ``data.transfer``, ``serve`` and ``convert``; the
+offline-evaluation slice: ``oracle.rel_cache_shared``, ``ops.pair_mlp``
+(+ ``csrc/pair_mlp.cu``), ``ops.shared_contract`` (+
+``csrc/shared_contract.cu``), ``train.trainer``, ``train.checkpoint`` and
+``data.evalset``.
 """
 
 __version__ = "0.1.0"

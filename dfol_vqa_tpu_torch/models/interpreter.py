@@ -1,16 +1,20 @@
 """The program executor, in PyTorch.
 
-Port of ``dfol_vqa_tpu/models/interpreter.py`` for the serving slice:
+Port of ``dfol_vqa_tpu/models/interpreter.py`` for the serving and
+offline-evaluation slices:
 
     scene build (featurizer, oracle caches)  ->  unrolled branch slot updates
         ->  terminal op  ->  answer flags
 
 The program grid is static per ``BucketSpec`` and runs eagerly. Terminals
 ported: ``exist``/``end``, ``verify_rel`` and ``query_attr``; the others
-raise ``NotImplementedError``. Per question, the relation cache goes through
-the hand-written CUDA kernel (``ops/relation_oracle.py``) when the tensors
-are on a CUDA device, ``tpu.use_pallas`` is set and ``oracle_output_dim ==
-1``, and through the plain ``oracle.rel_cache`` otherwise.
+raise ``NotImplementedError``. The relation cache takes one of two routes,
+as in JAX: when questions share images (U * 2 <= B, the deduplicated batches
+of ``BatchLoader``), ``oracle.rel_cache_shared``, which on a CUDA device
+runs the ``pair_mlp`` and ``shared_contract`` kernels; otherwise, per
+question, the relation-oracle kernel (``ops/relation_oracle.py``) when the
+tensors are on a CUDA device, ``tpu.use_pallas`` is set and
+``oracle_output_dim == 1``, and the plain ``oracle.rel_cache`` otherwise.
 """
 
 from __future__ import annotations
@@ -147,9 +151,24 @@ class Interpreter:
                               "remaining terminals queue")
         self.cfg = cfg
         self.ont = ontology
+        self._rel_gather_cache = None
 
     def init_params(self, generator: torch.Generator, device="cpu") -> om.OracleParams:
         return om.init_oracle_params(self.cfg, self.ont, generator, device)
+
+    @property
+    def _rel_gather_map(self):
+        """Static (cols, inv) pair for the contract-then-gather relation
+        path (``oracle.rel_cache_shared``): ``cols (K,)`` = 0-based embedding
+        columns of the relation vocabulary, ``inv (num_tokens,)`` maps any
+        0-based token column to its slot in ``cols`` (non-relations -> K,
+        the appended zero column). Host numpy."""
+        if self._rel_gather_cache is None:
+            cols = np.asarray(self.ont._relation_index, np.int32)
+            inv = np.full((self.ont.num_tokens,), len(cols), np.int32)
+            inv[cols] = np.arange(len(cols), dtype=np.int32)
+            self._rel_gather_cache = (cols, inv)
+        return self._rel_gather_cache
 
     # ----------------------------------------------------------- scene build
 
@@ -165,7 +184,9 @@ class Interpreter:
         img_index: Optional[torch.Tensor] = None,
     ) -> World:
         """Featurize, then the attribute cache per scene row and the relation
-        cache per question. ``objects`` (U, O, D+6) must be float32."""
+        cache per question. ``objects`` (U, O, D+6) must be float32; with
+        ``img_index (B,)`` its rows are unique images, and the featurizer
+        and attribute head run once per image."""
         cfg = self.cfg
         attr_in_u, pos_u = featurize_objects(params.featurizer, objects, cfg, generator,
                                              deterministic)
@@ -181,10 +202,10 @@ class Interpreter:
         U = attr_in_u.shape[0]
         if needs_rel and rel_tokens is not None:
             if U * 2 <= B:
-                raise _not_ported("the shared-image relation route (rel_cache_shared with "
-                                  "the pair_mlp and shared_contract kernels)",
-                                  "queue 2, next slice")
-            if (cfg.tpu.use_pallas and objects.device.type == "cuda"
+                rel_ll = om.rel_cache_shared(params, attr_in_u, pos_u, img_index, rel_tokens,
+                                             cfg, generator, deterministic,
+                                             rel_gather=self._rel_gather_map)
+            elif (cfg.tpu.use_pallas and objects.device.type == "cuda"
                     and cfg.oracle_output_dim == 1):
                 from dfol_vqa_tpu_torch.ops.relation_oracle import rel_cache_kernel
 

@@ -24,6 +24,12 @@ def elu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.expm1(torch.clamp(x, max=0.0)))
 
 
+def elu_exp(x: torch.Tensor) -> torch.Tensor:
+    """ELU as the TPU kernels (and the CUDA kernels that replace them)
+    compute it: exp(min(x, 0)) - 1 instead of expm1."""
+    return torch.where(x > 0, x, torch.exp(torch.clamp(x, max=0.0)) - 1.0)
+
+
 class Linear(tnn.Module):
     """``x @ w + b`` with ``w`` of shape (in, out)."""
 

@@ -3,8 +3,10 @@
 Each library is compiled at first use, from the sources in the checkout,
 into ``dfol_vqa_tpu_torch/_build/<name>-<hash>/`` (listed in .gitignore),
 where the hash covers the sources and the nvcc flags. The sources expose a
-plain C interface, so the build needs no PyTorch headers and takes seconds.
-Nothing here runs at import time.
+plain C interface, so the build needs no PyTorch headers and takes seconds;
+libraries of different names build concurrently (one lock per name). Every
+source defines ``dfol_cuda_error_string``, which ``check`` uses to name a
+failed launch. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ class Built:
 
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, Tuple[ctypes.CDLL, Built]] = {}
 
 
@@ -90,11 +93,22 @@ def load(name: str, sources: Sequence[str],
     """Build (once per source hash) and load ``lib<name>.so``; ``configure``
     declares the argtypes/restype of its functions."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         hit = _LOADED.get(name)
         if hit is None:
             built = _build(name, [os.path.join(CSRC_DIR, s) for s in sources])
             lib = ctypes.CDLL(built.path)
+            lib.dfol_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.dfol_cuda_error_string.restype = ctypes.c_char_p
             if configure is not None:
                 configure(lib)
             hit = _LOADED[name] = (lib, built)
         return hit
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch function returned a non-zero cudaError_t."""
+    if rc != 0:
+        msg = lib.dfol_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")

@@ -30,6 +30,7 @@ import torch
 from torch.nn import functional as F
 
 from dfol_vqa_tpu.config import Config
+from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.featurizer import pair_geometry
 from dfol_vqa_tpu_torch.ops import cuda_build
@@ -44,8 +45,6 @@ def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dfol_relation_oracle_fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
     lib.dfol_relation_oracle_fwd.restype = i
-    lib.dfol_cuda_error_string.argtypes = [i]
-    lib.dfol_cuda_error_string.restype = ctypes.c_char_p
 
 
 def build() -> cuda_build.Built:
@@ -78,8 +77,7 @@ def pair_tail_reference(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_token
     ``default_ll``. ELU is the kernel's exp(min(x,0))-1 form."""
     h1 = (h_s[:, :, None, :] + h_o[:, None, :, :]) + torch.einsum(
         "bijg,gh->bijh", geom, w_g) + b0
-    h1 = torch.where(h1 > 0, h1, torch.exp(torch.clamp(h1, max=0.0)) - 1.0)
-    h2 = torch.sigmoid(torch.matmul(h1, w2) + b2)
+    h2 = torch.sigmoid(torch.matmul(nn.elu_exp(h1), w2) + b2)
     logits = torch.einsum("bije,bre->brij", h2, e_sel) + b_sel[:, :, None, None]
     out = F.logsigmoid(logits)
     return out.masked_fill((rel_tokens == 0)[:, :, None, None], default_ll)
@@ -127,9 +125,7 @@ def pair_tail_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
             h_s.data_ptr(), h_o.data_ptr(), geom.data_ptr(), w_g.data_ptr(), b0.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), e_sel.data_ptr(), b_sel.data_ptr(),
             rel_tokens.data_ptr(), out.data_ptr(), B, O, H, E, R, default_ll, stream)
-    if rc != 0:
-        msg = lib.dfol_cuda_error_string(rc).decode()
-        raise RuntimeError(f"relation_oracle kernel launch failed: CUDA error {rc} ({msg})")
+    cuda_build.check(lib, rc, "relation_oracle")
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1

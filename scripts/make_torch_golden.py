@@ -1,25 +1,44 @@
 """Write the JAX reference answers that the PyTorch port meets on the GPU.
 
-Runs the JAX package (``dfol_vqa_tpu``) on the CPU with the tiny demo
-engine (``build_demo_engine(tiny=True, seed=0)``) and stores, in one npz:
+Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes two npz files.
+
+``tests/data/torch_port_golden.npz`` (serving), from the tiny demo engine
+(``build_demo_engine(tiny=True, seed=0)``):
 
 * ``params/<key>``: the engine's weights, flattened as in npz checkpoints;
 * ``req/<i>/...``: about a dozen requests — the question (JSON), its scene
   (``objects``, ``obj_mask``), the compiled and canonicalized program
   tensors (``arrays/<name>``), and JAX's ``log_probability``,
-  ``answer_flags`` and decoded ``answers`` for it at batch rung 1.
+  ``answer_flags`` and decoded ``answers`` for it at batch rung 1. They
+  cover ``exist`` with 0-2 hops (relate hops included), ``verify_rel`` and
+  ``query_attr``.
 
-The requests cover the serving slice: ``exist`` with 0-2 hops (relate hops
-included), ``verify_rel`` and ``query_attr``. ``chip_smoke.py`` runs the
-port on the card against this file; ``tests/test_torch_golden.py``
-regenerates it and requires it to match the checked-in copy.
+``tests/data/torch_port_golden_eval.npz`` (offline evaluation), from the
+tiny demo eval workload (``dfol_vqa_tpu_torch/data/evalset.py``: 60
+questions in 4 loader batches of 16 on 4 images each, so every batch takes
+the shared-image relation route):
+
+* ``params/<key>``: the interpreter's weights (``PRNGKey(0)``);
+* ``datasets``: the question files (JSON);
+* ``batch/<k>/...``: each ``LoadedBatch`` (``objects``, ``obj_mask``,
+  ``arrays/<name>`` with ``img_index``) and JAX's ``log_probability`` and
+  ``answer_flags`` for it;
+* ``test_epoch/error``, ``test_epoch/counts``: ``VQATrainer.test_epoch``'s
+  error vector and ``last_test_counts``; ``predict``: its ``predict``
+  output (JSON).
+
+``chip_smoke.py`` runs the port on the card against both files;
+``tests/test_torch_golden.py`` regenerates them and requires them to match
+the checked-in copies.
 
     python scripts/make_torch_golden.py [--out tests/data/torch_port_golden.npz]
+        [--eval-out tests/data/torch_port_golden_eval.npz]
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import sys
@@ -29,6 +48,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
+EVAL_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -45,11 +65,16 @@ def golden_questions(world) -> List[dict]:
     return qs
 
 
-def build_golden() -> Dict[str, np.ndarray]:
+def _jax_on_cpu():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    return jax
+
+
+def build_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
     import jax.numpy as jnp
 
     from dfol_vqa_tpu.models.interpreter import decode_answer_flags
@@ -81,15 +106,57 @@ def build_golden() -> Dict[str, np.ndarray]:
         eng.stop()
 
 
+def build_eval_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
+    import jax.numpy as jnp
+
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu.train.checkpoint import _flatten
+    from dfol_vqa_tpu.train.trainer import VQATrainer
+    from dfol_vqa_tpu_torch.data import evalset
+
+    ont = GQAOntology()
+    cfg = evalset.demo_eval_config(tiny=True, stream_dtype="float32")
+    world = evalset.demo_world(ont, tiny=True)
+    datasets = evalset.eval_datasets(world, evalset.TINY_MIX, evalset.TINY_BATCH,
+                                     evalset.TINY_IMAGES_PER_BATCH)
+    loader = evalset.eval_loader(cfg, ont, world, datasets)
+    interp = Interpreter(cfg, ont)
+    params = interp.init_params(jax.random.PRNGKey(0))
+    out = {f"params/{k}": v for k, v in _flatten(jax.tree.map(np.asarray, params)).items()}
+    out["datasets"] = np.array(json.dumps(datasets, sort_keys=True))
+    for k, lb in enumerate(loader):
+        res = interp.forward(params, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask),
+                             {a: jnp.asarray(v) for a, v in lb.arrays.items()}, lb.spec,
+                             False, None)
+        p = f"batch/{k}/"
+        out[p + "objects"] = lb.objects
+        out[p + "obj_mask"] = lb.obj_mask
+        for a, v in lb.arrays.items():
+            out[p + "arrays/" + a] = v
+        out[p + "log_probability"] = np.asarray(res["log_probability"])
+        out[p + "answer_flags"] = np.asarray(res["answer_flags"])
+    trainer = VQATrainer(cfg, interp)
+    out["test_epoch/error"] = np.asarray(trainer.test_epoch(loader, params))
+    out["test_epoch/counts"] = trainer.last_test_counts
+    preds = trainer.predict(loader, params, io.StringIO())
+    out["predict"] = np.array(json.dumps(preds))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN_PATH)
+    ap.add_argument("--eval-out", default=EVAL_GOLDEN_PATH)
     args = ap.parse_args(argv)
-    golden = build_golden()
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    np.savez_compressed(args.out, **golden)
-    n = sum(1 for k in golden if k.endswith("/question"))
-    print(f"wrote {args.out}: {n} requests, {os.path.getsize(args.out)} bytes")
+    for path, golden, unit in ((args.out, build_golden(), "/question"),
+                               (args.eval_out, build_eval_golden(), "/log_probability")):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(path, **golden)
+        n = sum(1 for k in golden if k.endswith(unit))
+        print(f"wrote {path}: {n} {'requests' if unit == '/question' else 'batches'}, "
+              f"{os.path.getsize(path)} bytes")
     return 0
 
 

@@ -224,13 +224,22 @@ def test_engine_rejects_bad_requests():
 
 
 def test_shared_image_route_not_ported(engines):
-    _, ont, world, _, _, teng = engines
+    """Two questions on one image (U * 2 <= B) take the shared-image route
+    (``oracle.rel_cache_shared``) and give JAX's log-probabilities."""
+    _, ont, world, jeng, _, teng = engines
     qs = world.generate_family("verify_rel", 2, length=1, seed=10)
     cfg, lb = batch_of(ont, world, qs)
+    lb.arrays["img_index"] = np.zeros(2, np.int32)  # both rows on the first one's image
+    want = jinterp.Interpreter(cfg, ont).forward(
+        jeng.params, jnp.asarray(lb.objects[:1]), jnp.asarray(lb.obj_mask[:1]),
+        {k: jnp.asarray(v) for k, v in lb.arrays.items()}, lb.spec, False, None)
     _, objs, mask, arrays = to_device_batch(lb, "cpu")
-    arrays["img_index"] = torch.zeros(2, dtype=torch.int32)  # both rows on one image
-    with pytest.raises(NotImplementedError):
-        interp.Interpreter(cfg, ont).forward(teng.params, objs[:1], mask[:1], arrays, lb.spec)
+    with torch.inference_mode():
+        got = interp.Interpreter(cfg, ont).forward(teng.params, objs[:1], mask[:1], arrays,
+                                                   lb.spec)
+    np.testing.assert_allclose(got["log_probability"].numpy(),
+                               np.asarray(want["log_probability"]), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got["answer_flags"].numpy(), np.asarray(want["answer_flags"]))
 
 
 def test_concurrent_submitters_all_answered():
@@ -265,7 +274,9 @@ def test_concurrent_submitters_all_answered():
 def test_port_never_imports_jax():
     code = ("import sys, dfol_vqa_tpu_torch, dfol_vqa_tpu_torch.serve, "
             "dfol_vqa_tpu_torch.convert, dfol_vqa_tpu_torch.ops.relation_oracle, "
-            "dfol_vqa_tpu_torch.data.transfer, chip_smoke; "
+            "dfol_vqa_tpu_torch.ops.pair_mlp, dfol_vqa_tpu_torch.ops.shared_contract, "
+            "dfol_vqa_tpu_torch.train.trainer, dfol_vqa_tpu_torch.train.checkpoint, "
+            "dfol_vqa_tpu_torch.data.evalset, dfol_vqa_tpu_torch.data.transfer, chip_smoke; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300, cwd=root)
