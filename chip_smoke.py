@@ -5,12 +5,15 @@
 Phases, each reported on its own line(s):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of every CUDA kernel of the serving and offline-eval paths from
-   ``csrc/`` (nvcc, sm_90a, all started together), with its seconds and the
-   ptxas register, shared-memory and spill lines;
+2. the build of every CUDA kernel of the serving, offline-eval and training
+   paths from ``csrc/`` (nvcc, sm_90a, all four started together), with its
+   seconds and the ptxas register, shared-memory and spill lines;
 3. each kernel against its plain PyTorch version at the paths' shapes, with
    median CUDA-event times of both, timed in turns: the relation-oracle pair
-   tail at B=32, O=24 and O=100; the pair MLP at U=8 and U=26 (the unique
+   tail at B=32, O=24 and O=100; its backward (kernel 2) at B=32 with O=24
+   and O=100 and at B=80 with O=100, all nine gradients within
+   ``BWD_RTOL`` of each gradient's largest value (float32 sums over up to
+   800k pairs in another order); the pair MLP at U=8 and U=26 (the unique
    images of 80- and 256-question batches at 10 questions per image) and the
    shared contraction at B=80/U=8 and B=256/U=26, both at O=100, H=256,
    E=300, R=8 with 3 pad slots, with h2 in float32 and bfloat16. Tolerance:
@@ -43,11 +46,31 @@ Phases, each reported on its own line(s):
    stream, whose agreement with the float32 answers is reported, not
    gated. Questions per
    second, ms per batch and the device's busy/idle share of one profiled
-   pass are printed.
+   pass are printed;
+7. training at production dims (``data/trainset.py``: batch 80, O=100,
+   random weights from seed 0, dropout 0): the shuffled set's relating
+   batches take the per-question route (U * 2 > B), the deduplicated set's
+   the shared route. Three steps per route run on the card and on the CPU
+   plain path from the same weights: every step's gradients within
+   ``TRAIN_GRAD_RTOL`` of each leaf's largest value, every loss within
+   ``TRAIN_LOSS_RTOL``, the parameters after the steps finite and, element
+   by element, within the bound that Adam's update puts on gradients that
+   far apart (``adam_bound``); kernels 1 and 2 launch once per
+   per-question relating step, kernels 3 and 4 once per shared one. Then
+   the JAX training golden (``torch_port_golden_train.npz``) on the card,
+   and the main run: a timed ``VQATrainer.train`` of 21 steps (3 epochs,
+   the default bf16 h2 stream, a validation pass at each epoch's end and
+   every 4 steps, async checkpoints) with steps/s, questions/s and
+   ms/step. Its launches are counted from 0: kernels 1 and 2 once per
+   per-question relating step, kernels 3 and 4 once per relating batch of
+   the validation passes (shared route), every batch on its route. Then one
+   profiled epoch of train steps (device busy/idle share, top device
+   events). The loss trend is reported, not gated.
 
-Then one JSON line with each kernel's launches, error and times, and last
-the result line ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero before the result line. TF32 is off for matmuls and cuDNN.
+Then one JSON line with each kernel's launches (summed over the main runs
+of phases 4, 6 and 7, each counted from 0), error and times, and last the
+result line ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero before the result line. TF32 is off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
@@ -68,9 +91,21 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 EVAL_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
 KERNEL_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4
 TIE_ULPS = 4  # float32 ULPs within which two query options count as tied
+# gradients: float32 sums over up to 800k pairs (and the plain path's cuBLAS /
+# MKL sums) taken in another order, relative to the gradient's largest value
+BWD_RTOL = 1e-4
+GOLDEN_GRAD_RTOL = 1e-4
+# card vs CPU at production widths, per parameter leaf and step: 6x the worst
+# reading with TF32 off on an H100 (5.0e-5, the shared route's third step,
+# after Adam has moved the two sides' parameters apart by up to 0.12 lr);
+# with TF32 matmuls on, the same steps read 2.7e-3 and 8.0e-3
+TRAIN_GRAD_RTOL = 3e-4
+TRAIN_LOSS_RTOL = 1e-4
+ADAM_EPS = 1e-8
 
 # (family, hops, count): the serving slice's terminals, 64 requests
 SERVE_MIX = (("exist", 0, 10), ("exist", 1, 10), ("exist", 2, 12),
@@ -147,10 +182,145 @@ def phase_kernels(eng, stamp: str) -> dict:
             "max_abs_err": worst, "ms": t24["kernel"], "plain_ms": t24["plain"]}
 
 
+def phase_bwd_kernel(eng, stamp: str) -> dict:
+    """Kernel 2 against its plain version at the training shapes, with the
+    engine's weights: all nine gradients (dgeom included) for a random
+    cotangent, pad slots included; returns the kernel's record, timed at
+    B=80, O=100 without dgeom (the training path does not ask for it)."""
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+
+    cfg, params, device = eng.cfg, eng.params, eng.device
+    gen = torch.Generator().manual_seed(3)
+    names = ("dh_s", "dh_o", "dgeom", "dWg", "db0", "dW2", "db2", "de_sel", "db_sel")
+    worst_abs, times = 0.0, {}
+    for B, O in ((32, 24), (32, 100), (80, 100)):
+        R = cfg.tpu.rel_table_size
+        attr_in = torch.rand((B, O, cfg.attr_input_dim), generator=gen).to(device)
+        pos = torch.rand((B, O, 4), generator=gen).to(device)
+        tok = torch.randint(1, 2336, (B, R), generator=gen, dtype=torch.int32)
+        tok[:, 5:] = 0  # pad slots
+        tok = tok.to(device)
+        g = torch.randn((B, R, O, O), generator=gen).to(device)  # nonzero on pad slots too
+        with torch.no_grad():
+            ins = [t.contiguous() for t in ro.pair_tail_inputs(params, attr_in, pos, tok)]
+            got = ro.pair_tail_bwd_kernel(*ins, tok, g, True)
+            want = ro.pair_tail_bwd_reference(*ins, tok, g, True)
+            torch.cuda.synchronize()
+            rel = {}
+            for name, a, b in zip(names, got, want):
+                err, mag = (a - b).abs().max().item(), b.abs().max().item()
+                if not (torch.isfinite(a).all() and err <= BWD_RTOL * max(mag, 1e-30)):
+                    raise AssertionError(f"relation_oracle_bwd {name} disagrees at B={B} O={O}: "
+                                         f"max abs {err!r} > {BWD_RTOL} x {mag!r}")
+                rel[name] = err / max(mag, 1e-30)
+                worst_abs = max(worst_abs, err)
+            t = cuda_ms({"kernel": lambda: ro.pair_tail_bwd_kernel(*ins, tok, g, False),
+                         "plain": lambda: ro.pair_tail_bwd_reference(*ins, tok, g, False)}, reps=5)
+        times[(B, O)] = t
+        worst = max(rel, key=rel.get)
+        log(f"[3] relation_oracle_bwd B={B} O={O} H=256 E=300 R=8: nine gradients within "
+            f"{BWD_RTOL} of their largest value (worst {worst} {rel[worst]!r}) "
+            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} ({stamp})")
+    t = times[(80, 100)]
+    return {"name": "relation_oracle_bwd", "route": "cuda",
+            "source": "dfol_vqa_tpu_torch/csrc/relation_oracle_bwd.cu",
+            "replaces": "dfol_vqa_tpu/ops/pallas/relation_oracle.py:66",
+            "max_abs_err": worst_abs, "ms": t["kernel"], "plain_ms": t["plain"]}
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ULP of each value: 2^(e-8) for |x| in [2^(e-1), 2^e)."""
     _, e = torch.frexp(x.float())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def clip_scale(cfg, grads: dict, trainable: set) -> float:
+    """The optimizer's global-norm clip factor for these gradients."""
+    norm = np.sqrt(sum(float(np.sum(grads[k].astype(np.float64) ** 2)) for k in trainable))
+    return 1.0 if norm < cfg.clip_norm else cfg.clip_norm / norm
+
+
+def adam_bound(cfg, trainable: set, steps) -> dict:
+    """Per-element bound on |other - ref| parameters after ``len(steps)``
+    optimizer steps (global-norm clip, L2 decay, Adam) of two
+    implementations from the same start. ``steps`` holds, per step, (ref
+    gradients, other gradients, ref parameters before the step, delta): flat
+    numpy dicts by checkpoint key, the other side's gradient known to lie
+    within ``delta[key]`` of the ref's, element by element (the caller's
+    gradient gate).
+
+    Interval arithmetic in float64: the other side's clipped, decayed
+    gradient lies in an interval around the ref's (its own clip factor, the
+    delta, the decay of parameters already apart by the bound so far, and
+    4 float32 epsilons of rounding); Adam's moments then lie in the
+    intervals the recurrences give, and the step m_hat / (sqrt(v_hat) + eps),
+    monotone in each moment, takes its extremes at their corners, and never
+    exceeds ``cap`` in size. A near-zero gradient whose interval holds 0 so
+    gets up to 2 cap lr (a sign flip), a large one about lr * delta / |g|.
+    Each step adds 1e-4 lr for
+    float32 bias correction (1 - 0.999^t keeps ~4 digits in optax) and
+    two float32 ULPs of the parameter for rounding p + step. Frozen leaves
+    must not move: their bound is 0."""
+    b1, b2, lr, wd, f32 = 0.9, 0.999, cfg.learning_rate, cfg.weight_decay, np.float32
+    keys = list(steps[0][0])
+    bound = {k: np.zeros(steps[0][0][k].shape) for k in keys}
+    state = {k: [0.0] * 6 for k in trainable}  # m, v of the ref; m_lo, m_hi, v_lo, v_hi
+    for t, (ref, other, params, delta) in enumerate(steps, 1):
+        s_ref, s_other = clip_scale(cfg, ref, trainable), clip_scale(cfg, other, trainable)
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        # |m_hat| / sqrt(v_hat) <= cap for any gradients (Cauchy-Schwarz on
+        # the two moments' sums): about 1 in the first steps
+        cap = (1 - b1) / c1 * np.sqrt(c2 / (1 - b2) * sum((b1 * b1 / b2) ** j for j in range(t)))
+
+        def u(m, v):
+            return (m / c1) / (np.sqrt(v / c2) + ADAM_EPS)
+
+        for k in trainable:
+            g, p = ref[k].astype(np.float64), params[k].astype(np.float64)
+            x = s_ref * g + wd * p
+            lo = s_other * (g - delta[k]) + wd * (p - bound[k])
+            hi = s_other * (g + delta[k]) + wd * (p + bound[k])
+            lo, hi = lo - 4 * np.finfo(f32).eps * np.abs(lo), hi + 4 * np.finfo(f32).eps * np.abs(hi)
+            sq_lo = np.where(lo * hi <= 0, 0.0, np.minimum(lo * lo, hi * hi))
+            sq_hi = np.maximum(lo * lo, hi * hi)
+            m, v, m_lo, m_hi, v_lo, v_hi = state[k]
+            m, m_lo, m_hi = (b1 * a + (1 - b1) * y for a, y in ((m, x), (m_lo, lo), (m_hi, hi)))
+            v, v_lo, v_hi = (b2 * a + (1 - b2) * y for a, y in ((v, x * x), (v_lo, sq_lo),
+                                                                (v_hi, sq_hi)))
+            state[k] = [m, v, m_lo, m_hi, v_lo, v_hi]
+            corners = [u(a, c) for a in (m_lo, m_hi) for c in (v_lo, v_hi)]
+            step = u(m, v)
+            spread = np.maximum(np.minimum(np.maximum.reduce(corners), cap) - step,
+                                step - np.maximum(np.minimum.reduce(corners), -cap))
+            bound[k] = bound[k] + lr * (spread + 1e-4) + 2 * np.spacing(np.abs(p).astype(f32))
+    return bound
+
+
+def grads_of(params) -> dict:
+    """Flat {checkpoint key: gradient} copies of ``params``' gradients as
+    float32 numpy (the optimizer clips them in place); a parameter without a
+    gradient counts as zeros."""
+    return {name.replace(".", "/"): (p.grad.detach().cpu().numpy().copy() if p.grad is not None
+                                     else np.zeros(tuple(p.shape), np.float32))
+            for name, p in params.named_parameters()}
+
+
+def trainable_keys(cfg, params) -> set:
+    """Checkpoint keys of the parameters the optimizer trains."""
+    from dfol_vqa_tpu_torch.train.optim import trainable_labels
+
+    return {name.replace(".", "/") for name, on in trainable_labels(params, cfg).items() if on}
+
+
+def flat_params(params) -> dict:
+    """Flat {checkpoint key: value} copies of ``params`` as numpy."""
+    return {name.replace(".", "/"): p.detach().cpu().numpy().copy()
+            for name, p in params.named_parameters()}
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """{key: (max abs difference, max abs of want)} per leaf."""
+    return {k: (float(np.abs(got[k] - w).max()), float(np.abs(w).max())) for k, w in want.items()}
 
 
 def phase_shared_kernels(params, cfg, device, stamp: str):
@@ -367,6 +537,73 @@ def check_eval_golden(device, atol: float) -> int:
     return n
 
 
+def check_train_golden(device, grad_rtol: float) -> int:
+    """One training step of the port against the JAX training golden on
+    ``device``, for its per-question-route and shared-route batch; returns
+    the number of batches checked. The rebuilt batches must equal the
+    golden's; the loss agree within ``grad_rtol`` relative, every gradient
+    leaf within ``grad_rtol`` of max(1, its largest value), and every
+    parameter's change in one optimizer step within ``adam_bound`` of JAX's
+    for gradients that far apart. On a CUDA
+    device the per-question batch must launch kernels 1 and 2 and the
+    shared batch kernels 3 and 4."""
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.convert import params_from_numpy
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    golden = np.load(TRAIN_GOLDEN)
+    start = {k[len("params/"):]: golden[k] for k in golden.files if k.startswith("params/")}
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config(tiny=True)
+    cfg.weight_decay = 0.0
+    world = evalset.demo_world(ont, tiny=True)
+    trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    n = 0
+    for route in ("per_question", "shared"):
+        p = f"batch/{route}/"
+        files = json.loads(str(golden[f"datasets/{route}"]))
+        (lb,) = list(trainset.train_loader(cfg, ont, world, files, shuffle=False))
+        for name, v in [("objects", lb.objects), ("obj_mask", lb.obj_mask)] + [
+                ("arrays/" + a, v) for a, v in lb.arrays.items()]:
+            if not np.array_equal(v, golden[p + name]):
+                raise AssertionError(f"{route} batch: {name} differs from the golden")
+        params = params_from_numpy(start).to(device)
+        opt = Optimizer(cfg, params)
+        before = (ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES)
+        loss = trainer.compute_grads(params, lb).item()
+        want = float(golden[p + "loss"])
+        if not (np.isfinite(loss) and abs(loss - want) <= grad_rtol * abs(want)):
+            raise AssertionError(f"{route} batch: loss {loss!r} != golden {want!r}")
+        want_grads = {k[len(p + "grads/"):]: golden[k] for k in golden.files
+                      if k.startswith(p + "grads/")}
+        got_grads, delta = grads_of(params), {}
+        for k, (err, mag) in leaf_errors(got_grads, want_grads).items():
+            delta[k] = grad_rtol * max(1.0, mag)
+            if not err <= delta[k]:
+                raise AssertionError(f"{route} batch: gradient {k} off by {err!r} (max {mag!r})")
+        opt.step()
+        bound = adam_bound(cfg, trainable_keys(cfg, params),
+                           [(want_grads, got_grads, start, delta)])
+        after = flat_params(params)
+        for k, s0 in start.items():
+            if not np.all(np.abs((after[k] - s0) - golden[p + "update/" + k]) <= bound[k]):
+                raise AssertionError(f"{route} batch: the step's change of {k} is off")
+        if torch.device(device).type == "cuda":
+            d = [a - b for a, b in zip((ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES),
+                                       before)]
+            if d != ([1, 1, 0, 0] if route == "per_question" else [0, 0, 1, 1]):
+                raise AssertionError(f"{route} batch launched (fwd, bwd, pair_mlp, contract) "
+                                     f"{d} times")
+        n += 1
+    return n
+
+
 def device_time(prof):
     """From a ``torch.profiler`` run: the union of its device-side (kernel,
     copy) event intervals in ms, None when it saw no device event, and the
@@ -535,6 +772,221 @@ def phase_eval(device, stamp: str) -> dict:
     return launches
 
 
+TRAIN_COMPARE_STEPS = 3  # card vs CPU steps per route (a CPU step at O=100 takes seconds)
+
+
+class RouteCounter:
+    """A loader that counts its passes and the relating batches it yields,
+    and raises when a relating batch would take another relation route than
+    ``route`` ("per_question": U * 2 > B, "shared": U * 2 <= B)."""
+
+    def __init__(self, loader, route: str):
+        self.loader, self.route = loader, route
+        self.passes = self.relating = 0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
+
+        self.passes += 1
+        for lb in self.loader:
+            if spec_needs_relations(lb.spec):
+                U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+                if (U * 2 <= B) != (self.route == "shared"):
+                    raise AssertionError(f"a relating {lb.spec.terminal_op} batch with U={U}, "
+                                         f"B={B} would not take the {self.route} route")
+                self.relating += 1
+            yield lb
+
+
+def profile_steps(trainer, params, opt, batches) -> tuple:
+    """``train_step`` over ``batches`` under ``torch.profiler``: (wall ms,
+    device busy ms or None, device ms and count by event name)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for lb in batches:
+            trainer.train_step(params, opt, lb)
+        torch.cuda.synchronize()
+        wall = 1000 * (time.perf_counter() - t0)
+    busy, by_name = device_time(prof)
+    return wall, busy, by_name
+
+
+def phase_train(device, stamp: str) -> dict:
+    """Training at production widths on the card (``data/trainset.py``,
+    random weights from seed 0, float32 h2 stream for the comparison);
+    returns the kernel launches of the main run, the timed
+    ``VQATrainer.train``."""
+    import tempfile
+
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    t0 = time.perf_counter()
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config(stream_dtype="float32")
+    world = evalset.demo_world(ont)
+    shuffled_sets = trainset.train_datasets(world, trainset.PRODUCTION_MIX)
+    dedup_sets = evalset.eval_datasets(world, trainset.PRODUCTION_MIX, trainset.PRODUCTION_BATCH,
+                                       evalset.PRODUCTION_IMAGES_PER_BATCH)
+    routes = {"per_question": list(trainset.train_loader(cfg, ont, world, shuffled_sets)),
+              "shared": list(trainset.train_loader(cfg, ont, world, dedup_sets, shuffle=False))}
+    for route, batches in routes.items():
+        shapes = [(lb.spec.terminal_op, lb.objects.shape[0], len(lb.arrays["img_index"]))
+                  for lb in batches]
+        for lb, (term, U, B) in zip(batches, shapes):
+            if spec_needs_relations(lb.spec) and (U * 2 <= B) != (route == "shared"):
+                raise AssertionError(f"a relating {term} batch with U={U}, B={B} would not take "
+                                     f"the {route} route")
+        log(f"[7] {route} training set: {len(batches)} batches of {cfg.train_batch_size} "
+            f"(terminal, U_pad, B): {shapes}")
+    log(f"[7] sets built in {time.perf_counter() - t0!r} s")
+
+    params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    lr = cfg.learning_rate
+    trainable = trainable_keys(cfg, params_cpu)
+
+    def counts():
+        return ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES
+
+    for route, batches in routes.items():
+        batches = batches[:TRAIN_COMPARE_STEPS]
+        relating = sum(spec_needs_relations(lb.spec) for lb in batches)
+        p_gpu, p_cpu = copy.deepcopy(params_cpu).to(device), copy.deepcopy(params_cpu)
+        gpu = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+        cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
+        o_gpu, o_cpu = Optimizer(cfg, p_gpu), Optimizer(cfg, p_cpu)
+        before = counts()
+        steps, losses, worst = [], [], (0.0, "")
+        for k, lb in enumerate(batches):
+            l_gpu = gpu.compute_grads(p_gpu, lb).item()
+            start = flat_params(p_cpu)
+            l_cpu = cpu.compute_grads(p_cpu, lb).item()
+            g_gpu, g_cpu, delta = grads_of(p_gpu), grads_of(p_cpu), {}
+            for key, (err, mag) in leaf_errors(g_gpu, g_cpu).items():
+                delta[key] = TRAIN_GRAD_RTOL * mag
+                if not err <= delta[key]:
+                    raise AssertionError(f"{route} step {k} gradient {key}: card vs CPU "
+                                         f"{err!r} > {TRAIN_GRAD_RTOL} x {mag!r}")
+                worst = max(worst, (err / max(mag, 1e-30), f"{key} at step {k}"))
+            steps.append((g_cpu, g_gpu, start, delta))
+            if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu)):
+                raise AssertionError(f"{route} step {k}: loss {l_gpu!r} on the card, {l_cpu!r} "
+                                     "on the CPU")
+            losses.append((l_gpu, l_cpu))
+            o_gpu.step()
+            o_cpu.step()
+        d = [a - b for a, b in zip(counts(), before)]
+        want = [relating, relating, 0, 0] if route == "per_question" else [0, 0, relating, relating]
+        if d != want:
+            raise AssertionError(f"{route}: {relating} relating steps launched (fwd, bwd, "
+                                 f"pair_mlp, contract) {d} times, not {want}")
+        n = len(batches)
+        bound = adam_bound(cfg, trainable, steps)
+        got, want_p = flat_params(p_gpu), flat_params(p_cpu)
+        if not all(torch.isfinite(p).all() for p in p_gpu.parameters()):
+            raise AssertionError(f"{route}: non-finite parameters after {n} steps on the card")
+        diff, used = 0.0, (0.0, "")
+        for key, b in bound.items():
+            gap = np.abs(got[key].astype(np.float64) - want_p[key])
+            if not np.all(gap <= b):
+                at = np.unravel_index(np.argmax(gap - b), gap.shape)
+                raise AssertionError(f"{route}: parameter {key}{list(at)} after {n} steps is "
+                                     f"{gap[at]!r} from the CPU's, beyond the Adam bound {b[at]!r}")
+            diff = max(diff, float(gap.max()))
+            if np.any(b > 0):
+                used = max(used, (float(np.max(gap / np.where(b > 0, b, np.inf))), key))
+        log(f"[7] {route} route, {n} steps card vs CPU plain path: gradients of every step within "
+            f"{TRAIN_GRAD_RTOL} of each leaf's largest (worst {worst[1]} {worst[0]!r}); losses "
+            f"(card, CPU) {losses}; parameters apart by at most {diff / lr!r} lr, within the Adam "
+            f"bound of those gradient gates element by element (largest share of its bound "
+            f"{used[0]!r}, {used[1]}); launches (fwd, bwd, pair_mlp, contract) {d} for "
+            f"{relating} relating steps")
+
+    n = check_train_golden(device, GOLDEN_GRAD_RTOL)
+    log(f"[7] JAX training golden: {n} batches (per-question and shared route), loss and "
+        f"gradients within {GOLDEN_GRAD_RTOL} relative, one optimizer step within the Adam bound")
+
+    # the main path: a timed VQATrainer.train with the default bf16 h2 stream,
+    # mid-epoch and per-epoch validation, and async checkpoints
+    cfg = trainset.demo_train_config()
+    cfg.epoch_num = 3
+    cfg.checkpointing_frequency = 4  # one mid-epoch validation in each 7-step epoch
+    trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    params = copy.deepcopy(params_cpu).to(device)
+    train_ld = RouteCounter(trainset.train_loader(cfg, ont, world, shuffled_sets), "per_question")
+    val_ld = RouteCounter(trainset.train_loader(cfg, ont, world, dedup_sets, shuffle=False),
+                          "shared")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        ro.LAUNCHES = ro.BWD_LAUNCHES = pm.LAUNCHES = sc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        params, errors, losses = trainer.train(train_ld, val_ld, params,
+                                               last_export_path_base=os.path.join(tmp, "last"),
+                                               best_export_path_base=os.path.join(tmp, "best"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"relation_oracle_fwd": ro.LAUNCHES, "relation_oracle_bwd": ro.BWD_LAUNCHES,
+                    "pair_mlp_fwd": pm.LAUNCHES, "shared_contract_fwd": sc.LAUNCHES}
+        passes = cfg.epoch_num * (1 + len(train_ld) // cfg.checkpointing_frequency)
+        want = {"relation_oracle_fwd": train_ld.relating, "relation_oracle_bwd": train_ld.relating,
+                "pair_mlp_fwd": val_ld.relating, "shared_contract_fwd": val_ld.relating}
+        if launches != want or val_ld.passes != passes or train_ld.passes != cfg.epoch_num:
+            raise AssertionError(
+                f"train(): launches {launches}, not {want} ({train_ld.relating} per-question "
+                f"relating steps in {train_ld.passes} epochs, {val_ld.relating} shared-route "
+                f"relating validation batches in {val_ld.passes} passes, {passes} expected)")
+        relating = {"train": train_ld.relating, "validation": val_ld.relating}
+        files = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                       for d, _, fs in os.walk(tmp) for f in fs)
+        t0 = time.perf_counter()
+        trainer.test_epoch(val_ld, params)
+        val_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trainer._save(os.path.join(tmp, "timed"), params, sync=True)
+        save_s = time.perf_counter() - t0
+        ckpt_mb = os.path.getsize(os.path.join(tmp, "timed", cfg.model_name + ".npz")) / 2**20
+    steps = trainer.global_step
+    if not (all(torch.isfinite(p).all() for p in params.parameters()) and set(files) >= {
+            "last/model.npz", "best/model.npz", "best/losses.npy", "best/errors.npy"}):
+        raise AssertionError(f"train(): non-finite parameters or missing files {files}")
+    q = steps * cfg.train_batch_size
+    log(f"[7] VQATrainer.train (bf16 h2 stream): {steps} steps in {cfg.epoch_num} epochs, "
+        f"{passes} validation passes of {len(val_ld)} batches (each epoch's end and every "
+        f"{cfg.checkpointing_frequency} steps) and async saves: {wall!r} s = {steps / wall!r} "
+        f"steps/s, {q / wall!r} questions/s, {1000 * wall / steps!r} ms/step, validation "
+        f"included ({stamp}); launches {launches} for relating batches {relating}: kernels 1 "
+        f"and 2 once per per-question relating step, kernels 3 and 4 once per shared-route "
+        f"relating validation batch; epoch "
+        f"losses {losses[:, 0].tolist()} (trend reported, not gated); over_all error by epoch "
+        f"{errors[0, :, 0].tolist()}; files {files}")
+    log(f"[7] inside train(): one validation pass ({len(val_ld)} batches) {val_s!r} s, one "
+        f"synchronous save of the {ckpt_mb!r} MiB checkpoint {save_s!r} s ({stamp})")
+
+    batches = list(train_ld)
+    opt = Optimizer(cfg, params)
+    wall, busy, by_name = profile_steps(trainer, params, opt, batches)  # warm: the profiler's own
+    wall, busy, by_name = profile_steps(trainer, params, opt, batches)
+    share = ("not measured (the profiler saw no device event)" if busy is None else
+             f"device busy {busy!r} ms, idle share {1 - busy / wall!r}")
+    log(f"[7] profiled epoch of {len(batches)} train steps (loader outside): wall {wall!r} ms = "
+        f"{wall / len(batches)!r} ms/step, {share} ({stamp})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    log("[7]   device ms by event (count): " + "; ".join(
+        f"{name[:60]} {ms!r} ({n})" for name, (ms, n) in top))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -552,9 +1004,10 @@ def main() -> int:
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, tf32 matmul/cudnn off")
 
-    modules = {"relation_oracle": ro, "pair_mlp": pm, "shared_contract": sc}
-    with ThreadPoolExecutor(len(modules)) as pool:
-        builds = {name: pool.submit(mod.build) for name, mod in modules.items()}
+    builds = {"relation_oracle": ro.build, "relation_oracle_bwd": ro.build_bwd,
+              "pair_mlp": pm.build, "shared_contract": sc.build}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        builds = {name: pool.submit(build) for name, build in builds.items()}
         builds = {name: fut.result() for name, fut in builds.items()}
     for name, built in builds.items():
         log(f"[2] built {name} in {built.seconds!r} s: {' '.join(built.command)}")
@@ -564,9 +1017,9 @@ def main() -> int:
 
     _, _, world, eng = build_demo_engine(device=device, max_batch=32, seed=0)
     try:
-        records = [phase_kernels(eng, stamp)]
+        records = [phase_kernels(eng, stamp), phase_bwd_kernel(eng, stamp)]
         records += phase_shared_kernels(eng.params, eng.cfg, device, stamp)
-        records[0]["launches"] = phase_serve(eng, world, stamp)
+        serve = {"relation_oracle_fwd": phase_serve(eng, world, stamp)}
     finally:
         eng.stop()
     n = check_golden(device, GOLDEN_ATOL)
@@ -574,9 +1027,13 @@ def main() -> int:
     n = check_eval_golden(device, GOLDEN_ATOL)
     log(f"[5] JAX eval golden: {n} loader batches, answers, test_epoch error and predict "
         f"equal, log_probability within {GOLDEN_ATOL}")
-    launches = phase_eval(device, stamp)
-    for rec in records[1:]:
-        rec["launches"] = launches[rec["name"]]
+    paths = {"serve": serve, "eval": phase_eval(device, stamp), "train": phase_train(device, stamp)}
+    # each path's counts were set to 0 just before its main run and read just after
+    for rec in records:
+        rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{rec['name']} never launched on a main path")
+    log(f"launches by main path: {paths}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

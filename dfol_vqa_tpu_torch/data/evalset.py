@@ -10,8 +10,10 @@ one question list per (family, hops) entry — one file-dataset each, as a
 file holds one bucket — where every ``batch`` consecutive questions are
 drawn from ``images_per_batch`` images of their own and sorted by image.
 ``exist`` questions take the ``bench.py`` shape (select, then filter and
-relate alternating: select -> filter -> relate at two hops); the other
-families come from ``PlantedWorld.generate_family``. Answers are exact.
+relate alternating: select -> filter -> relate at two hops); ``end``
+questions are statements of that shape (the compiler appends ``end`` to a
+program whose last op is select, filter or relate); the other families come
+from ``PlantedWorld.generate_family``. Answers are exact.
 
 numpy only: it imports neither torch nor jax, so the JAX golden script,
 the tests and ``chip_smoke.py`` share it.
@@ -103,6 +105,26 @@ def _exist_questions(world: PlantedWorld, n: int, hops: int, images: Sequence[st
     raise RuntimeError(f"only {len(out)}/{n} exist questions on {len(images)} images")
 
 
+def as_statement(q: dict) -> dict:
+    """An ``exist`` question -> the statement of its branch: the branch's
+    last op becomes the program's last op, so the compiler ends it with
+    ``end`` (a STATEMENT question, trained on its log-probability)."""
+    ops = q["program"]["branches"][0]
+    return {**q, "program": {"branches": [ops[:-1]] if len(ops) > 1 else [],
+                             "last_op": ops[-1]}}
+
+
+def family_questions(world: PlantedWorld, family: str, n: int, hops: int, seed: int,
+                     prefix: str) -> List[dict]:
+    """``n`` questions of ``family`` with ``hops`` hops over all of the
+    world's images."""
+    if family in ("exist", "end"):
+        qs = _exist_questions(world, n, hops, world.image_ids, np.random.default_rng(seed),
+                              prefix)
+        return [as_statement(q) for q in qs] if family == "end" else qs
+    return world.generate_family(family, n, length=hops, seed=seed, id_prefix=prefix)
+
+
 def eval_datasets(world: PlantedWorld, mix: Sequence[Tuple[str, int, int]], batch: int,
                   images_per_batch: int, seed: int = 0) -> List[List[dict]]:
     """One question list per (family, hops, count) entry of ``mix``; every
@@ -121,9 +143,11 @@ def eval_datasets(world: PlantedWorld, mix: Sequence[Tuple[str, int, int]], batc
             n = min(batch, count - start)
             lo = (k % slots) * images_per_batch
             prefix = f"{family}{hops}-b{k}-"
-            if family == "exist":
+            if family in ("exist", "end"):
                 part = _exist_questions(world, n, hops, ids[lo:lo + images_per_batch],
                                         np.random.default_rng((seed, fi, k)), prefix)
+                if family == "end":
+                    part = [as_statement(q) for q in part]
             else:
                 # the +0.5 keeps int(fraction * len(ids)) exact at both ends
                 part = world.generate_family(

@@ -1,10 +1,10 @@
 """The program executor, in PyTorch.
 
-Port of ``dfol_vqa_tpu/models/interpreter.py`` for the serving and
-offline-evaluation slices:
+Port of ``dfol_vqa_tpu/models/interpreter.py`` for the serving,
+offline-evaluation and training slices:
 
     scene build (featurizer, oracle caches)  ->  unrolled branch slot updates
-        ->  terminal op  ->  answer flags
+        ->  terminal op  ->  answer flags and the loss
 
 The program grid is static per ``BucketSpec`` and runs eagerly. Terminals
 ported: ``exist``/``end``, ``verify_rel`` and ``query_attr``; the others
@@ -12,9 +12,11 @@ raise ``NotImplementedError``. The relation cache takes one of two routes,
 as in JAX: when questions share images (U * 2 <= B, the deduplicated batches
 of ``BatchLoader``), ``oracle.rel_cache_shared``, which on a CUDA device
 runs the ``pair_mlp`` and ``shared_contract`` kernels; otherwise, per
-question, the relation-oracle kernel (``ops/relation_oracle.py``) when the
-tensors are on a CUDA device, ``tpu.use_pallas`` is set and
-``oracle_output_dim == 1``, and the plain ``oracle.rel_cache`` otherwise.
+question, the relation-oracle kernels (``ops/relation_oracle.py``, forward
+and, under autograd, backward) when the tensors are on a CUDA device,
+``tpu.use_pallas`` is set and ``oracle_output_dim == 1``, and the plain
+``oracle.rel_cache`` otherwise. The loss covers the question types of the
+ported terminals: STATEMENT, BINARY and QUERY.
 """
 
 from __future__ import annotations
@@ -116,6 +118,17 @@ def _gather_rel(rel_ll: torch.Tensor, idx: torch.Tensor, tok: torch.Tensor) -> t
 
 def _log_probability(att, quant, obj_mask, hard: bool):
     return VariableSet(att, quant, obj_mask).log_probability(hard_mode=hard)
+
+
+def _bce_terms(lp: torch.Tensor):
+    """Stable BCE log terms from a LOG probability, as the JAX package's
+    ``_bce_terms``: log(p) = lp clamped at -100 (torch BCE's clamp), and
+    log(1 - p) through expm1 with the argument bounded at 1e-12, so the
+    gradient stays finite when p saturates."""
+    lg = torch.clamp(lp, min=-100.0)
+    one_minus = -torch.expm1(torch.clamp(lp, max=-1e-12))
+    lg1 = torch.clamp(torch.log(torch.clamp(one_minus, min=1e-12)), min=-100.0)
+    return lg, lg1
 
 
 def _relate_core(subj, obj, ll, obj_mask):
@@ -326,6 +339,31 @@ class Interpreter:
             raise _not_ported(f"{qtype.name} answers", "remaining terminals queue")
         return out
 
+    def _loss(self, lp, arrays, qtype: QuestionType, params: om.OracleParams) -> torch.Tensor:
+        """Per-question-type loss summed over the batch's real questions
+        (``interpreter._loss``): STATEMENT -sum(lp), BINARY the BCE terms,
+        QUERY the grouped softmax cross-entropy over each question's options;
+        plus the ``l1_lambda`` term (mean absolute parameter value)."""
+        qmask = arrays["question_mask"]
+        if qtype == QuestionType.STATEMENT:
+            loss = -torch.sum(lp * qmask)
+        elif qtype == QuestionType.BINARY:
+            t = arrays["answer_binary"]
+            lg, lg1 = _bce_terms(lp)
+            loss = -torch.sum((t * lg + (1.0 - t) * lg1) * qmask)
+        elif qtype == QuestionType.QUERY:
+            opt_mask = arrays["opt_mask"]
+            denom = logic.masked_logsumexp(lp, opt_mask, axis=1)
+            loss = torch.sum((denom - torch.sum(arrays["answer_opt"] * lp * opt_mask, dim=1))
+                             * qmask)
+        else:
+            raise _not_ported(f"the {qtype.name} loss", "remaining terminals queue")
+        if self.cfg.l1_lambda > 0:
+            leaves = list(params.parameters())
+            total = sum(torch.sum(torch.abs(p)) for p in leaves)
+            loss = loss + self.cfg.l1_lambda * total / max(1, sum(p.numel() for p in leaves))
+        return loss
+
     # ------------------------------------------------------------ public API
 
     def forward(
@@ -352,8 +390,10 @@ class Interpreter:
     def execute(self, params: om.OracleParams, world: World, arrays: Dict[str, torch.Tensor],
                 spec: BucketSpec, is_training: bool = False) -> Dict[str, torch.Tensor]:
         """Run a compiled batch against a prebuilt World. Returns
-        ``log_probability``, ``answer_flags``, ``match`` and ``type``; the
-        loss comes with the training slice."""
+        ``log_probability``, ``answer_flags``, ``match`` and ``type``, and
+        with ``is_training`` the ``loss`` (summed over the real questions,
+        not yet normalised). JAX's jit drops the loss where nothing reads it;
+        eager PyTorch would launch its ops on every serving and eval batch."""
         if spec.terminal_op not in PORTED_TERMINALS:
             raise _not_ported(f"terminal {spec.terminal_op!r}", "remaining terminals queue")
         qtype = question_type_of(spec.terminal_op)
@@ -361,5 +401,7 @@ class Interpreter:
         hard = (not is_training) and self.cfg.hard_mode
         lp = self._terminal(world, arrays, spec, atts, hard)
         out = self._answers_and_metrics(lp, arrays, spec, qtype)
+        if is_training:
+            out["loss"] = self._loss(lp, arrays, qtype, params)
         out["type"] = torch.tensor(int(qtype))
         return out

@@ -56,7 +56,7 @@ def check_supported(cfg: Config) -> None:
     if cfg.oracle_output_dim != 1:
         raise NotImplementedError(
             "oracle_output_dim > 1 (trainable interpreter) is not ported yet "
-            "(ROADMAP queue 1: trainable interpreter)")
+            "(ROADMAP queue 4: the calibrator and the trainable interpreter)")
     if cfg.tpu.compute_dtype != "float32":
         raise NotImplementedError(
             f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: the port computes in float32")

@@ -16,18 +16,19 @@ padding) and with float32 dot operands (the TPU kernel rounds them to bf16
 on the MXU; JAX's CPU and interpret paths do not). It takes chains of up
 to ``MAX_LAYERS`` Linear layers after the split first layer.
 
-``pair_mlp_fused`` launches the kernel for CUDA tensors and uses
-``pair_mlp_reference`` — the same math in plain PyTorch, the kernel's test
-oracle — only for tensors on the CPU. The backward is training work (the
-JAX custom VJP recomputes through ``_pair_mlp_xla``); under autograd the
-wrapper raises.
+``pair_mlp_fused`` launches the kernel for CUDA tensors (through the
+``autograd.Function`` ``PairMLP``) and uses ``pair_mlp_reference`` — the
+same math in plain PyTorch, the kernel's test oracle — only for tensors on
+the CPU. The backward is plain PyTorch, as the JAX custom VJP's is XLA
+(``_pm_bwd``): it recomputes through ``pair_mlp_reference`` in float32 and
+differentiates that with the cotangent upcast to float32.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -115,20 +116,45 @@ def pair_mlp_launch(geom: torch.Tensor, h_s: torch.Tensor, h_o: torch.Tensor,
     return out
 
 
+class _Layer(NamedTuple):
+    """A Linear layer's (w, b) as the kernel and the plain version read it."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+
+
+class PairMLP(torch.autograd.Function):
+    """``PairMLP.apply(out_dtype, pos, h_s, h_o, w_g, b0, w_1, b_1, ...)``:
+    the kernel forward; the backward recomputes ``pair_mlp_reference`` in
+    float32 and differentiates it (the JAX ``_pm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, out_dtype, pos, h_s, h_o, w_g, b0, *wb):
+        ctx.save_for_backward(pos, h_s, h_o, w_g, b0, *wb)
+        layers = [_Layer(wb[k], wb[k + 1]) for k in range(0, len(wb), 2)]
+        return pair_mlp_launch(pair_geometry(pos).contiguous(), h_s, h_o, w_g, b0, layers,
+                               out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            layers = [_Layer(xs[k], xs[k + 1]) for k in range(5, len(xs), 2)]
+            out = pair_mlp_reference(*xs[:5], layers, torch.float32)
+            wanted = [x for x in xs if x.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g.float()) if wanted else ())
+        return (None, *[next(grads) if need else None for need in needs])
+
+
 def pair_mlp_fused(pos: torch.Tensor, h_s: torch.Tensor, h_o: torch.Tensor,
                    w_g: torch.Tensor, b0: torch.Tensor, layers: Sequence[nn.Linear],
                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Drop-in for the pair-MLP trunk of ``rel_cache_shared``, arguments as
-    ``pair_mlp_reference``'s. CUDA tensors launch the kernel (or raise);
-    CPU tensors take ``pair_mlp_reference``."""
+    ``pair_mlp_reference``'s. CUDA tensors launch the kernel through
+    ``PairMLP`` (or raise); CPU tensors take ``pair_mlp_reference``."""
     if h_s.device.type == "cpu":
         return pair_mlp_reference(pos, h_s, h_o, w_g, b0, layers, out_dtype)
-    layers = list(layers)
-    ins = [pos, h_s, h_o, w_g, b0] + [t for layer in layers for t in (layer.w, layer.b)]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        raise NotImplementedError(
-            "the pair_mlp kernel has no backward yet (ROADMAP queue 3: training); run it "
-            "under torch.inference_mode() or torch.no_grad()")
-    geom = pair_geometry(pos).contiguous()
-    return pair_mlp_launch(geom, h_s.contiguous(), h_o.contiguous(), w_g.contiguous(),
-                           b0.contiguous(), layers, out_dtype)
+    wb = [t.contiguous() for layer in layers for t in (layer.w, layer.b)]
+    return PairMLP.apply(out_dtype, pos, h_s.contiguous(), h_o.contiguous(), w_g.contiguous(),
+                         b0.contiguous(), *wb)

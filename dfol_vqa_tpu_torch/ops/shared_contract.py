@@ -15,10 +15,11 @@ questions sorted by image so each image's h2 is read from L2 by all of its
 questions. h2 and e_sel arrive in the stream dtype (float32 or bfloat16);
 the sums are float32.
 
-``shared_contract_kernel`` launches the kernel for CUDA tensors and uses
+``shared_contract_kernel`` launches the kernel for CUDA tensors (through
+the ``autograd.Function`` ``SharedContract``) and uses
 ``shared_contract_reference`` — the plain version, the kernel's test oracle
-— only for tensors on the CPU. Its backward (``_gc_bwd`` in JAX, plain XLA)
-is training work; under autograd the wrapper raises.
+— only for tensors on the CPU. The backward is ``shared_contract_bwd``,
+``_gc_bwd``'s math in plain PyTorch, as the JAX one is XLA.
 """
 
 from __future__ import annotations
@@ -105,25 +106,64 @@ def shared_contract_launch(h2_u: torch.Tensor, img_index: torch.Tensor, order: t
     return out
 
 
+def shared_contract_bwd(h2_u: torch.Tensor, img_index: torch.Tensor, e_sel: torch.Tensor,
+                        out: torch.Tensor, rel_tokens: torch.Tensor, g: torch.Tensor):
+    """The contraction's backward (``_gc_bwd``): from the saved output in the
+    cache dtype, dlogits = g * (1 - exp(out)) on live slots, since
+    sigmoid(-logits) = 1 - exp(logsigmoid(logits)). dh2 and de_sel are
+    summed image by image (mask the questions of image u, contract b and r
+    jointly), so no (B, O, O, E) gather is formed; the algebra is float32 and
+    the cotangents come back in the primals' dtypes -> (dh2, de_sel,
+    db_sel)."""
+    U = h2_u.shape[0]
+    live = (rel_tokens != 0).to(torch.float32)[:, :, None, None]
+    dlogits = g.float() * (1.0 - torch.exp(out.float())) * live  # (B, R, O, O)
+    onehot = (img_index.long()[None, :]
+              == torch.arange(U, device=img_index.device)[:, None]).to(torch.float32)
+    e32 = e_sel.float()
+    dh2 = torch.empty(h2_u.shape, dtype=torch.float32, device=h2_u.device)
+    d_esel = torch.zeros(e_sel.shape, dtype=torch.float32, device=e_sel.device)
+    for u in range(U):
+        dl_u = dlogits * onehot[u][:, None, None, None]
+        dh2[u] = torch.einsum("brij,bre->ije", dl_u, e32)
+        d_esel += torch.einsum("brij,ije->bre", dl_u, h2_u[u].float())
+    return dh2.to(h2_u.dtype), d_esel.to(e_sel.dtype), dlogits.sum((2, 3))
+
+
+class SharedContract(torch.autograd.Function):
+    """``SharedContract.apply(h2_u, img_index, order, e_sel, b_sel,
+    rel_tokens, default_ll, out_dtype)``, arguments as
+    ``shared_contract_launch``'s: the kernel forward and
+    ``shared_contract_bwd``; no cotangent for the indices."""
+
+    @staticmethod
+    def forward(ctx, h2_u, img_index, order, e_sel, b_sel, rel_tokens, default_ll, out_dtype):
+        out = shared_contract_launch(h2_u, img_index, order, e_sel, b_sel, rel_tokens,
+                                     default_ll, out_dtype)
+        ctx.save_for_backward(h2_u, img_index, e_sel, out, rel_tokens)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dh2, d_esel, d_bsel = shared_contract_bwd(*ctx.saved_tensors, g)
+        return dh2, None, None, d_esel, d_bsel, None, None, None
+
+
 def shared_contract_kernel(h2_u: torch.Tensor, img_index: torch.Tensor, e_sel: torch.Tensor,
                            b_sel: torch.Tensor, rel_tokens: torch.Tensor,
                            default_ll: float = DEFAULT_LOG_LIKELIHOOD,
                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Drop-in for the gather + einsum + logsigmoid + pad tail of
     ``rel_cache_shared``, arguments as ``shared_contract_reference``'s.
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``shared_contract_reference``. Image indices outside [0, U) are clamped
-    by the kernel."""
+    CUDA tensors launch the kernel through ``SharedContract`` (or raise);
+    CPU tensors take ``shared_contract_reference``. Image indices outside
+    [0, U) are clamped by the kernel."""
     if h2_u.device.type == "cpu":
         return shared_contract_reference(h2_u, img_index, e_sel, b_sel, rel_tokens, default_ll,
                                          out_dtype)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (h2_u, e_sel, b_sel)):
-        raise NotImplementedError(
-            "the shared_contract kernel has no backward yet (ROADMAP queue 3: training); run "
-            "it under torch.inference_mode() or torch.no_grad()")
     img = img_index.to(torch.int32).contiguous()
     order = torch.argsort(img, stable=True).to(torch.int32)
-    return shared_contract_launch(h2_u.contiguous(), img, order, e_sel.contiguous(),
-                                  b_sel.float().contiguous(),
-                                  rel_tokens.to(torch.int32).contiguous(), float(default_ll),
-                                  out_dtype)
+    return SharedContract.apply(h2_u.contiguous(), img, order, e_sel.contiguous(),
+                                b_sel.float().contiguous(),
+                                rel_tokens.to(torch.int32).contiguous(), float(default_ll),
+                                out_dtype)

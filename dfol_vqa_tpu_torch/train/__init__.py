@@ -1,1 +1,1 @@
-"""Evaluation loop and checkpoints (training is ROADMAP queue 3)."""
+"""Training and evaluation loop, optimizer and checkpoints."""

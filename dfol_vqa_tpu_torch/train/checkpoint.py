@@ -1,22 +1,30 @@
 """Checkpoints in the JAX package's npz format.
 
-Port of ``save``/``load`` in ``dfol_vqa_tpu/train/checkpoint.py`` for the
-npz backend: one ``<name>.npz`` of '/'-flattened parameter arrays (the keys
-of ``convert.flatten``, e.g. ``relation_network/layers/0/w``) plus the step
+Port of ``save``/``load``/``wait_pending`` in
+``dfol_vqa_tpu/train/checkpoint.py`` for the npz backend: one
+``<name>.npz`` of '/'-flattened parameter arrays (the keys of
+``convert.flatten``, e.g. ``relation_network/layers/0/w``) plus the step
 under ``__global_step__``. A file written by either package loads into the
 other. The write is atomic (a temporary file, then a rename). Loading is
 partial (strict=False): keys in the file restore the parameters of that
 name, parameters absent from the file keep their values, and keys of
 modules the port does not hold are ignored.
 
-The Orbax backend and asynchronous writes belong to training (ROADMAP
-queue 3) and raise ``NotImplementedError``.
+``async_write=True`` (``tpu.async_save``, on by default) takes the
+device-to-host snapshot at once and leaves serialisation and the write to
+one background writer thread, so successive saves to a path never
+interleave; ``wait_pending`` drains it and re-raises the first failure.
+
+The Orbax backend raises ``NotImplementedError`` (ROADMAP queue 6, with the
+multi-host mesh it serves).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
-from typing import Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -25,26 +33,60 @@ from dfol_vqa_tpu_torch.models.oracle import OracleParams
 
 STEP_KEY = "__global_step__"
 
+_WRITER: Optional[concurrent.futures.ThreadPoolExecutor] = None
+_PENDING: List[concurrent.futures.Future] = []
+_LOCK = threading.Lock()
+
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP queue 3: training)")
+    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP queue 6: mesh "
+                               "and Orbax checkpoints)")
 
 
-def save(export_path_base: str, name: str, params: OracleParams, global_step: int = 0,
-         backend: str = "npz", async_write: bool = False) -> str:
-    """Write params (+ step) to ``export_path_base/name.npz``; returns the path."""
-    if backend != "npz":
-        raise _not_ported(f"checkpoint backend {backend!r}")
-    if async_write:
-        raise _not_ported("asynchronous checkpoint writes")
-    os.makedirs(export_path_base, exist_ok=True)
-    flat = flatten(params_to_numpy(params))
-    flat[STEP_KEY] = np.asarray(global_step)
-    final = os.path.join(export_path_base, name + ".npz")
+def _writer() -> concurrent.futures.ThreadPoolExecutor:
+    global _WRITER
+    with _LOCK:
+        if _WRITER is None:
+            _WRITER = concurrent.futures.ThreadPoolExecutor(max_workers=1,
+                                                            thread_name_prefix="ckpt-writer")
+        return _WRITER
+
+
+def wait_pending() -> None:
+    """Block until every asynchronous write has finished; re-raise the
+    first failure."""
+    global _PENDING
+    with _LOCK:
+        pending, _PENDING = _PENDING, []
+    for f in pending:
+        f.result()
+
+
+def _write_npz(flat: Dict[str, np.ndarray], final: str) -> None:
     tmp = final + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, final)
+
+
+def save(export_path_base: str, name: str, params: OracleParams, global_step: int = 0,
+         backend: str = "npz", async_write: bool = False) -> str:
+    """Write params (+ step) to ``export_path_base/name.npz``; returns the
+    path. With ``async_write`` the file appears after ``wait_pending``."""
+    if backend != "npz":
+        raise _not_ported(f"checkpoint backend {backend!r}")
+    os.makedirs(export_path_base, exist_ok=True)
+    # private copies: on the CPU .numpy() shares the parameters' memory, which
+    # the optimizer updates in place while a background write runs
+    flat = {k: np.array(v) for k, v in flatten(params_to_numpy(params)).items()}
+    flat[STEP_KEY] = np.asarray(global_step)
+    final = os.path.join(export_path_base, name + ".npz")
+    if async_write:
+        future = _writer().submit(_write_npz, flat, final)
+        with _LOCK:
+            _PENDING.append(future)
+    else:
+        _write_npz(flat, final)
     return final
 
 

@@ -1,22 +1,29 @@
-"""Offline evaluation: the eval half of the JAX package's ``VQATrainer``.
+"""Training, offline evaluation and prediction: the JAX package's
+``VQATrainer``.
 
-Port of ``dfol_vqa_tpu/train/trainer.py``: the 17-bucket per-terminal-op
-error accounting (``OP_INDEX``, ``test_epoch`` with ``last_test_counts``),
-``test`` (optionally loading a checkpoint first), ``predict`` (prediction
-JSON, GQA submission mode), ``decode_answers`` and hard/easy example
-mining. Batches come from the JAX package's numpy-only ``BatchLoader``,
-whose batches deduplicate images, so relating questions take the
-shared-image relation route (``oracle.rel_cache_shared``).
+Port of ``dfol_vqa_tpu/train/trainer.py``: ``train`` (per step: forward,
+the loss normalised by the batch's real questions, backward, clip + decay +
+Adam from ``train/optim.py``; per epoch the loss and error arrays,
+mid-epoch validation and saves every ``checkpointing_frequency`` steps,
+best/last checkpoints, the crash save in ``finally``, ``losses.npy`` and
+``errors.npy``), the 17-bucket per-terminal-op error accounting
+(``OP_INDEX``, ``test_epoch`` with ``last_test_counts``), ``test``
+(optionally loading a checkpoint first), ``predict`` (prediction JSON, GQA
+submission mode), ``decode_answers`` and hard/easy example mining. Batches
+come from the JAX package's numpy-only ``BatchLoader``, whose batches
+deduplicate images: a relating batch whose unique images U satisfy
+U * 2 <= B takes the shared-image relation route, any other the
+per-question route (``Interpreter.build_world``).
 
-Each batch is copied to the device (``data/transfer.to_device_batch``) and
-run with ``Interpreter.forward`` under ``torch.inference_mode()``; its
-outputs stay on the device and are read back once, after the last batch
-(per batch only when hardset mining needs the answers). The JAX package's
-``tpu.eval_chunk`` / ``pad_chunks`` scan fusion exists to amortise an RPC to
-a remote TPU per dispatch; the port dispatches per batch, and whether it
-needs the fusion is a measurement for later (ROADMAP queue 5).
-
-``train`` is ROADMAP queue 3 and raises.
+Each batch is copied to the device (``data/transfer.to_device_batch``).
+Evaluation runs ``Interpreter.forward`` under ``torch.inference_mode()``;
+its outputs stay on the device and are read back once, after the last batch
+(per batch only when hardset mining needs the answers). Training keeps each
+step's loss on the device and reads the epoch's losses back once. The JAX
+package's ``tpu.train_chunk`` / ``eval_chunk`` / ``pad_chunks`` scan fusion
+exists to amortise an RPC to a remote TPU per dispatch; the port dispatches
+one batch at a time, and whether it needs the fusion is a measurement for
+later (ROADMAP queue 5).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from dfol_vqa_tpu_torch.models.interpreter import (
 )
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
 from dfol_vqa_tpu_torch.train import checkpoint as ckpt
+from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer
 from dfol_vqa_tpu_torch.types import QuestionType
 
 # per-terminal-op metric buckets (reference trainer.py:64-83)
@@ -66,7 +74,7 @@ def readback(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 
 class VQATrainer:
-    """Evaluates compiled batches on one device (``device``, default CPU);
+    """Trains and evaluates on one device (``device``, default CPU);
     ``params`` passed to its methods live on that device."""
 
     def __init__(
@@ -86,6 +94,7 @@ class VQATrainer:
         self._hardset_path = hardset_path
         self._hardset: Optional[dict] = None
         self._easyset: Optional[dict] = None
+        self._best_error = np.inf
 
     # ------------------------------------------------------------- utilities
 
@@ -97,10 +106,139 @@ class VQATrainer:
         order), as the serving engine decodes them."""
         return decode_answer_flags(flags, batch.spec, batch.compiled)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training is not ported to PyTorch yet (ROADMAP queue 3: loss, optimizer and the "
-            "relation-oracle backward kernel)")
+    # ------------------------------------------------------------------ train
+
+    def compute_grads(self, params: OracleParams, batch: LoadedBatch,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Forward and backward on ``batch``: sets the ``.grad`` of
+        ``params`` (None for a parameter the batch does not reach) and
+        returns the loss normalised by the batch's real questions, a 0-d
+        tensor on the device (not read back)."""
+        _, objects, obj_mask, arrays = to_device_batch(batch, self.device)
+        for p in params.parameters():
+            p.grad = None
+        out = self.interp.forward(params, objects, obj_mask, arrays, batch.spec,
+                                  is_training=True, generator=generator)
+        loss = out["loss"] / torch.clamp(torch.sum(arrays["question_mask"]), min=1.0)
+        loss.backward()
+        return loss.detach()
+
+    def train_step(self, params: OracleParams, opt: Optimizer, batch: LoadedBatch,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``compute_grads``, then one optimizer step; returns the loss."""
+        loss = self.compute_grads(params, batch, generator)
+        opt.step()
+        return loss
+
+    def train(
+        self,
+        train_loader,
+        validation_loader,
+        params: OracleParams,
+        *,
+        metric_index: int = 0,
+        last_export_path_base: Optional[str] = None,
+        best_export_path_base: Optional[str] = None,
+        seed: int = 0,
+        load_model: Optional[str] = None,
+        reset_step: bool = False,
+    ) -> Tuple[OracleParams, np.ndarray, np.ndarray]:
+        """``cfg.repetition_num`` x ``cfg.epoch_num`` epochs over
+        ``train_loader``, updating ``params`` in place; returns
+        (params, errors (ERROR_DIM, epochs, reps), losses (epochs, reps)), as
+        the JAX trainer does.
+
+        Per repetition ``load_model`` ("best"/"last") reloads that checkpoint
+        (a missing file is skipped) and ``reset_step`` zeroes the step; the
+        optimizer state carries over. Per epoch: the loss is the
+        question-weighted mean of the step losses; with ``validation_loader``
+        the epoch's error vector comes from ``test_epoch``, a lower
+        ``errors[metric_index]`` saves "best", and every
+        ``checkpointing_frequency`` steps a mid-epoch validation saves "last"
+        (and "best" when not worse). "last" is saved synchronously in a
+        ``finally`` after every epoch, so a step that raises still leaves the
+        last good parameters on disk. ``losses.npy`` and ``errors.npy`` go to
+        ``best_export_path_base``.
+
+        Two differences from the JAX trainer. It dispatches one step at a
+        time and checks ``checkpointing_frequency`` after every step; JAX
+        checks at dispatch boundaries, which are every step only with
+        ``tpu.train_chunk=1``. Randomness (dropout masks) comes from a
+        ``torch.Generator`` seeded with ``seed``, so with dropout on the masks
+        differ from JAX's; the repository trains with ``dropout=0.0``."""
+        cfg = self.cfg
+        opt = build_optimizer(cfg, params)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        errors = np.zeros((ERROR_DIM, cfg.epoch_num, cfg.repetition_num), np.float32)
+        losses = np.zeros((cfg.epoch_num, cfg.repetition_num), np.float32)
+        self._best_error = np.inf
+
+        for rep in range(cfg.repetition_num):
+            ckpt.wait_pending()  # a reload must see complete files
+            path = {"best": best_export_path_base, "last": last_export_path_base}.get(load_model)
+            if path:
+                try:
+                    self._load_into(path, params)
+                except FileNotFoundError:
+                    pass
+            if reset_step:
+                self.global_step = 0
+            for epoch in range(cfg.epoch_num):
+                start = time.time()
+                try:
+                    step_losses: List[torch.Tensor] = []
+                    sizes: List[int] = []
+                    next_ckpt = self.global_step + cfg.checkpointing_frequency
+                    for batch in train_loader:
+                        step_losses.append(self.train_step(params, opt, batch, generator))
+                        sizes.append(batch.batch_size)
+                        self.global_step += 1
+                        if validation_loader is not None and self.global_step >= next_ckpt:
+                            next_ckpt = self.global_step + cfg.checkpointing_frequency
+                            self._checkpoint_mid_epoch(validation_loader, params, metric_index,
+                                                       last_export_path_base,
+                                                       best_export_path_base)
+                    if step_losses:
+                        ls = readback([torch.stack(step_losses)])[0]
+                        losses[epoch, rep] = float(ls @ np.asarray(sizes, np.float64)) / max(
+                            sum(sizes), 1)
+                    if validation_loader is not None:
+                        errors[:, epoch, rep] = self.test_epoch(validation_loader, params)
+                finally:
+                    if last_export_path_base:
+                        ckpt.wait_pending()
+                        self._save(last_export_path_base, params, sync=True)
+                if (validation_loader is not None and best_export_path_base
+                        and errors[metric_index, epoch, rep] < self._best_error):
+                    self._best_error = errors[metric_index, epoch, rep]
+                    self._save(best_export_path_base, params)
+                if cfg.verbose:
+                    self.logger.info(
+                        "Rep %d, Epoch %d: Step %d, Best Err %.5f: error=%s, loss=%.5f (%.1fs)",
+                        rep + 1, epoch + 1, self.global_step, self._best_error,
+                        self._prepare_output_metric_dict(errors[:, epoch, rep]),
+                        losses[epoch, rep], time.time() - start)
+
+        ckpt.wait_pending()  # every asynchronous write is on disk before returning
+        if best_export_path_base:
+            os.makedirs(best_export_path_base, exist_ok=True)
+            np.save(os.path.join(best_export_path_base, "losses"), losses, allow_pickle=False)
+            np.save(os.path.join(best_export_path_base, "errors"), errors, allow_pickle=False)
+        return params, errors, losses
+
+    def _checkpoint_mid_epoch(self, validation_loader, params: OracleParams, metric_index: int,
+                              last_export_path_base: Optional[str],
+                              best_export_path_base: Optional[str]) -> None:
+        """Validate, save "last", and "best" when the error is not worse."""
+        err = self.test_epoch(validation_loader, params)
+        if last_export_path_base:
+            self._save(last_export_path_base, params)
+        if best_export_path_base and err[metric_index] <= self._best_error:
+            self._best_error = err[metric_index]
+            self._save(best_export_path_base, params)
+        if self.cfg.verbose:
+            self.logger.info("Checkpointing: Step %d, Best Err %.5f: error=%s", self.global_step,
+                             self._best_error, self._prepare_output_metric_dict(err))
 
     def _batches(self, loader, params: OracleParams
                  ) -> Iterator[Tuple[LoadedBatch, Dict[str, torch.Tensor]]]:
@@ -231,6 +369,19 @@ class VQATrainer:
 
     # ------------------------------------------------------------ checkpoints
 
+    def _save(self, export_path_base: str, params: OracleParams, sync: bool = False) -> None:
+        ckpt.save(export_path_base, self.cfg.model_name, params, self.global_step,
+                  backend=self.cfg.tpu.checkpoint_backend,
+                  async_write=self.cfg.tpu.async_save and not sync)
+
     def load(self, import_path_base: str, params: OracleParams) -> OracleParams:
         params, self.global_step = ckpt.load(import_path_base, self.cfg.model_name, params)
         return params
+
+    def _load_into(self, import_path_base: str, params: OracleParams) -> None:
+        """``load``, copied into ``params`` in place (the optimizer holds
+        references to its tensors)."""
+        loaded = self.load(import_path_base, params)
+        with torch.no_grad():
+            for p, q in zip(params.parameters(), loaded.parameters()):
+                p.copy_(q)

@@ -27,12 +27,27 @@ the shared-image relation route):
   error vector and ``last_test_counts``; ``predict``: its ``predict``
   output (JSON).
 
-``chip_smoke.py`` runs the port on the card against both files;
+``tests/data/torch_port_golden_train.npz`` (training), from the tiny demo
+training config (``dfol_vqa_tpu_torch/data/trainset.py``, dropout 0, weight
+decay 0 so that a leaf without a gradient keeps its value and the updates
+compress) with the interpreter's weights (``PRNGKey(0)``), for two batches:
+``per_question`` (16 ``exist`` questions over all images, U * 2 > B) and
+``shared`` (16 ``verify_rel`` questions on 4 images, U * 2 <= B):
+
+* ``params/<key>``: the weights before the step;
+* ``datasets/<route>``: the question file (JSON);
+* ``batch/<route>/...``: the ``LoadedBatch`` (``objects``, ``obj_mask``,
+  ``arrays/<name>``), JAX's normalised ``loss``, its gradients
+  ``grads/<key>`` and the change of every parameter in one
+  ``build_optimizer`` step, ``update/<key>``.
+
+``chip_smoke.py`` runs the port on the card against the three files;
 ``tests/test_torch_golden.py`` regenerates them and requires them to match
 the checked-in copies.
 
     python scripts/make_torch_golden.py [--out tests/data/torch_port_golden.npz]
         [--eval-out tests/data/torch_port_golden_eval.npz]
+        [--train-out tests/data/torch_port_golden_train.npz]
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 EVAL_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
+TRAIN_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -145,18 +161,79 @@ def build_eval_golden() -> Dict[str, np.ndarray]:
     return out
 
 
+def train_golden_setup():
+    """(cfg, world, ontology, {route: question files}) of the training golden;
+    numpy only, so ``chip_smoke.py`` rebuilds the same batches."""
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config(tiny=True)
+    cfg.weight_decay = 0.0
+    world = evalset.demo_world(ont, tiny=True)
+    datasets = {
+        "per_question": trainset.train_datasets(world, (("exist", 2, 16),), seed=7),
+        "shared": evalset.eval_datasets(world, (("verify_rel", 1, 16),), trainset.TINY_BATCH,
+                                        evalset.TINY_IMAGES_PER_BATCH, seed=7),
+    }
+    return cfg, world, ont, datasets
+
+
+def build_train_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
+    import jax.numpy as jnp
+    import optax
+
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.train.checkpoint import _flatten
+    from dfol_vqa_tpu.train.optim import build_optimizer
+    from dfol_vqa_tpu_torch.data import trainset
+
+    cfg, world, ont, datasets = train_golden_setup()
+    interp = Interpreter(cfg, ont)
+    params = interp.init_params(jax.random.PRNGKey(0))
+    before = _flatten(jax.tree.map(np.asarray, params))
+    out = {f"params/{k}": v for k, v in before.items()}
+    for route, files in datasets.items():
+        out[f"datasets/{route}"] = np.array(json.dumps(files, sort_keys=True))
+        (lb,) = list(trainset.train_loader(cfg, ont, world, files, shuffle=False))
+        arrays = {a: jnp.asarray(v) for a, v in lb.arrays.items()}
+
+        def loss_fn(p):
+            res = interp.forward(p, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask), arrays,
+                                 lb.spec, True, jax.random.PRNGKey(0))
+            return res["loss"] / jnp.maximum(jnp.sum(arrays["question_mask"]), 1.0)
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        tx = build_optimizer(cfg, params)
+        updates, _ = tx.update(grads, tx.init(params), params)
+        after = _flatten(jax.tree.map(np.asarray, optax.apply_updates(params, updates)))
+        p = f"batch/{route}/"
+        out[p + "objects"] = lb.objects
+        out[p + "obj_mask"] = lb.obj_mask
+        for a, v in lb.arrays.items():
+            out[p + "arrays/" + a] = v
+        out[p + "loss"] = np.asarray(loss)
+        for k, g in _flatten(jax.tree.map(np.asarray, grads)).items():
+            out[p + "grads/" + k] = g
+            out[p + "update/" + k] = after[k] - before[k]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN_PATH)
     ap.add_argument("--eval-out", default=EVAL_GOLDEN_PATH)
+    ap.add_argument("--train-out", default=TRAIN_GOLDEN_PATH)
     args = ap.parse_args(argv)
-    for path, golden, unit in ((args.out, build_golden(), "/question"),
-                               (args.eval_out, build_eval_golden(), "/log_probability")):
+    for path, golden, unit, what in (
+            (args.out, build_golden(), "/question", "requests"),
+            (args.eval_out, build_eval_golden(), "/log_probability", "batches"),
+            (args.train_out, build_train_golden(), "/loss", "training batches")):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **golden)
         n = sum(1 for k in golden if k.endswith(unit))
-        print(f"wrote {path}: {n} {'requests' if unit == '/question' else 'batches'}, "
-              f"{os.path.getsize(path)} bytes")
+        print(f"wrote {path}: {n} {what}, {os.path.getsize(path)} bytes")
     return 0
 
 

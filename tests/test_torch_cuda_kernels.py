@@ -8,8 +8,10 @@ package, where ``tests/conftest.py`` (which imports JAX) cannot load:
 Here, without a card, every test skips. Tolerances: 1e-4 abs for float32
 results (f32 FMA order over H=256 and E=300 against cuBLAS/ATen sums); one
 bf16 ULP of the value for bf16 results (both sides round a float32 value
-that may differ in its last bits). The input helpers are shared with the
-CPU tests of ``tests/test_torch_shared_route.py``.
+that may differ in its last bits); gradients within 1e-4 of each
+gradient's largest value (float32 sums over many pairs in another order).
+The input helpers are shared with the CPU tests of
+``tests/test_torch_shared_route.py`` and ``tests/test_torch_train.py``.
 """
 
 import numpy as np
@@ -167,3 +169,100 @@ def test_cuda_rel_cache_shared_takes_the_kernels(cuda, ontology, stream):
     assert (pm.LAUNCHES, sc.LAUNCHES) == (before[0] + 1, before[1] + 1)
     atol = 1e-4 if stream == "float32" else 2e-2  # bf16 h2 and e_sel: ~3 significant digits
     torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,O,H,E,R", [(2, 7, 8, 12, 3), (3, 33, 16, 40, 11),
+                                       (32, 24, 256, 300, 8)])
+def test_cuda_relation_oracle_bwd_matches_plain(cuda, B, O, H, E, R):
+    """All nine gradients of kernel 2, dgeom included, called directly and
+    through ``PairTail``; pad slots whose cotangent is nonzero (the kernel
+    must zero them itself)."""
+    rng = np.random.default_rng(B * O)
+    ins = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.standard_normal((B, O, H)) * 0.5, rng.standard_normal((B, O, H)) * 0.5,
+        rng.uniform(-1, 1, (B, O, O, 4)), rng.standard_normal((4, H)), rng.standard_normal(H),
+        rng.standard_normal((H, E)) / np.sqrt(H), rng.standard_normal(E),
+        rng.standard_normal((B, R, E)), rng.standard_normal((B, R)))]
+    tok = rng.integers(1, 300, (B, R)).astype(np.int32)
+    tok[0, R - 1] = 0
+    tok = torch.from_numpy(tok).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((B, R, O, O)).astype(np.float32)).to(cuda)
+    before = ro.BWD_LAUNCHES
+    got = ro.pair_tail_bwd_kernel(*ins, tok, g, True)
+    want = ro.pair_tail_bwd_reference(*ins, tok, g, True)
+    # through PairTail with every input requiring a gradient
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ro.PairTail.apply(*leaves, tok, -30.0).backward(g)
+    torch.cuda.synchronize()
+    assert ro.BWD_LAUNCHES == before + 2
+    for a, t, b in zip(got, leaves, want):
+        for x in (a, t.grad):
+            assert torch.isfinite(x).all()
+            torch.testing.assert_close(x, b, atol=1e-4 * b.abs().max().item(), rtol=0)
+    assert ro.pair_tail_bwd_kernel(*ins, tok, g, False)[2] is None
+
+
+@pytest.mark.cuda
+def test_cuda_rel_cache_kernel_trains_through_both_kernels(cuda, ontology):
+    """Autograd through ``rel_cache_kernel`` on the card launches the forward
+    and the backward kernel once each and gives the CPU's gradients."""
+    import copy
+
+    cfg = Config(box_features_dim=32, oracle_input_dim=16, word_embedding_dim=12,
+                 featurizer_layers_config=[], attribute_network_layers_config=[8],
+                 relation_network_layers_config=[16], dropout=0.0)
+    tp = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0))
+    tc = copy.deepcopy(tp).to(cuda)
+    rng = np.random.default_rng(3)
+    attr_in = torch.from_numpy(rng.uniform(size=(4, 9, cfg.attr_input_dim)).astype(np.float32))
+    pos = torch.from_numpy(rng.uniform(size=(4, 9, 4)).astype(np.float32))
+    tok = torch.from_numpy(rng.integers(1, 2300, (4, 5)).astype(np.int32))
+    tok[1, 2] = 0
+    w = torch.from_numpy(rng.standard_normal((4, 5, 9, 9)).astype(np.float32))
+    (ro.rel_cache_kernel_reference(tp, attr_in, pos, tok) * w).sum().backward()
+    before = (ro.LAUNCHES, ro.BWD_LAUNCHES)
+    (ro.rel_cache_kernel(tc, attr_in.to(cuda), pos.to(cuda), tok.to(cuda), cfg)
+     * w.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (ro.LAUNCHES, ro.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for (name, a), (_, b) in zip(tp.named_parameters(), tc.named_parameters()):
+        if a.grad is None:
+            assert b.grad is None, name
+        else:
+            torch.testing.assert_close(b.grad.cpu(), a.grad, atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["float32", "bfloat16"])
+def test_cuda_rel_cache_shared_trains(cuda, ontology, stream):
+    """Autograd through the shared route on the card (kernels 3 and 4
+    forward, plain backwards) gives the CPU's gradients: within 1e-4 at a
+    float32 stream, 2e-2 at bf16 (h2 and e_sel stored in ~3 digits)."""
+    import copy
+
+    cfg = Config(box_features_dim=32, oracle_input_dim=16, word_embedding_dim=12,
+                 featurizer_layers_config=[], attribute_network_layers_config=[8],
+                 relation_network_layers_config=[8], dropout=0.0)
+    cfg.tpu.rel_stream_dtype = stream
+    tp = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0))
+    tc = copy.deepcopy(tp).to(cuda)
+    rng = np.random.default_rng(2)
+    attr_in = torch.from_numpy(rng.uniform(size=(3, 6, cfg.attr_input_dim)).astype(np.float32))
+    pos = torch.from_numpy(rng.uniform(size=(3, 6, 4)).astype(np.float32))
+    img = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2], dtype=torch.int32)
+    tok = torch.from_numpy(rng.choice(np.asarray(ontology._relation_index), (8, 4)) + 1
+                           ).to(torch.int32)
+    tok[0, 3] = 0
+    w = torch.from_numpy(rng.standard_normal((8, 4, 6, 6)).astype(np.float32))
+    (om.rel_cache_shared(tp, attr_in, pos, img, tok, cfg) * w).sum().backward()
+    before = (pm.LAUNCHES, sc.LAUNCHES)
+    (om.rel_cache_shared(tc, attr_in.to(cuda), pos.to(cuda), img.to(cuda), tok.to(cuda), cfg)
+     * w.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (pm.LAUNCHES, sc.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    atol = 1e-4 if stream == "float32" else 2e-2
+    for (name, a), (_, b) in zip(tp.named_parameters(), tc.named_parameters()):
+        if a.grad is not None:
+            scale = max(1.0, a.grad.abs().max().item())
+            torch.testing.assert_close(b.grad.cpu(), a.grad, atol=atol * scale, rtol=0, msg=name)

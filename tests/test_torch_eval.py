@@ -189,13 +189,13 @@ def test_checkpoint_load_is_partial(setup, tmp_path):
 
 
 def test_unported_checkpoint_and_training_paths_raise(setup, tmp_path):
+    """Of the checkpoint and training paths only the Orbax backend is still
+    unported (ROADMAP queue 6); asynchronous npz writes and ``train`` run
+    (``tests/test_torch_train_loop.py``)."""
     cfg, _, _, _, tinterp, tparams = setup
-    with pytest.raises(NotImplementedError, match="queue 3"):
+    with pytest.raises(NotImplementedError, match="queue 6"):
         ckpt.save(str(tmp_path), "m", tparams, backend="orbax")
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        ckpt.save(str(tmp_path), "m", tparams, async_write=True)
     (tmp_path / "m.orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="queue 3"):
+    with pytest.raises(NotImplementedError, match="queue 6"):
         ckpt.load(str(tmp_path), "m", tparams)
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        tr.VQATrainer(cfg, tinterp).train(None, None, tparams)
+    assert callable(tr.VQATrainer(cfg, tinterp).train)
