@@ -10,16 +10,19 @@ Phases, each reported on its own line(s):
    seconds and the ptxas register, shared-memory and spill lines;
 3. each kernel against its plain PyTorch version at the paths' shapes, with
    median CUDA-event times of both, timed in turns: the relation-oracle pair
-   tail at B=32, O=24 and O=100; its backward (kernel 2) at B=32 with O=24
-   and O=100 and at B=80 with O=100, all nine gradients within
-   ``BWD_RTOL`` of each gradient's largest value (float32 sums over up to
-   800k pairs in another order); the pair MLP at U=8 and U=26 (the unique
+   tail (kernel 1) and its backward (kernel 2) at a ragged B=3, O=37, at
+   B=32 with O=24 and O=100, and at B=80, O=100, kernel 2's nine gradients
+   within ``BWD_RTOL`` of each gradient's largest value (float32 sums over up
+   to 800k pairs in another order); the pair MLP at U=8 and U=26 (the unique
    images of 80- and 256-question batches at 10 questions per image) and the
    shared contraction at B=80/U=8 and B=256/U=26, both at O=100, H=256,
    E=300, R=8 with 3 pad slots, with h2 in float32 and bfloat16. Tolerance:
    1e-4 abs for float32 results (f32 sums in another order); one bf16 ULP of
    the value for bf16 h2 (both sides round an f32 value that may differ in
-   its last bits);
+   its last bits). Each timed shape also reports its FLOP and bytes, its
+   bound (``kernel_bound``: the least time the card could take, matrix
+   products on the tensor cores, in 3xTF32 for float32 operands and at the
+   bf16 rate for bf16 ones) and the share of it reached;
 4. the serving engine (``build_demo_engine`` at production dims: 2048-d
    boxes, 512-d oracle, E=300, H=256, O=24, bf16 transfer) answers 64
    planted-world requests (exist with 0-2 hops, verify_rel, query_attr) on
@@ -68,7 +71,9 @@ Phases, each reported on its own line(s):
    events). The loss trend is reported, not gated.
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4, 6 and 7, each counted from 0), error and times, and last the
+of phases 4, 6 and 7, each counted from 0), error, times, FLOP, bound and
+share of bound (``library_ms`` null: no single PyTorch call computes any of
+the four fused functions), and last the
 result line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the result line. TF32 is off for matmuls and cuDNN.
 """
@@ -145,23 +150,91 @@ def cuda_ms(fns, reps: int = 10):
             for name, ev in events.items()}
 
 
-def phase_kernels(eng, stamp: str) -> dict:
-    """Kernel vs plain at the serving shapes, with the serving engine's
-    weights; returns the kernel's record."""
+# NVIDIA H100 SXM published peaks (NVIDIA's H100 datasheet, dense): HBM
+# bytes/s, bf16 and TF32 tensor-core FLOP/s, float32 FLOP/s outside the
+# tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
+H100_TF32_FLOPS = 495e12
+H100_F32_FLOPS = 67e12
+
+
+def kernel_bound(product_flop: float, other_flop: float, nbytes: float,
+                 product_dtype: torch.dtype = torch.float32) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over HBM's
+    rate and its operations over the peak rate for their type. Matrix
+    products of float32 operands run on the tensor cores in 3xTF32 (three
+    TF32 products per float32 one: a third of the TF32 rate), of bfloat16
+    operands at the bf16 tensor-core rate (exact products, float32 sums);
+    other float32 operations on the CUDA cores. ``f32_simt_bound_ms`` is the
+    same with every operation on the CUDA cores."""
+    product_rate = H100_BF16_FLOPS if product_dtype == torch.bfloat16 else H100_TF32_FLOPS / 3
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = max(product_flop / product_rate, other_flop / H100_F32_FLOPS)
+    return {"flop": product_flop + other_flop, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_simt_bound_ms": 1e3 * max(t_bytes,
+                                           (product_flop + other_flop) / H100_F32_FLOPS)}
+
+
+def pair_tail_work(B, O, H, E, R, backward: bool) -> dict:
+    """``kernel_bound`` of kernel 1 (forward: z2 = h1 W2, 2HE FLOP per pair,
+    and the logits, 2RE) or kernel 2 (backward: three H x E products, 6HE
+    per pair, and 6RE for the logits, dh2 and de_sel), float32 tensors."""
+    pairs = B * O * O
+    weights = 4 * H + H + H * E + E
+    ins = 2 * B * O * H + B * O * O * 4 + weights + B * R * E + B * R + B * R  # + rel_tokens
+    out = B * R * O * O
+    if backward:
+        ins += B * R * O * O  # the cotangent
+        out = 2 * B * O * H + weights + B * R * E + B * R  # dgeom not asked for
+    k = 3 if backward else 1
+    return kernel_bound(k * 2 * H * E * pairs, k * 2 * R * E * pairs, 4 * (ins + out))
+
+
+LIBRARY_NOTE = "no single PyTorch call computes this fused function"
+
+
+def random_pair_tail_inputs(eng, gen, B, O):
+    """Random pair-tail inputs at the engine's widths with three pad slots."""
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
 
-    cfg, params, device = eng.cfg, eng.params, eng.device
+    cfg, device = eng.cfg, eng.device
+    attr_in = torch.rand((B, O, cfg.attr_input_dim), generator=gen).to(device)
+    pos = torch.rand((B, O, 4), generator=gen).to(device)
+    tok = torch.randint(1, 2336, (B, cfg.tpu.rel_table_size), generator=gen, dtype=torch.int32)
+    tok[:, 5:] = 0  # pad slots
+    tok = tok.to(device)
+    with torch.no_grad():
+        ins = [t.contiguous() for t in ro.pair_tail_inputs(eng.params, attr_in, pos, tok)]
+    return ins, tok
+
+
+# (B, O): a ragged shape (O not a multiple of the kernels' 8 x 8 and 64-pair
+# tiles), the serving shape, and the training shapes at 32 and 80 questions
+PAIR_TAIL_SHAPES = ((3, 37), (32, 24), (32, 100), (80, 100))
+
+
+def shape_record(t, work, **shape) -> dict:
+    """One timed shape: its dims, kernel and plain ms, work and bound."""
+    return {**shape, "ms": t["kernel"], "plain_ms": t["plain"], **work,
+            "share_of_bound": work["bound_ms"] / t["kernel"]}
+
+
+def phase_kernels(eng, stamp: str) -> dict:
+    """Kernel 1 vs plain at the ragged, serving and training shapes, with the
+    serving engine's weights; returns the kernel's record, timed at B=80,
+    O=100 (the training shape), with every shape under ``shapes``."""
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+
     gen = torch.Generator().manual_seed(1)
-    worst, times = 0.0, {}
-    for B, O in ((32, 24), (32, 100)):
-        attr_in = torch.rand((B, O, cfg.attr_input_dim), generator=gen).to(device)
-        pos = torch.rand((B, O, 4), generator=gen).to(device)
-        tok = torch.randint(1, 2336, (B, cfg.tpu.rel_table_size), generator=gen,
-                            dtype=torch.int32)
-        tok[:, 5:] = 0  # pad slots
-        tok = tok.to(device)
+    worst, shapes = 0.0, []
+    for B, O in PAIR_TAIL_SHAPES:
+        ins, tok = random_pair_tail_inputs(eng, gen, B, O)
+        H, E, R = ins[0].shape[-1], ins[5].shape[1], tok.shape[1]
         with torch.inference_mode():
-            ins = [t.contiguous() for t in ro.pair_tail_inputs(params, attr_in, pos, tok)]
             got = ro.pair_tail_kernel(*ins, tok)
             want = ro.pair_tail_reference(*ins, tok)
             torch.cuda.synchronize()
@@ -172,37 +245,38 @@ def phase_kernels(eng, stamp: str) -> dict:
             worst = max(worst, err)
             t = cuda_ms({"kernel": lambda: ro.pair_tail_kernel(*ins, tok),
                          "plain": lambda: ro.pair_tail_reference(*ins, tok)})
-        times[(B, O)] = t
-        log(f"[3] relation_oracle B={B} O={O} H=256 E=300 R=8: max_abs_err={err!r} "
-            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} ({stamp})")
-    t24 = times[(32, 24)]
+        rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=False), B=B, O=O)
+        shapes.append(rec)
+        log(f"[3] relation_oracle B={B} O={O} H={H} E={E} R={R}: max_abs_err={err!r} "
+            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} flop={rec['flop']!r} "
+            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}, 3xTF32) share_of_bound="
+            f"{rec['share_of_bound']!r} f32_simt_bound_ms={rec['f32_simt_bound_ms']!r} ({stamp})")
+    main = shapes[-1]
     return {"name": "relation_oracle_fwd", "route": "cuda",
             "source": "dfol_vqa_tpu_torch/csrc/relation_oracle.cu",
             "replaces": "dfol_vqa_tpu/ops/pallas/relation_oracle.py:38",
-            "max_abs_err": worst, "ms": t24["kernel"], "plain_ms": t24["plain"]}
+            "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "flop": main["flop"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"], "library_ms": None,
+            "library_note": LIBRARY_NOTE, "at": {"B": 80, "O": 100}, "shapes": shapes}
 
 
 def phase_bwd_kernel(eng, stamp: str) -> dict:
-    """Kernel 2 against its plain version at the training shapes, with the
-    engine's weights: all nine gradients (dgeom included) for a random
-    cotangent, pad slots included; returns the kernel's record, timed at
-    B=80, O=100 without dgeom (the training path does not ask for it)."""
+    """Kernel 2 against its plain version at the ragged, serving and training
+    shapes, with the engine's weights: all nine gradients (dgeom included)
+    for a random cotangent, pad slots included; returns the kernel's record,
+    timed at B=80, O=100 without dgeom (the training path does not ask for
+    it), with every shape under ``shapes``."""
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
 
-    cfg, params, device = eng.cfg, eng.params, eng.device
     gen = torch.Generator().manual_seed(3)
     names = ("dh_s", "dh_o", "dgeom", "dWg", "db0", "dW2", "db2", "de_sel", "db_sel")
-    worst_abs, times = 0.0, {}
-    for B, O in ((32, 24), (32, 100), (80, 100)):
-        R = cfg.tpu.rel_table_size
-        attr_in = torch.rand((B, O, cfg.attr_input_dim), generator=gen).to(device)
-        pos = torch.rand((B, O, 4), generator=gen).to(device)
-        tok = torch.randint(1, 2336, (B, R), generator=gen, dtype=torch.int32)
-        tok[:, 5:] = 0  # pad slots
-        tok = tok.to(device)
-        g = torch.randn((B, R, O, O), generator=gen).to(device)  # nonzero on pad slots too
+    worst_abs, shapes = 0.0, []
+    for B, O in PAIR_TAIL_SHAPES:
+        ins, tok = random_pair_tail_inputs(eng, gen, B, O)
+        H, E, R = ins[0].shape[-1], ins[5].shape[1], tok.shape[1]
+        g = torch.randn((B, R, O, O), generator=gen).to(eng.device)  # nonzero on pad slots too
         with torch.no_grad():
-            ins = [t.contiguous() for t in ro.pair_tail_inputs(params, attr_in, pos, tok)]
             got = ro.pair_tail_bwd_kernel(*ins, tok, g, True)
             want = ro.pair_tail_bwd_reference(*ins, tok, g, True)
             torch.cuda.synchronize()
@@ -216,16 +290,22 @@ def phase_bwd_kernel(eng, stamp: str) -> dict:
                 worst_abs = max(worst_abs, err)
             t = cuda_ms({"kernel": lambda: ro.pair_tail_bwd_kernel(*ins, tok, g, False),
                          "plain": lambda: ro.pair_tail_bwd_reference(*ins, tok, g, False)}, reps=5)
-        times[(B, O)] = t
+        rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=True), B=B, O=O)
+        shapes.append(rec)
         worst = max(rel, key=rel.get)
-        log(f"[3] relation_oracle_bwd B={B} O={O} H=256 E=300 R=8: nine gradients within "
+        log(f"[3] relation_oracle_bwd B={B} O={O} H={H} E={E} R={R}: nine gradients within "
             f"{BWD_RTOL} of their largest value (worst {worst} {rel[worst]!r}) "
-            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} ({stamp})")
-    t = times[(80, 100)]
+            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} flop={rec['flop']!r} "
+            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}, 3xTF32) share_of_bound="
+            f"{rec['share_of_bound']!r} f32_simt_bound_ms={rec['f32_simt_bound_ms']!r} ({stamp})")
+    main = shapes[-1]
     return {"name": "relation_oracle_bwd", "route": "cuda",
             "source": "dfol_vqa_tpu_torch/csrc/relation_oracle_bwd.cu",
             "replaces": "dfol_vqa_tpu/ops/pallas/relation_oracle.py:66",
-            "max_abs_err": worst_abs, "ms": t["kernel"], "plain_ms": t["plain"]}
+            "max_abs_err": worst_abs, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "flop": main["flop"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"], "library_ms": None,
+            "library_note": LIBRARY_NOTE, "at": {"B": 80, "O": 100}, "shapes": shapes}
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -349,8 +429,11 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
             h_s, h_o = attr_in @ w_s, attr_in @ w_o
             layers = list(rp.layers[1:])
             e_sel, b_sel = om.select_relation_rows(params, tok)
+            H = h_s.shape[-1]
+            widths = [H] + [layer.w.shape[1] for layer in layers]
             for dtype in (torch.float32, torch.bfloat16):
                 name = str(dtype).replace("torch.", "")
+                esize = torch.empty((), dtype=dtype).element_size()
                 got = pm.pair_mlp_fused(pos, h_s, h_o, w_g, b0, layers, dtype)
                 h2 = pm.pair_mlp_reference(pos, h_s, h_o, w_g, b0, layers, dtype)
                 torch.cuda.synchronize()
@@ -367,10 +450,19 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                                                                  dtype),
                              "plain": lambda: pm.pair_mlp_reference(pos, h_s, h_o, w_g, b0,
                                                                     layers, dtype)})
-                times[("pair_mlp", U, name)] = t
-                log(f"[3] pair_mlp U={U} O={O} H={h_s.shape[-1]} E={h2.shape[-1]} h2 {name}: "
+                E = h2.shape[-1]
+                # the Linear chain, 2kn FLOP per pair and layer, f32 inputs, h2 out
+                chain = list(zip(widths, widths[1:]))
+                work = kernel_bound(U * O * O * sum(2 * k * n for k, n in chain), 0,
+                                    4 * (U * O * 4 + 2 * U * O * H + 5 * H
+                                         + sum(k * n + n for k, n in chain))
+                                    + esize * U * O * O * E)
+                times[("pair_mlp", U, name)] = shape_record(t, work, U=U, O=O, h2=name)
+                log(f"[3] pair_mlp U={U} O={O} H={H} E={E} h2 {name}: "
                     f"max_abs_err={diff.max().item()!r} (within {bound}) "
-                    f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} ({stamp})")
+                    f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} flop={work['flop']!r} "
+                    f"bound_ms={work['bound_ms']!r} ({work['bound_by']}) "
+                    f"f32_simt_bound_ms={work['f32_simt_bound_ms']!r} ({stamp})")
 
                 es = e_sel.to(dtype)
                 got = sc.shared_contract_kernel(h2, img, es, b_sel, tok)
@@ -384,19 +476,30 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                 t = cuda_ms({"kernel": lambda: sc.shared_contract_kernel(h2, img, es, b_sel, tok),
                              "plain": lambda: sc.shared_contract_reference(h2, img, es, b_sel,
                                                                            tok)})
-                times[("shared_contract", U, name)] = t
-                log(f"[3] shared_contract B={B} U={U} O={O} E={h2.shape[-1]} R={R} h2 {name}: "
+                # h2[img[b]] . e_sel[b, r]: 2RE FLOP per (question, pair); h2 and
+                # e_sel in the stream's dtype, float32 log-likelihoods out
+                work = kernel_bound(B * O * O * 2 * R * E, 0,
+                                    esize * (U * O * O * E + B * R * E) + 4 * (B + 2 * B * R)
+                                    + 4 * B * R * O * O, dtype)
+                times[("shared_contract", U, name)] = shape_record(t, work, B=B, U=U, O=O, h2=name)
+                log(f"[3] shared_contract B={B} U={U} O={O} E={E} R={R} h2 {name}: "
                     f"max_abs_err={e!r} kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} "
-                    f"({stamp})")
+                    f"flop={work['flop']!r} bound_ms={work['bound_ms']!r} ({work['bound_by']}) "
+                    f"f32_simt_bound_ms={work['f32_simt_bound_ms']!r} ({stamp})")
     sources = {"pair_mlp": ("pair_mlp.cu", "dfol_vqa_tpu/ops/pallas/pair_mlp.py:90"),
                "shared_contract": ("shared_contract.cu",
                                    "dfol_vqa_tpu/ops/pallas/shared_contract.py:46")}
     records = []
     for name, (src, replaces) in sources.items():
-        t = times[(name, 8, "bfloat16")]  # the offline-eval default: U=8, bf16 stream
+        main = times[(name, 8, "bfloat16")]  # the offline-eval default: U=8, bf16 stream
         records.append({"name": f"{name}_fwd", "route": "cuda",
                         "source": f"dfol_vqa_tpu_torch/csrc/{src}", "replaces": replaces,
-                        "max_abs_err": err[name], "ms": t["kernel"], "plain_ms": t["plain"]})
+                        "max_abs_err": err[name], "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "flop": main["flop"], "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"], "share_of_bound": main["share_of_bound"],
+                        "library_ms": None, "library_note": LIBRARY_NOTE,
+                        "at": {"U": 8, "B": 80, "O": 100, "h2": "bfloat16"},
+                        "shapes": [rec for (n, *_), rec in times.items() if n == name]})
     return records
 
 
@@ -492,7 +595,7 @@ def check_eval_golden(device, atol: float) -> int:
     The loader's batches must equal the golden's, log-probabilities agree
     within ``atol``, and answer flags, the ``test_epoch`` error vector and
     counts, and the ``predict`` output be equal."""
-    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
     from dfol_vqa_tpu_torch.convert import params_from_numpy
     from dfol_vqa_tpu_torch.data import evalset
     from dfol_vqa_tpu_torch.data.transfer import to_device_batch
@@ -547,7 +650,7 @@ def check_train_golden(device, grad_rtol: float) -> int:
     for gradients that far apart. On a CUDA
     device the per-question batch must launch kernels 1 and 2 and the
     shared batch kernels 3 and 4."""
-    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
     from dfol_vqa_tpu_torch.convert import params_from_numpy
     from dfol_vqa_tpu_torch.data import evalset, trainset
     from dfol_vqa_tpu_torch.models.interpreter import Interpreter
@@ -665,7 +768,7 @@ def tie_buckets(ties: dict) -> dict:
 def phase_eval(device, stamp: str) -> dict:
     """Offline evaluation at production dims on the card; returns the
     kernel launches of the main run (the float32-stream ``test_epoch``)."""
-    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
     from dfol_vqa_tpu_torch.data import evalset
     from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
     from dfol_vqa_tpu_torch.ops import pair_mlp as pm
@@ -823,7 +926,7 @@ def phase_train(device, stamp: str) -> dict:
     ``VQATrainer.train``."""
     import tempfile
 
-    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
     from dfol_vqa_tpu_torch.data import evalset, trainset
     from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
     from dfol_vqa_tpu_torch.ops import pair_mlp as pm
@@ -1034,8 +1137,9 @@ def main() -> int:
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} never launched on a main path")
     log(f"launches by main path: {paths}")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    jax_modules = [m for m in sys.modules if m.split(".")[0] in ("jax", "dfol_vqa_tpu")]
+    if jax_modules:
+        raise AssertionError(f"the port imported JAX or the JAX package: {jax_modules[:5]}")
 
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,11 @@
 The JAX package stays the reference; this package keeps its module names and
 public tensor layouts and runs on an NVIDIA Hopper card (H100), with every
 TPU kernel rewritten by hand in CUDA C++ (``csrc/``).
-It imports ``torch`` and never ``jax``; the numpy-only host modules
-(ontology, config, program compiler, loader, features, planted world) are
-shared with ``dfol_vqa_tpu``.
+It imports ``torch``, and nothing of ``jax`` or of ``dfol_vqa_tpu``: it
+carries its own copies of the numpy-only host modules (``ontology``,
+``config``, ``compiler``, ``data.dataset``, ``data.loader``,
+``data.features``, ``data.planted``). Its entry points run on the card
+unless the caller passes ``device="cpu"``.
 
 Ported so far — the serving slice: ``logic``, ``types``, ``nn``,
 ``models.featurizer``, ``models.oracle``, ``ops.cells``,
@@ -18,7 +20,8 @@ offline-evaluation slice: ``oracle.rel_cache_shared``, ``ops.pair_mlp``
 the backward kernel of ``ops.relation_oracle`` (+
 ``csrc/relation_oracle_bwd.cu``), autograd for ``ops.pair_mlp`` and
 ``ops.shared_contract``, ``train.optim``, ``VQATrainer.train``,
-asynchronous checkpoints and ``data.trainset``.
+asynchronous checkpoints and ``data.trainset``; then the host modules'
+copies, and kernels 1 and 2 on the tensor cores (``csrc/pair_tail_tile.cuh``).
 """
 
 __version__ = "0.1.0"

@@ -12,37 +12,46 @@
 // rel_tokens[b,r] == 0. That folds in the JAX wrapper's moveaxis and where
 // (relation_oracle.py:293-296). ELU is the kernel's exp(min(x,0))-1 form.
 //
-// What bounds it: at B=32, O=100, H=256, E=300 the pair tail is ~320k pairs x
-// 2*256*300 FLOP = ~49 GFLOP of f32 FMA work, while the plain PyTorch version
-// also materialises the (B,O,O,256) hidden (~0.33 GB) and the (B,O,O,300)
-// pair code (~0.38 GB) in device memory and reads them back. This kernel
-// keeps both on chip: one block owns a band of kPairs consecutive pairs of one
-// question, stages their h1 (H x kPairs) and the question's e_sel rows in
-// shared memory, streams W2 (H x E, L2-resident) once per band, and only the
-// (B,R,O,O) result reaches device memory. It is plain f32 SIMT code: wgmma,
-// TMA and tuning are later work.
+// What bounds it: 2HE + 2RE FLOP per pair (158,400 at H=256, E=300, R=8), so
+// 50.7 GFLOP at B=32, O=100: operations, not bytes (the inputs and the
+// (B,R,O,O) result are ~15 MB). The plain PyTorch version also writes the
+// (B,O,O,H) hidden and the (B,O,O,E) pair code to device memory and reads
+// them back; this kernel keeps both on chip.
+//
+// Design (pair_tail_tile.cuh): a block takes a band of 64 consecutive pairs
+// of one question, builds their h1 in shared memory and runs z2 = h1 W2 on the
+// tensor cores (mma.sync.m16n8k8, TF32 in the split-precision 3xTF32 scheme,
+// f32 accumulators: float32-level error at a third of the 495 TFLOP/s TF32
+// rate, so a bound of 0.30 ms at B=32, O=100). W2 streams through a
+// two-stage cp.async ring of 16-row slices, so it crosses L2 once per 64 pairs
+// (the SIMT kernel it replaces read it once per 32 pairs, element by element
+// per thread). h2 never leaves the registers: each warp dots its columns of h2
+// with e_sel and the four column warps' partial logits are summed in a fixed
+// order; e_sel and the partial logits reuse the ring's shared memory once the
+// product is done. 106 KB of shared memory and 8 warps per block, two blocks
+// per SM.
 //
 // Plain C interface (loaded with ctypes); every pointer is a device pointer,
 // all float tensors are float32 and contiguous, rel_tokens is int32.
 
-#include <cuda_runtime.h>
+#include "pair_tail_tile.cuh"
 
 namespace {
 
-constexpr int kPairs = 32;           // object pairs per block
-constexpr int kStride = kPairs + 4;  // h1 row stride: 16-byte rows, fewer bank conflicts
+using namespace pair_tail;
 
-__device__ __forceinline__ float elu_exp(float x) {
-  return x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;
+using L = Layout<4>;  // 8 warps: 2 along the pairs x 4 along E
+constexpr int kThreads = L::kThreads;
+constexpr int kStages = 2;
+
+// Floats of the ring region: the weight ring during the product, e_sel and
+// the partial logits after it.
+__host__ __device__ int ring_floats(int Ep, int Rp) {
+  const int after = Rp * Ep + L::kWN * kPairs * Rp;
+  return after > kStages * kStageFloats ? after : kStages * kStageFloats;
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-__global__ void relation_oracle_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 2) relation_oracle_fwd_kernel(
     const float* __restrict__ h_s,       // (B, O, H)
     const float* __restrict__ h_o,       // (B, O, H)
     const float* __restrict__ geom,      // (B, O, O, 4)
@@ -55,88 +64,57 @@ __global__ void relation_oracle_fwd_kernel(
     const int* __restrict__ rel_tokens,  // (B, R)
     float* __restrict__ out,             // (B, R, O, O)
     int O, int H, int E, int R, float default_ll) {
+  const int Hp = L::pad(H);
+  const int Ep = L::pad(E);
+  const int Rp = round_up(R, kRChunk);
   extern __shared__ float4 smem4[];
-  float* h1_t = reinterpret_cast<float*>(smem4);  // [H][kStride], column p = pair
-  float* h2_s = h1_t + H * kStride;               // [kPairs][E]
-  float* es_s = h2_s + kPairs * E;                // [R][E]
+  float* h1s = reinterpret_cast<float*>(smem4);  // [kPairs][kLdH], swizzled
+  float* ring = h1s + kPairs * kLdH;             // [kStages][kRingRows][kRingStride];
+  float* es_s = ring;                            //   after the product: [Rp][Ep] e_sel[b]
+  float* lp_s = es_s + Rp * Ep;                  //   and [kWN][kPairs][Rp] logits
+  float* geom_s = ring + ring_floats(Ep, Rp);    // [kPairs][4]
+  int2* pij_s = reinterpret_cast<int2*>(geom_s + kPairs * 4);  // [kPairs]
 
   const int b = blockIdx.y;
   const int OO = O * O;
-  const int pair0 = blockIdx.x * kPairs;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+  const BandPairs pairs{static_cast<int>(blockIdx.x) * kPairs, O};
 
-  const float* es_g = e_sel + static_cast<size_t>(b) * R * E;
-  for (int k = tid; k < R * E; k += nthreads) es_s[k] = es_g[k];
+  ring_prologue<kStages, kThreads>(ring, w2, Hp, H, E, Ep);
+  load_pairs(pij_s, geom_s, geom, b, O, pairs);
+  __syncthreads();
+  build_h1<kThreads>(h1s, pij_s, geom_s, h_s, h_o, w_g, b0, b, O, H, Hp);
 
-  // Phase 1: h1 for the band; consecutive threads take consecutive h, so
-  // the h_s / h_o / w_g rows are read coalesced.
-  for (int k = tid; k < kPairs * H; k += nthreads) {
-    const int p = k / H;
-    const int h = k - p * H;
-    const int pid = pair0 + p;
-    float v = 0.f;
-    if (pid < OO) {
-      const int i = pid / O;
-      const int j = pid - i * O;
-      const float* g = geom + (static_cast<size_t>(b) * OO + pid) * 4;
-      const float gw = g[0] * w_g[h] + g[1] * w_g[H + h] + g[2] * w_g[2 * H + h] +
-                       g[3] * w_g[3 * H + h];
-      const float z = (h_s[(static_cast<size_t>(b) * O + i) * H + h] +
-                       h_o[(static_cast<size_t>(b) * O + j) * H + h]) +
-                      gw + b0[h];
-      v = elu_exp(z);
-    }
-    h1_t[h * kStride + p] = v;
-  }
+  float acc[2][L::kZ2Tiles][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < L::kZ2Tiles; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  ring_product<L, L::kZ2Tiles, kStages, kLdH>(acc, h1s, Hp, ring, w2, H, E, Ep);
+  load_esel<kThreads>(es_s, e_sel, b, R, E, Rp, Ep);  // the ring is free now
+  finish_h2<L>(acc, b2, E, Ep, nullptr);
+  __syncthreads();
+  partial_logits<L>(acc, es_s, Ep, Rp, lp_s);
   __syncthreads();
 
-  // Phase 2: h2[p, e] = sigmoid(h1[p] . W2[:, e] + b2[e]). Threads stride
-  // over E (coalesced W2 rows); each keeps kPairs accumulators and reads the
-  // band's h1 column four pairs at a time (a broadcast from shared memory).
-  for (int e = tid; e < E; e += nthreads) {
-    float acc[kPairs];
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
-    for (int h = 0; h < H; ++h) {
-      const float w = __ldg(w2 + static_cast<size_t>(h) * E + e);
-      const float4* row = reinterpret_cast<const float4*>(h1_t + h * kStride);
-#pragma unroll
-      for (int q = 0; q < kPairs / 4; ++q) {
-        const float4 v = row[q];
-        acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
-      }
-    }
-    const float bias = b2[e];
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) h2_s[p * E + e] = sigmoid(acc[p] + bias);
-  }
-  __syncthreads();
-
-  // Phase 3: one warp per (r, p): reduce h2[p] . e_sel[r] over E, add b_sel,
-  // logsigmoid, write R-major. Pad slots get default_ll.
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nwarps = nthreads >> 5;
-  for (int q = warp; q < R * kPairs; q += nwarps) {
+  // logsigmoid of the summed logits, R-major; pad slots get default_ll.
+  for (int q = threadIdx.x; q < R * kPairs; q += kThreads) {
     const int r = q / kPairs;
     const int p = q - r * kPairs;
-    const int pid = pair0 + p;
-    if (pid >= OO) continue;  // warp-uniform
-    float* dst = out + static_cast<size_t>(b * R + r) * OO + pid;
-    if (rel_tokens[b * R + r] == 0) {
-      if (lane == 0) *dst = default_ll;
-      continue;
-    }
-    float s = 0.f;
-    for (int e = lane; e < E; e += 32) s = fmaf(h2_s[p * E + e], es_s[r * E + e], s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) *dst = log_sigmoid(s + b_sel[b * R + r]);
+    const int pid = pairs.base + p;
+    if (pid >= OO) continue;
+    out[static_cast<size_t>(b * R + r) * OO + pid] =
+        rel_tokens[b * R + r] == 0
+            ? default_ll
+            : log_sigmoid(logit_of<L>(lp_s, p, r, Rp, b_sel[b * R + r]));
   }
+}
+
+size_t smem_bytes(int H, int E, int R) {
+  const int Ep = L::pad(E), Rp = round_up(R, kRChunk);
+  return sizeof(float) * (static_cast<size_t>(kPairs) * kLdH + ring_floats(Ep, Rp) + kPairs * 4) +
+         sizeof(int2) * kPairs;
 }
 
 }  // namespace
@@ -144,20 +122,17 @@ __global__ void relation_oracle_fwd_kernel(
 extern "C" {
 
 // Launches on `stream`; returns a cudaError_t code (0 = success). Does not
-// synchronise and allocates nothing.
+// synchronise and allocates nothing. Takes the widths of widths_ok
+// (dfol_pair_tail_widths).
 int dfol_relation_oracle_fwd(const void* h_s, const void* h_o, const void* geom,
                              const void* w_g, const void* b0, const void* w2,
                              const void* b2, const void* e_sel, const void* b_sel,
                              const void* rel_tokens, void* out, int B, int O, int H,
                              int E, int R, float default_ll, void* stream) {
-  if (B <= 0 || O <= 0 || H <= 0 || E <= 0 || R <= 0 || B > 65535 || O > 46340) {
+  if (B <= 0 || O <= 0 || R <= 0 || B > 65535 || O > 46340 || !widths_ok(H, E)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int threads = (E + 31) / 32 * 32;
-  threads = threads < 128 ? 128 : (threads > 1024 ? 1024 : threads);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(H) * kStride + static_cast<size_t>(kPairs) * E +
-                       static_cast<size_t>(R) * E);
+  const size_t smem = smem_bytes(H, E, R);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(relation_oracle_fwd_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -166,7 +141,7 @@ int dfol_relation_oracle_fwd(const void* h_s, const void* h_o, const void* geom,
   }
   const int OO = O * O;
   const dim3 grid((OO + kPairs - 1) / kPairs, B);
-  relation_oracle_fwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  relation_oracle_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h_s), static_cast<const float*>(h_o),
       static_cast<const float*>(geom), static_cast<const float*>(w_g),
       static_cast<const float*>(b0), static_cast<const float*>(w2),

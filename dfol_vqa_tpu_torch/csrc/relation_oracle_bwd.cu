@@ -9,76 +9,298 @@
 //   out[b,r,i,j] = logsigmoid(h2 . e_sel[b,r] + b_sel[b,r])                  (R slots)
 //
 // Given the R-major cotangent g (B, R, O, O), every pair recomputes z1, h1, h2 and
-// the logits in shared memory and forms
+// the logits on chip and forms
 //
 //   dlogits = g * sigmoid(-logits) * (rel_tokens != 0)      (pad slots hold a
 //             constant in the forward, so they pass no gradient)
 //   dz2 = (dlogits @ e_sel) * h2 * (1 - h2),  dz1 = (dz2 @ W2^T) * elu'(z1)
 //
-// with the ELU and its derivative in the forward kernel's exp(min(x,0)) form, and
-// accumulates dh_s, dh_o, dgeom, dWg, db0, dW2, db2, de_sel and db_sel.
+// with the ELU and its derivative in the exp(min(x,0)) form (elu' from a
+// recomputed z1, bit-identical to the forward's), and accumulates dh_s, dh_o,
+// dgeom, dWg, db0, dW2, db2, de_sel and db_sel.
 //
-// What bounds it: at B=80, O=100, H=256, E=300 there are 800k pairs and three
-// products per pair of H x E multiply-adds each -- h1 W2 (recompute), dz2 W2^T and
-// the dW2 outer product h1^T dz2 -- ~370 GFLOP of f32 FMA work. The plain PyTorch
-// version runs them as three large SGEMMs but moves ~10 GB of (B,O,O,H) and
-// (B,O,O,E) intermediates through device memory; this kernel keeps every
-// intermediate on chip. The TPU kernel sums the weight gradients into output
-// blocks that the sequential grid revisits; blocks on Hopper run in parallel in
-// no order, so reductions are deterministic partials instead of atomics:
+// What bounds it: 6HE + 6RE FLOP per pair (475,200 at H=256, E=300, R=8), three
+// H x E products per pair -- z2 = h1 W2 (recompute), dh1 = dz2 W2^T and dW2 +=
+// h1^T dz2 -- so 380 GFLOP at B=80, O=100: operations, not bytes. On the CUDA
+// cores (67 TFLOP/s) that is 5.7 ms; on the tensor cores in 3xTF32 (a third of
+// 495 TFLOP/s) 2.2 ms. mma.sync itself reaches two thirds of that TF32 rate.
 //
-// * a block owns a work item (question b, a band of kTI subject rows) and walks
-//   its object columns kTJ at a time, so one step is kTI*kTJ = 32 pairs. dh_s of
-//   its rows and de_sel/db_sel of the item accumulate in shared memory and are
-//   written once per item (de_sel/db_sel as per-item partials); dh_o is written
-//   per (item, column) as the TPU kernel's per-i-tile partials; dgeom per pair;
-// * blocks are persistent (the caller sizes the grid from
-//   dfol_relation_oracle_bwd_blocks_per_sm, so every block is resident) and
-//   stride over items. Each block keeps its own slice of a (grid, H, E) dW2 partial in
-//   global memory (read-modify-write from L2 per step, register tiles of
-//   kTile x kTile) and its dWg/db0/db2 partials in shared memory. The caller sums
-//   the partials over their leading axis. The sum order is fixed by the grid, so
-//   the result is the same from run to run.
+// Design. All three products run on the tensor cores: mma.sync.m16n8k8 in
+// TF32 with the split-precision 3xTF32 scheme (pair_tail_tile.cuh), f32
+// accumulators, 64 pairs per step (8 subject rows x 8 object columns), 16
+// warps (2 along the pairs x 8 along the columns):
 //
-// It is plain f32 SIMT code like the forward kernel: wgmma, TMA and tuning are
-// later work.
+// * z2 = h1 W2 and dh1 = dz2 W2^T take their A operand (h1, dz2) from swizzled
+//   [pair][column] tiles in shared memory and stream W2 / W2^T through a
+//   three-stage cp.async ring of 16-row slices, so each weight matrix crosses
+//   L2 once per 64 pairs (~8 GB at B=80, O=100; the SIMT kernel this replaces
+//   read both element by element per thread, once per 32 pairs, ~15 GB);
+// * dW2 += h1^T dz2 reads the same two tiles with the pair axis as K (the
+//   swizzle keeps both read patterns free of bank conflicts), in 32 x 32
+//   tiles per warp. The block's dW2 partial stays in global memory, in
+//   contiguous 4 KB chunks, and its read-modify-write (~9 GB at B=80, O=100,
+//   once per 64 pairs) goes through the bulk copy engine (cp.async.bulk load
+//   into a per-warp staging chunk, add, bulk store), overlapped with the
+//   products instead of stalling the warps on memory;
+// * the R-sized parts (logits, dh2 = dlogits e_sel, de_sel, db_sel) and the
+//   reductions of dz1 over pairs (dh_s, dh_o, db0, dWg, dgeom) stay in f32 on
+//   the CUDA cores, from registers and shared memory.
+//
+// Reductions are deterministic partials, never atomics. A step (question b,
+// kT subject rows x kT object columns) is a unit of work of its own; the
+// steps, in the order (b, row band, column band), are cut into runs of `per`
+// consecutive steps, one run per block of a persistent grid (the caller sizes
+// it from dfol_relation_oracle_bwd_blocks_per_sm), so the blocks share them
+// evenly. A block adds its steps' de_sel and db_sel into its slot of the
+// question's partials, and their dh_s into its slot of the row band's: the
+// blocks whose runs meet a question (a row band) take consecutive slots, and
+// one thread owns each element of a slot, so the sums over steps are made in
+// L2 (2.3 MB and 16.4 MB of slots at B=80, O=100 on 132 SMs, against 130 MB
+// and 106 MB for partials per step and per column band). A step writes dh_o
+// of its columns into the row band's partial, and dgeom per pair; dW2, dWg,
+// db0 and db2 are per-block partials, and a step's dW2 loads wait for the
+// step before's stores. The caller sums the partials over their
+// slot/band/block axis in a fixed order, so the result is the same from run
+// to run. 221 KB of shared memory at H=256, E=300, R=8: one block of 512
+// threads per SM.
 //
 // Plain C interface (loaded with ctypes); every pointer is a device pointer, all
 // float tensors are float32 and contiguous, rel_tokens is int32.
 
-#include <cuda_runtime.h>
+#include <climits>
+
+#include "pair_tail_tile.cuh"
 
 namespace {
 
-constexpr int kTI = 4;               // subject rows per work item
-constexpr int kTJ = 8;               // object columns per step
-constexpr int kPairs = kTI * kTJ;    // pairs per step
-constexpr int kStride = kPairs + 4;  // row stride of the per-pair buffers: 16-byte rows
-constexpr int kTile = 4;             // dW2 register tile: kTile rows of h x kTile columns of e
+using namespace pair_tail;
 
-__device__ __forceinline__ float elu_exp(float x) {
-  return x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;
+using L = Layout<8>;  // 16 warps: 2 along the pairs x 8 along the columns
+constexpr int kThreads = L::kThreads;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;
+constexpr int kT = 8;  // a step: kT subject rows x kT object columns
+constexpr int kDh1Tiles = kMaxH / L::kCols;       // n8 tiles per warp of dh1, at most
+static_assert(kT * kT == kPairs, "a step is one tile");
+constexpr int kECols = (kMaxE + kThreads - 1) / kThreads;  // columns e per thread, at most
+static_assert(kLdH <= kThreads, "one thread per hidden unit");
+
+// Floats of the ring region: the weight ring during products 1 and 3, the
+// partial logits and dlogits between them.
+__host__ __device__ int ring_floats(int Rp) {
+  const int between = (L::kWN + 1) * kPairs * Rp;
+  return between > kStages * kStageFloats ? between : kStages * kStageFloats;
 }
 
-__device__ __forceinline__ float elu_grad(float x) { return x > 0.f ? 1.f : expf(fminf(x, 0.f)); }
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// z1 of pair (i, j) of question b at hidden unit h; the same expression in the
-// recompute and in the derivative, so both see the same bits.
-__device__ __forceinline__ float pre_activation(const float* __restrict__ h_s,
-                                                const float* __restrict__ h_o,
-                                                const float* __restrict__ w_g,
-                                                const float* __restrict__ b0, const float* g4,
-                                                int b, int i, int j, int h, int O, int H) {
-  const float gw = g4[0] * w_g[h] + g4[1] * w_g[H + h] + g4[2] * w_g[2 * H + h] +
-                   g4[3] * w_g[3 * H + h];
-  return (h_s[(static_cast<size_t>(b) * O + i) * H + h] +
-          h_o[(static_cast<size_t>(b) * O + j) * H + h]) +
-         gw + b0[h];
+// dz2 = (dlogits e_sel) * h2 * (1 - h2) in place of h2 in the swizzled a_s
+// [kPairs][kLdE], at the positions of this thread's z2 accumulators (zero past
+// E, where e_sel and h2 are zero).
+__device__ __forceinline__ void store_dz2(const float* dl_s, const float* es_s, int Ep, int Rp,
+                                          float* a_s) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int nt_w = Ep / L::kCols;
+  const int r0 = L::wm() * 32 + g;
+  for (int nt = 0; nt < nt_w; ++nt) {
+    const int e = L::wn() * nt_w * 8 + 8 * nt + 2 * t;
+    float d[2][2][2] = {};
+    for (int r = 0; r < Rp; ++r) {
+      const float2 w = *reinterpret_cast<const float2*>(es_s + r * Ep + e);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float dl = dl_s[(r0 + 16 * mt + 8 * half) * Rp + r];
+          d[mt][half][0] = fmaf(dl, w.x, d[mt][half][0]);
+          d[mt][half][1] = fmaf(dl, w.y, d[mt][half][1]);
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float2* x = reinterpret_cast<float2*>(a_s + at(r0 + 16 * mt + 8 * half, e, kLdE));
+        const float2 h2 = *x;
+        *x = make_float2(d[mt][half][0] * h2.x * (1.f - h2.x),
+                         d[mt][half][1] * h2.y * (1.f - h2.y));
+      }
+  }
 }
 
-__global__ void relation_oracle_bwd_kernel(
+// dz1 = dh1 * elu'(z1) from the dh1 accumulators, into the swizzled h1s
+// [kPairs][kLdH] (zero outside O x O and past H). z1 is recomputed.
+template <int NT>
+__device__ __forceinline__ void store_dz1(const float (&dh1)[2][NT][4], float* h1s,
+                                          const int2* pij_s, const float* geom_s,
+                                          const float* __restrict__ h_s,
+                                          const float* __restrict__ h_o,
+                                          const float* __restrict__ w_g,
+                                          const float* __restrict__ b0, int b, int O, int H,
+                                          int Hp) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int nt_w = Hp / L::kCols;
+  const int r0 = L::wm() * 32 + g;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nt_w) continue;
+    const int h = L::wn() * nt_w * 8 + 8 * nt + 2 * t;  // H % 4 == 0: h, h+1 alike
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = r0 + 16 * mt + 8 * half;
+        const int2 ij = pij_s[p];
+        float v0 = 0.f, v1 = 0.f;
+        if (h < H && ij.x >= 0) {
+          const float4 g4 = *reinterpret_cast<const float4*>(geom_s + 4 * p);
+          v0 = dh1[mt][nt][2 * half] *
+               elu_grad(pre_activation(h_s, h_o, w_g, b0, g4, b, ij.x, ij.y, h, O, H));
+          v1 = dh1[mt][nt][2 * half + 1] *
+               elu_grad(pre_activation(h_s, h_o, w_g, b0, g4, b, ij.x, ij.y, h + 1, O, H));
+        }
+        *reinterpret_cast<float2*>(h1s + at(p, h, kLdH)) = make_float2(v0, v1);
+      }
+  }
+}
+
+// ---- bulk (TMA) copies between global and shared memory -----------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Copy `bytes` from global src into shared dst; completion arrives on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "wait%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Copy `bytes` from shared src to global dst as one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+constexpr int kChunk = 32;                     // dW2 tiles of kChunk (h) x kChunk (e)
+constexpr int kChunkFloats = kChunk * kChunk;  // 4 KB, contiguous in the partial
+
+// The block's dW2 partial += h1^T dz2 over the step's pairs: M = h, N = e,
+// K = the 64 pairs, both operands read from the swizzled tiles with the pair
+// axis as K. The partial is laid out in 32 x 32 chunks, each 4 KB and
+// contiguous ([Hp/32][Ep/32][32][32]). A warp takes every kWarps-th chunk:
+// it asks the bulk copy engine (TMA) for the chunk's old values into its
+// staging buffer in shared memory, runs the chunk's product meanwhile, adds
+// the product to the staged values and has the engine store the chunk back,
+// so the read-modify-write of the partial overlaps the tensor-core work. The
+// step's loads wait until the step before's stores have completed, so every
+// element adds its steps in step order.
+__device__ __forceinline__ void update_dw2(float* __restrict__ dw2, const float* h1s,
+                                           const float* a_s, int Hp, int Ep, float* stage,
+                                           uint64_t* bar, unsigned& parity) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_ec = Ep / kChunk;
+  const int chunks = (Hp / kChunk) * n_ec;
+  if (lane == 0) bulk_wait_all();  // the step before's stores are complete (long since)
+  for (int c = warp; c < chunks; c += kWarps) {
+    float* chunk = dw2 + static_cast<size_t>(c) * kChunkFloats;
+    if (lane == 0) bulk_load(stage, chunk, kChunkFloats * sizeof(float), bar);
+    const int h0 = (c / n_ec) * kChunk;
+    const int e0 = (c % n_ec) * kChunk;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < kPairs / 8; ++ks) {
+      const int p = 8 * ks + t;
+      uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int h = h0 + 16 * mt + g;
+        split(h1s[at(p, h, kLdH)], a_big[mt][0], a_small[mt][0]);
+        split(h1s[at(p, h + 8, kLdH)], a_big[mt][1], a_small[mt][1]);
+        split(h1s[at(p + 4, h, kLdH)], a_big[mt][2], a_small[mt][2]);
+        split(h1s[at(p + 4, h + 8, kLdH)], a_big[mt][3], a_small[mt][3]);
+      }
+      uint32_t b_big[4][2], b_small[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split(a_s[at(p, e0 + 8 * j + g, kLdE)], b_big[j][0], b_small[j][0]);
+        split(a_s[at(p + 4, e0 + 8 * j + g, kLdE)], b_big[j][1], b_small[j][1]);
+      }
+      mma3_group<4>(acc, 0, 4, a_big, a_small, b_big, b_small);
+    }
+    mbar_wait(bar, parity);
+    parity ^= 1u;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float2* x = reinterpret_cast<float2*>(stage + (16 * mt + 8 * half + g) * kChunk +
+                                                8 * nt + 2 * t);
+          const float2 old = *x;
+          *x = make_float2(old.x + acc[mt][nt][2 * half], old.y + acc[mt][nt][2 * half + 1]);
+        }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      bulk_store(chunk, stage, kChunkFloats * sizeof(float));
+      bulk_wait_read();  // the staging buffer is free for the next chunk
+    }
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) relation_oracle_bwd_kernel(
     const float* __restrict__ h_s,       // (B, O, H)
     const float* __restrict__ h_o,       // (B, O, H)
     const float* __restrict__ geom,      // (B, O, O, 4)
@@ -90,318 +312,261 @@ __global__ void relation_oracle_bwd_kernel(
     const float* __restrict__ e_sel,     // (B, R, E)
     const float* __restrict__ b_sel,     // (B, R)
     const int* __restrict__ rel_tokens,  // (B, R)
-    const float* __restrict__ g,         // (B, R, O, O) cotangent
-    float* __restrict__ dh_s,            // (B, O, H)
-    float* __restrict__ dho_part,        // (B, nI, O, H): per-item partials of dh_o
+    const float* __restrict__ cot,       // (B, R, O, O) cotangent
+    float* __restrict__ dhs_part,        // (B, band_slots, O, H), zeroed by the caller
+    float* __restrict__ dho_part,        // (B, nT, O, H): per-row-band partials of dh_o
     float* __restrict__ dgeom,           // (B, O, O, 4), or null when not wanted
-    float* __restrict__ desel_part,      // (B, nI, R, E)
-    float* __restrict__ dbsel_part,      // (B, nI, R)
-    float* __restrict__ dw2_part,        // (grid, H, E), zeroed by the caller
+    float* __restrict__ desel_part,      // (B, question_slots, R, E), zeroed by the caller
+    float* __restrict__ dbsel_part,      // (B, question_slots, R), zeroed by the caller
+    float* __restrict__ dw2_part,        // (grid, Hp/32, Ep/32, 32, 32), zeroed by the caller
     float* __restrict__ small_part,      // (grid, 4H + H + E): dWg, db0, db2
-    int B, int O, int H, int E, int R) {
+    int B, int O, int H, int E, int R,
+    int per,                             // steps per block, consecutive
+    int band_slots, int question_slots) {
+  const int Hp = L::pad(H);
+  const int Ep = L::pad(E);
+  const int Rp = round_up(R, kRChunk);
   extern __shared__ float4 smem4[];
-  float* h1_t = reinterpret_cast<float*>(smem4);  // [H][kStride]: h1, then dz1
-  float* a_t = h1_t + H * kStride;                // [E][kStride]: h2, then dz2
-  float* es_s = a_t + E * kStride;                // [R][E]: e_sel[b]
-  float* desel_s = es_s + R * E;                  // [R][E]
-  float* dl_s = desel_s + R * E;                  // [kPairs][R]: dlogits
-  float* geom_s = dl_s + kPairs * R;              // [kPairs][4]
-  float* dhs_s = geom_s + kPairs * 4;             // [kTI][H]
-  float* dwg_s = dhs_s + kTI * H;                 // [4][H]
-  float* db0_s = dwg_s + 4 * H;                   // [H]
-  float* db2_s = db0_s + H;                       // [E]
-  float* dbsel_s = db2_s + E;                     // [R]
+  float* h1s = reinterpret_cast<float*>(smem4);  // [kPairs][kLdH]: h1, then dz1
+  float* a_s = h1s + kPairs * kLdH;              // [kPairs][kLdE]: h2, then dz2
+  float* ring = a_s + kPairs * kLdE;             // [kStages][kRingRows][kRingStride];
+  float* lp_s = ring;                            //   between products 1 and 3:
+  float* dl_s = lp_s + L::kWN * kPairs * Rp;     //   partial logits and dlogits [kPairs][Rp]
+  float* es_s = ring + ring_floats(Rp);          // [Rp][Ep]: e_sel[b]
+  float* geom_s = es_s + Rp * Ep;                // [kPairs][4]
+  int2* pij_s = reinterpret_cast<int2*>(geom_s + kPairs * 4);  // [kPairs]
+  float* stage_x = reinterpret_cast<float*>(pij_s + kPairs);  // a 16th dW2 staging buffer
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stage_x + kChunkFloats);  // [kWarps]
+  // dW2 staging: warp w's chunk buffer lies in the ring, free during the dW2
+  // update, except the last warp's, which has its own
+  const int warp_id = threadIdx.x >> 5;
+  float* stage = (warp_id + 1) * kChunkFloats <= ring_floats(Rp) ? ring + warp_id * kChunkFloats
+                                                                 : stage_x;
+  uint64_t* bar = bars + warp_id;
+  unsigned parity = 0;
+  if ((threadIdx.x & 31) == 0) mbar_init(bar);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");  // before the first barrier
 
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int nI = (O + kTI - 1) / kTI;
-  const int nJ = (O + kTJ - 1) / kTJ;
-  const int items = B * nI;
-  float* dw2 = dw2_part + static_cast<size_t>(blockIdx.x) * H * E;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nT = (O + kT - 1) / kT;  // row (and column) bands per question
+  const int steps = B * nT * nT;
+  const int first = blockIdx.x * per;
+  const int last = min(first + per, steps);
+  float* dw2 = dw2_part + static_cast<size_t>(blockIdx.x) * Hp * Ep;
 
-  for (int k = tid; k < 5 * H; k += nt) dwg_s[k] = 0.f;  // dwg_s and db0_s are adjacent
-  for (int k = tid; k < E; k += nt) db2_s[k] = 0.f;
+  // The block's partials: thread h = tid < H holds dWg[:, h] and db0[h],
+  // and db2 of the columns e = tid + k kThreads < E.
+  float dwg[4] = {0.f, 0.f, 0.f, 0.f};
+  float db0_acc = 0.f;
+  float db2_acc[kECols] = {};
 
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int b = item / nI;
-    const int it = item - b * nI;
-    const int i0 = it * kTI;
-    const float* es_g = e_sel + static_cast<size_t>(b) * R * E;
-    for (int k = tid; k < R * E; k += nt) {
-      es_s[k] = es_g[k];
-      desel_s[k] = 0.f;
-    }
-    for (int k = tid; k < kTI * H; k += nt) dhs_s[k] = 0.f;
-    for (int k = tid; k < R; k += nt) dbsel_s[k] = 0.f;
-
-    for (int jt = 0; jt < nJ; ++jt) {
-      const int j0 = jt * kTJ;
-      // Geometry of the step's pairs; pairs outside O x O read zeros.
-      for (int k = tid; k < kPairs * 4; k += nt) {
-        const int p = k >> 2;
-        const int i = i0 + p / kTJ;
-        const int j = j0 + p % kTJ;
-        geom_s[k] = (i < O && j < O)
-                        ? geom[(static_cast<size_t>(b) * O * O + static_cast<size_t>(i) * O + j) * 4 +
-                               (k & 3)]
-                        : 0.f;
+  int es_b = -1;  // the question whose e_sel rows es_s holds
+  for (int step = first; step < last; ++step) {
+    const int b = step / (nT * nT);
+    const int it = (step / nT) % nT;
+    const int jt = step % nT;
+    const int i0 = it * kT;
+    const int j0 = jt * kT;
+    const BlockPairs pairs{i0, j0, O};
+    // this block's slot of the question's (the row band's) partials: its
+    // place among the blocks whose runs meet the question (the row band)
+    const size_t q_slot = static_cast<size_t>(b) * question_slots + blockIdx.x -
+                          b * nT * nT / per;
+    const size_t band_slot = static_cast<size_t>(b) * band_slots + blockIdx.x -
+                             (b * nT + it) * nT / per;
+    float* desel_dst = desel_part + q_slot * R * E;
+    {
+      ring_prologue<kStages, kThreads>(ring, w2, Hp, H, E, Ep);
+      if (b != es_b) {  // no thread reads es_s between the last step's barrier and here
+        load_esel<kThreads>(es_s, e_sel, b, R, E, Rp, Ep);
+        es_b = b;
       }
+      load_pairs(pij_s, geom_s, geom, b, O, pairs);
       __syncthreads();
+      build_h1<kThreads>(h1s, pij_s, geom_s, h_s, h_o, w_g, b0, b, O, H, Hp);
 
-      // h1 (0 outside O x O); consecutive threads take consecutive h.
-      for (int k = tid; k < kPairs * H; k += nt) {
-        const int p = k / H;
-        const int h = k - p * H;
-        const int i = i0 + p / kTJ;
-        const int j = j0 + p % kTJ;
-        float v = 0.f;
-        if (i < O && j < O) {
-          v = elu_exp(pre_activation(h_s, h_o, w_g, b0, geom_s + 4 * p, b, i, j, h, O, H));
-        }
-        h1_t[h * kStride + p] = v;
-      }
-      __syncthreads();
-
-      // Product 1: h2[p, e] = sigmoid(h1[p] . W2[:, e] + b2[e]), one thread per e.
-      for (int e = tid; e < E; e += nt) {
-        float acc[kPairs];
-#pragma unroll
-        for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
-        for (int h = 0; h < H; ++h) {
-          const float w = __ldg(w2 + static_cast<size_t>(h) * E + e);
-          const float4* row = reinterpret_cast<const float4*>(h1_t + h * kStride);
-#pragma unroll
-          for (int q = 0; q < kPairs / 4; ++q) {
-            const float4 v = row[q];
-            acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
-          }
-        }
-        const float bias = b2[e];
-        float4* out = reinterpret_cast<float4*>(a_t + e * kStride);
-#pragma unroll
-        for (int q = 0; q < kPairs / 4; ++q) {
-          out[q] = make_float4(sigmoid(acc[4 * q + 0] + bias), sigmoid(acc[4 * q + 1] + bias),
-                               sigmoid(acc[4 * q + 2] + bias), sigmoid(acc[4 * q + 3] + bias));
-        }
-      }
-      __syncthreads();
-
-      // dlogits, one thread per (r, p): a warp shares r, so e_sel reads broadcast.
-      for (int t = tid; t < R * kPairs; t += nt) {
-        const int r = t / kPairs;
-        const int p = t - r * kPairs;
-        const int i = i0 + p / kTJ;
-        const int j = j0 + p % kTJ;
-        float dl = 0.f;
-        if (i < O && j < O && rel_tokens[b * R + r] != 0) {
-          float s = 0.f;
-          for (int e = 0; e < E; ++e) s = fmaf(a_t[e * kStride + p], es_s[r * E + e], s);
-          const float logit = s + b_sel[b * R + r];
-          const float gv =
-              g[(static_cast<size_t>(b) * R + r) * O * O + static_cast<size_t>(i) * O + j];
-          dl = gv * sigmoid(-logit);
-        }
-        dl_s[p * R + r] = dl;
-      }
-      __syncthreads();
-
-      // Per e: de_sel += dlogits^T h2, then dz2 = (dlogits e_sel) h2 (1 - h2) in
-      // place of h2, and db2; threads r < R also sum db_sel.
-      for (int e = tid; e < E; e += nt) {
-        float v[kPairs];
-        float4* row = reinterpret_cast<float4*>(a_t + e * kStride);
-#pragma unroll
-        for (int q = 0; q < kPairs / 4; ++q) {
-          const float4 x = row[q];
-          v[4 * q + 0] = x.x;
-          v[4 * q + 1] = x.y;
-          v[4 * q + 2] = x.z;
-          v[4 * q + 3] = x.w;
-        }
-        for (int r = 0; r < R; ++r) {
-          float acc = 0.f;
-#pragma unroll
-          for (int p = 0; p < kPairs; ++p) acc = fmaf(dl_s[p * R + r], v[p], acc);
-          desel_s[r * E + e] += acc;
-        }
-        float sum = 0.f;
-#pragma unroll
-        for (int p = 0; p < kPairs; ++p) {
-          float dh2 = 0.f;
-          for (int r = 0; r < R; ++r) dh2 = fmaf(dl_s[p * R + r], es_s[r * E + e], dh2);
-          v[p] = dh2 * v[p] * (1.f - v[p]);
-          sum += v[p];
-        }
-#pragma unroll
-        for (int q = 0; q < kPairs / 4; ++q) {
-          row[q] = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-        }
-        db2_s[e] += sum;
-      }
-      for (int r = tid; r < R; r += nt) {
-        float sum = 0.f;
-        for (int p = 0; p < kPairs; ++p) sum += dl_s[p * R + r];
-        dbsel_s[r] += sum;
-      }
-      __syncthreads();
-
-      // Product 3: this block's dW2 partial += h1^T dz2, kTile x kTile per thread.
+      // Product 1 (recompute): z2 = h1 W2 -> h2 (into a_s), partial logits.
       {
-        const int nHt = (H + kTile - 1) / kTile;
-        const int nEt = (E + kTile - 1) / kTile;
-        for (int t = tid; t < nHt * nEt; t += nt) {
-          const int ht = t / nEt;
-          const int h0 = ht * kTile;
-          const int e0 = (t - ht * nEt) * kTile;
-          float acc[kTile][kTile];
+        float acc[2][L::kZ2Tiles][4];
 #pragma unroll
-          for (int a = 0; a < kTile; ++a) {
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int c = 0; c < kTile; ++c) acc[a][c] = 0.f;
+          for (int nt = 0; nt < L::kZ2Tiles; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+        ring_product<L, L::kZ2Tiles, kStages, kLdH>(acc, h1s, Hp, ring, w2, H, E, Ep);
+        finish_h2<L>(acc, b2, E, Ep, a_s);
+        partial_logits<L>(acc, es_s, Ep, Rp, lp_s);
+      }
+      __syncthreads();
+
+      // dlogits, zero on pad slots and outside O x O.
+      for (int q = tid; q < Rp * kPairs; q += kThreads) {
+        const int r = q / kPairs;
+        const int p = q - r * kPairs;
+        int i, j;
+        float dl = 0.f;
+        if (r < R && pairs(p, i, j) && rel_tokens[b * R + r] != 0) {
+          const float logit = logit_of<L>(lp_s, p, r, Rp, b_sel[b * R + r]);
+          dl = cot[(static_cast<size_t>(b * R + r) * O + i) * O + j] * sigmoid(-logit);
+        }
+        dl_s[p * Rp + r] = dl;
+      }
+      __syncthreads();
+
+      // de_sel += dlogits^T h2 (column e per thread), db_sel += dlogits' sums,
+      // into the block's slot of the question's partials.
+      for (int e = tid; e < E; e += kThreads) {
+        for (int rc = 0; rc < R; rc += kRChunk) {
+          float s[kRChunk] = {};
+          for (int p = 0; p < kPairs; ++p) {
+            const float x = a_s[at(p, e, kLdE)];
+            const float4 d0 = *reinterpret_cast<const float4*>(dl_s + p * Rp + rc);
+            const float4 d1 = *reinterpret_cast<const float4*>(dl_s + p * Rp + rc + 4);
+            s[0] = fmaf(d0.x, x, s[0]);
+            s[1] = fmaf(d0.y, x, s[1]);
+            s[2] = fmaf(d0.z, x, s[2]);
+            s[3] = fmaf(d0.w, x, s[3]);
+            s[4] = fmaf(d1.x, x, s[4]);
+            s[5] = fmaf(d1.y, x, s[5]);
+            s[6] = fmaf(d1.z, x, s[6]);
+            s[7] = fmaf(d1.w, x, s[7]);
           }
-#pragma unroll 2
-          for (int q = 0; q < kPairs / 4; ++q) {
-            float4 hv[kTile];
-            float4 ev[kTile];
 #pragma unroll
-            for (int a = 0; a < kTile; ++a) {
-              hv[a] = h0 + a < H ? reinterpret_cast<const float4*>(h1_t + (h0 + a) * kStride)[q]
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-              ev[a] = e0 + a < E ? reinterpret_cast<const float4*>(a_t + (e0 + a) * kStride)[q]
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-#pragma unroll
-            for (int a = 0; a < kTile; ++a) {
-#pragma unroll
-              for (int c = 0; c < kTile; ++c) {
-                float s = acc[a][c];
-                s = fmaf(hv[a].x, ev[c].x, s);
-                s = fmaf(hv[a].y, ev[c].y, s);
-                s = fmaf(hv[a].z, ev[c].z, s);
-                s = fmaf(hv[a].w, ev[c].w, s);
-                acc[a][c] = s;
-              }
-            }
-          }
-#pragma unroll
-          for (int a = 0; a < kTile; ++a) {
-#pragma unroll
-            for (int c = 0; c < kTile; ++c) {
-              if (h0 + a < H && e0 + c < E) dw2[(h0 + a) * E + e0 + c] += acc[a][c];
+          for (int r = 0; r < kRChunk; ++r) {
+            if (rc + r < R) {
+              desel_dst[(rc + r) * E + e] += s[r];
             }
           }
         }
       }
+      if (tid < R) {
+        float s = 0.f;
+        for (int p = 0; p < kPairs; ++p) s += dl_s[p * Rp + tid];
+        dbsel_part[q_slot * R + tid] += s;
+      }
       __syncthreads();
 
-      // Product 2: dh1 = dz2 W2^T, one thread per h; dz1 = dh1 * elu'(z1) in place
-      // of h1, then dh_s, the dh_o partial, db0 and dWg.
-      for (int h = tid; h < H; h += nt) {
-        float acc[kPairs];
+      // dz2 in place of h2; then db2 += its column sums and product 2:
+      // dW2 += h1^T dz2, while the ring takes product 3's first W2^T rows.
+      store_dz2(dl_s, es_s, Ep, Rp, a_s);
+      __syncthreads();
 #pragma unroll
-        for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
-        for (int e = 0; e < E; ++e) {
-          const float w = __ldg(w2t + static_cast<size_t>(e) * H + h);
-          const float4* row = reinterpret_cast<const float4*>(a_t + e * kStride);
-#pragma unroll
-          for (int q = 0; q < kPairs / 4; ++q) {
-            const float4 v = row[q];
-            acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
-          }
+      for (int k = 0; k < kECols; ++k) {
+        const int e = tid + k * kThreads;
+        if (e < E) {
+          float s = 0.f;
+          for (int p = 0; p < kPairs; ++p) s += a_s[at(p, e, kLdE)];
+          db2_acc[k] += s;
         }
-        float sum = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
-        float col[kTJ];
+      }
+      update_dw2(dw2, h1s, a_s, Hp, Ep, stage, bar, parity);
+      __syncthreads();  // the staging buffers in the ring are read
+      ring_prologue<kStages, kThreads>(ring, w2t, Ep, E, H, Hp);
+
+      // Product 3: dh1 = dz2 W2^T; its first barrier also orders product 2's
+      // reads of h1s before dz1 is written there.
+      {
+        float acc[2][kDh1Tiles][4];
 #pragma unroll
-        for (int tj = 0; tj < kTJ; ++tj) col[tj] = 0.f;
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int ti = 0; ti < kTI; ++ti) {
+          for (int nt = 0; nt < kDh1Tiles; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+        ring_product<L, kDh1Tiles, kStages, kLdE>(acc, a_s, Ep, ring, w2t, E, H, Hp);
+        store_dz1(acc, h1s, pij_s, geom_s, h_s, h_o, w_g, b0, b, O, H, Hp);
+      }
+      __syncthreads();
+
+      // dz1's sums, thread h = tid: dh_s of the step's rows, added into the
+      // block's slot of the row band's partial, dh_o of its columns into the
+      // row band's partial, and the block's db0 and dWg.
+      if (tid < H) {
+        float col[kT];
+#pragma unroll
+        for (int tj = 0; tj < kT; ++tj) col[tj] = 0.f;
+#pragma unroll
+        for (int ti = 0; ti < kT; ++ti) {
           float row_sum = 0.f;
 #pragma unroll
-          for (int tj = 0; tj < kTJ; ++tj) {
-            const int p = ti * kTJ + tj;
-            const int i = i0 + ti;
-            const int j = j0 + tj;
-            float dz = 0.f;
-            if (i < O && j < O) {
-              const float* g4 = geom_s + 4 * p;
-              dz = acc[p] * elu_grad(pre_activation(h_s, h_o, w_g, b0, g4, b, i, j, h, O, H));
-              g0 = fmaf(g4[0], dz, g0);
-              g1 = fmaf(g4[1], dz, g1);
-              g2 = fmaf(g4[2], dz, g2);
-              g3 = fmaf(g4[3], dz, g3);
-            }
-            h1_t[h * kStride + p] = dz;
+          for (int tj = 0; tj < kT; ++tj) {
+            const int p = ti * kT + tj;
+            const float dz = h1s[at(p, tid, kLdH)];
+            const float4 g4 = *reinterpret_cast<const float4*>(geom_s + 4 * p);
+            dwg[0] = fmaf(g4.x, dz, dwg[0]);
+            dwg[1] = fmaf(g4.y, dz, dwg[1]);
+            dwg[2] = fmaf(g4.z, dz, dwg[2]);
+            dwg[3] = fmaf(g4.w, dz, dwg[3]);
             row_sum += dz;
             col[tj] += dz;
           }
-          dhs_s[ti * H + h] += row_sum;
-          sum += row_sum;
+          const int i = i0 + ti;
+          if (i < O) dhs_part[(band_slot * O + i) * H + tid] += row_sum;
+          db0_acc += row_sum;
         }
 #pragma unroll
-        for (int tj = 0; tj < kTJ; ++tj) {
+        for (int tj = 0; tj < kT; ++tj) {
           const int j = j0 + tj;
-          if (j < O) dho_part[((static_cast<size_t>(b) * nI + it) * O + j) * H + h] = col[tj];
+          if (j < O) dho_part[((static_cast<size_t>(b) * nT + it) * O + j) * H + tid] = col[tj];
         }
-        db0_s[h] += sum;
-        dwg_s[h] += g0;
-        dwg_s[H + h] += g1;
-        dwg_s[2 * H + h] += g2;
-        dwg_s[3 * H + h] += g3;
+      }
+
+      // dgeom[b, i, j, c] = dz1[p] . Wg[c], one warp per pair.
+      if (dgeom != nullptr) {
+        for (int p = warp; p < kPairs; p += kWarps) {
+          const int2 ij = pij_s[p];
+          if (ij.x < 0) continue;  // warp-uniform
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int h = lane; h < H; h += 32) {
+            const float dz = h1s[at(p, h, kLdH)];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[c] = fmaf(dz, w_g[c * H + h], s[c]);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+          }
+          if (lane < 4) {
+            dgeom[((static_cast<size_t>(b) * O + ij.x) * O + ij.y) * 4 + lane] =
+                lane == 0 ? s[0] : lane == 1 ? s[1] : lane == 2 ? s[2] : s[3];
+          }
+        }
       }
       __syncthreads();
-
-      // dgeom[b, i, j, c] = dz1[p] . Wg[c], one thread per (p, c).
-      if (dgeom != nullptr) {
-        for (int t = tid; t < kPairs * 4; t += nt) {
-          const int p = t >> 2;
-          const int c = t & 3;
-          const int i = i0 + p / kTJ;
-          const int j = j0 + p % kTJ;
-          if (i >= O || j >= O) continue;
-          float s = 0.f;
-          for (int h = 0; h < H; ++h) s = fmaf(h1_t[h * kStride + p], w_g[c * H + h], s);
-          dgeom[(static_cast<size_t>(b) * O * O + static_cast<size_t>(i) * O + j) * 4 + c] = s;
-        }
-      }
-      // The next step writes geom_s and then (after a barrier) h1_t; the dgeom
-      // pass reads only h1_t and w_g, so the barrier after the geometry load
-      // orders it.
     }
-    __syncthreads();
-
-    // The item's rows of dh_s, and its de_sel / db_sel partials.
-    for (int k = tid; k < kTI * H; k += nt) {
-      const int i = i0 + k / H;
-      if (i < O) dh_s[(static_cast<size_t>(b) * O + i) * H + (k % H)] = dhs_s[k];
-    }
-    float* desel_dst = desel_part + static_cast<size_t>(item) * R * E;
-    for (int k = tid; k < R * E; k += nt) desel_dst[k] = desel_s[k];
-    for (int k = tid; k < R; k += nt) dbsel_part[static_cast<size_t>(item) * R + k] = dbsel_s[k];
-    __syncthreads();
   }
+
+  if (lane == 0) bulk_wait_all();  // the dW2 partial's last stores are complete
 
   // The block's dWg, db0 and db2 partials.
   float* small = small_part + static_cast<size_t>(blockIdx.x) * (5 * H + E);
-  for (int k = tid; k < 5 * H; k += nt) small[k] = dwg_s[k];
-  for (int k = tid; k < E; k += nt) small[5 * H + k] = db2_s[k];
+  if (tid < H) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) small[c * H + tid] = dwg[c];
+    small[4 * H + tid] = db0_acc;
+  }
+#pragma unroll
+  for (int k = 0; k < kECols; ++k) {
+    const int e = tid + k * kThreads;
+    if (e < E) small[5 * H + e] = db2_acc[k];
+  }
 }
 
-// Threads and dynamic shared memory of a launch at these widths; raises the
-// kernel's shared-memory limit when the launch needs more than 48 KB.
-cudaError_t launch_shape(int H, int E, int R, int* threads, size_t* smem) {
-  int t = ((H > E ? H : E) + 31) / 32 * 32;
-  *threads = t < 128 ? 128 : (t > 512 ? 512 : t);
-  const size_t floats = static_cast<size_t>(H) * kStride + static_cast<size_t>(E) * kStride +
-                        2 * static_cast<size_t>(R) * E + static_cast<size_t>(kPairs) * R +
-                        kPairs * 4 + static_cast<size_t>(kTI) * H + 5 * static_cast<size_t>(H) +
-                        E + R;
-  *smem = sizeof(float) * floats;
+size_t smem_bytes(int H, int E, int R) {
+  const int Ep = L::pad(E), Rp = round_up(R, kRChunk);
+  return sizeof(float) * (static_cast<size_t>(kPairs) * (kLdH + kLdE) + ring_floats(Rp) +
+                          Rp * Ep + kPairs * 4 + kChunkFloats) +
+         sizeof(int2) * kPairs + sizeof(uint64_t) * kWarps;
+}
+
+// Dynamic shared memory of a launch at these widths; raises the kernel's
+// limit when it needs more than 48 KB.
+cudaError_t launch_smem(int H, int E, int R, size_t* smem) {
+  *smem = smem_bytes(H, E, R);
   if (*smem > 48 * 1024) {
     return cudaFuncSetAttribute(relation_oracle_bwd_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -410,53 +575,71 @@ cudaError_t launch_shape(int H, int E, int R, int* threads, size_t* smem) {
   return cudaSuccess;
 }
 
+bool bwd_widths_ok(int H, int E, int R) { return widths_ok(H, E) && R > 0 && R <= kThreads; }
+
 }  // namespace
 
 extern "C" {
 
-// Subject rows per work item (kTI): the caller sizes the per-item partials
-// dho_part, desel_part and dbsel_part with ceil(O / this) items per question.
-int dfol_relation_oracle_bwd_rows() { return kTI; }
+// Rows (and columns) of a step's tile (kT): the caller sizes the partials
+// with nT = ceil(O / this) bands per question.
+int dfol_relation_oracle_bwd_tile() { return kT; }
+
+// The multiple that H and E are padded to (the columns of one step of the
+// warps): the caller sizes dw2_part as (grid, Hp/32, Ep/32, 32, 32).
+int dfol_relation_oracle_bwd_pad() { return L::kCols; }
 
 // Blocks of the kernel that fit on one SM at once at these widths (registers
 // and shared memory), written to *blocks; returns a cudaError_t code. The
 // persistent grid is this times the SM count, so all its blocks are resident.
 int dfol_relation_oracle_bwd_blocks_per_sm(int H, int E, int R, int* blocks) {
-  int threads = 0;
+  if (!bwd_widths_ok(H, E, R)) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
-  cudaError_t err = launch_shape(H, E, R, &threads, &smem);
+  cudaError_t err = launch_smem(H, E, R, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, relation_oracle_bwd_kernel, threads, smem));
+      blocks, relation_oracle_bwd_kernel, kThreads, smem));
 }
 
-// Launches on `stream` with `grid` persistent blocks; returns a cudaError_t code
-// (0 = success). Does not synchronise and allocates nothing: the caller passes
-// dw2_part zeroed and sums every *_part buffer over its leading item/block axis.
+// Launches on `stream` with `grid` persistent blocks, block k taking steps
+// [k per, (k + 1) per) of the B * nT^2 (grid = ceil(steps / per)); band_slots
+// and question_slots are 1 + ceil((n - 1) / per) for the nT steps of a row
+// band and the nT^2 of a question, the most blocks whose runs meet one.
+// Returns a cudaError_t code (0 = success). Does not synchronise and allocates
+// nothing: the caller passes dhs_part, desel_part, dbsel_part and dw2_part
+// zeroed and sums every *_part buffer over its slot/band/block axis. Takes the
+// widths of widths_ok (dfol_pair_tail_widths) and R <= 512.
 int dfol_relation_oracle_bwd(const void* h_s, const void* h_o, const void* geom,
                              const void* w_g, const void* b0, const void* w2, const void* w2t,
                              const void* b2, const void* e_sel, const void* b_sel,
-                             const void* rel_tokens, const void* g, void* dh_s, void* dho_part,
+                             const void* rel_tokens, const void* g, void* dhs_part, void* dho_part,
                              void* dgeom, void* desel_part, void* dbsel_part, void* dw2_part,
                              void* small_part, int B, int O, int H, int E, int R, int grid,
-                             void* stream) {
-  if (B <= 0 || O <= 0 || H <= 0 || E <= 0 || R <= 0 || grid <= 0 || O > 46340) {
+                             int per, int band_slots, int question_slots, void* stream) {
+  if (B <= 0 || O <= 0 || O > 46340 || !bwd_widths_ok(H, E, R)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int threads = 0;
+  const int nT = (O + kT - 1) / kT;
+  const long long steps = static_cast<long long>(B) * nT * nT;
+  const auto slots = [per](int n) { return 1 + (n - 1 + per - 1) / per; };
+  if (per <= 0 || steps > INT_MAX || grid != (steps + per - 1) / per ||
+      band_slots != slots(nT) || question_slots != slots(nT * nT)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   size_t smem = 0;
-  cudaError_t err = launch_shape(H, E, R, &threads, &smem);
+  cudaError_t err = launch_smem(H, E, R, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  relation_oracle_bwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  relation_oracle_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h_s), static_cast<const float*>(h_o),
       static_cast<const float*>(geom), static_cast<const float*>(w_g),
       static_cast<const float*>(b0), static_cast<const float*>(w2),
       static_cast<const float*>(w2t), static_cast<const float*>(b2),
       static_cast<const float*>(e_sel), static_cast<const float*>(b_sel),
       static_cast<const int*>(rel_tokens), static_cast<const float*>(g),
-      static_cast<float*>(dh_s), static_cast<float*>(dho_part), static_cast<float*>(dgeom),
+      static_cast<float*>(dhs_part), static_cast<float*>(dho_part), static_cast<float*>(dgeom),
       static_cast<float*>(desel_part), static_cast<float*>(dbsel_part),
-      static_cast<float*>(dw2_part), static_cast<float*>(small_part), B, O, H, E, R);
+      static_cast<float*>(dw2_part), static_cast<float*>(small_part), B, O, H, E, R, per,
+      band_slots, question_slots);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,12 +25,12 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from dfol_vqa_tpu.compiler.program_compiler import ProgramCompiler
-from dfol_vqa_tpu.config import Config
-from dfol_vqa_tpu.data.dataset import ProgramDataset
-from dfol_vqa_tpu.data.loader import BatchLoader
-from dfol_vqa_tpu.data.planted import PlantedWorld
-from dfol_vqa_tpu.ontology import GQAOntology
+from dfol_vqa_tpu_torch.compiler.program_compiler import ProgramCompiler
+from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.data.dataset import ProgramDataset
+from dfol_vqa_tpu_torch.data.loader import BatchLoader
+from dfol_vqa_tpu_torch.data.planted import PlantedWorld
+from dfol_vqa_tpu_torch.ontology import GQAOntology
 
 # (family, hops, questions): 640 questions in 8 batches of 80, six of them
 # relating (exist and verify_rel), at GQA's maximum of 100 objects

@@ -1,0 +1,155 @@
+"""Object feature sources: GQA HDF5 chunks + synthetic scenes.
+
+The PyTorch port's own copy of ``dfol_vqa_tpu/data/features.py``, which it must not import
+(the port imports nothing of the JAX package); it behaves exactly as
+that module, and tests/test_torch_host.py holds the two equal.
+
+Dense-padded replacement for BatchGQABoxFeaturesCollator's feature join
+(src/nsvqa/data/batch_gqa_boxfeatures_pipeline.py:15-92): per image we emit a
+``(O_pad, box_dim + 6)`` row block ``[features ‖ image_w,image_h ‖ bbox
+x,y,w,h]`` (bbox converted to width/height form as upstream, …:60-61) plus a
+float validity mask, instead of the reference's ragged concat +
+object_batch_index.
+"""
+
+from __future__ import annotations
+
+import json
+import zlib
+from os.path import join
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+class FeatureSource:
+    """Maps image ids -> (objects (O, D+6), n_objects)."""
+
+    box_dim: int = 2048
+
+    def batch(self, image_ids: List[str], O: int) -> Tuple[np.ndarray, np.ndarray]:
+        objs = np.zeros((len(image_ids), O, self.box_dim + 6), np.float32)
+        mask = np.zeros((len(image_ids), O), np.float32)
+        for i, im in enumerate(image_ids):
+            row, n = self.image(im)
+            n = min(n, O)
+            objs[i, :n] = row[:n]
+            mask[i, :n] = 1.0
+        return objs, mask
+
+    def image(self, image_id: str) -> Tuple[np.ndarray, int]:
+        raise NotImplementedError
+
+    def fork_reset(self):
+        """Drop process-shared resources after fork (loader num_workers>0);
+        sources with open file handles must reopen them per process."""
+
+    def batch_unique(
+        self, image_ids: List[str], O: int, pad_ladder=(4, 8, 16, 32, 64, 128, 256, 512, 1024)
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Deduplicated scene batch: (uniq (U_pad, O, D+6), uniq_mask
+        (U_pad, O), img_index (B,)).
+
+        GQA averages ~10 questions per image, so loading each unique image
+        once cuts both host->device bytes and per-object oracle FLOPs. U is
+        padded up a ladder to bound jit signatures."""
+        uniq: dict = {}
+        idx = np.zeros(len(image_ids), np.int32)
+        for i, im in enumerate(image_ids):
+            if im not in uniq:
+                uniq[im] = len(uniq)
+            idx[i] = uniq[im]
+        U = len(uniq)
+        U_pad = U
+        for v in pad_ladder:
+            if U <= v:
+                U_pad = v
+                break
+        objs = np.zeros((U_pad, O, self.box_dim + 6), np.float32)
+        mask = np.zeros((U_pad, O), np.float32)
+        for im, u in uniq.items():
+            row, n = self.image(im)
+            n = min(n, O)
+            objs[u, :n] = row[:n]
+            mask[u, :n] = 1.0
+        return objs, mask, idx
+
+
+class GQAHdf5Features(FeatureSource):
+    """Reads the official GQA objects HDF5 chunk files
+    (batch_gqa_boxfeatures_pipeline.py:26-73)."""
+
+    def __init__(self, object_h5_path: str, file_prefix: str, chunk_num: int,
+                 object_info_json_path: str):
+        import h5py
+
+        self._h5py = h5py
+        self._path = object_h5_path
+        self._prefix = file_prefix
+        self._chunk_num = chunk_num
+        with open(object_info_json_path, "r") as f:
+            self._info = json.load(f)
+        self._handles: Optional[list] = None
+        with h5py.File(join(object_h5_path, f"{file_prefix}_0.h5"), "r") as f:
+            _, self.max_object_per_image, self.box_dim = f["features"].shape
+
+    def fork_reset(self):
+        self._handles = None  # h5py handles are not fork-safe; reopen lazily
+
+    def _handle(self, chunk_id: int):
+        if self._handles is None:
+            self._handles = [
+                self._h5py.File(join(self._path, f"{self._prefix}_{i}.h5"), "r")
+                for i in range(self._chunk_num)
+            ]
+        return self._handles[chunk_id]
+
+    def image(self, image_id: str) -> Tuple[np.ndarray, int]:
+        info = self._info[image_id]
+        n = info["objectsNum"]
+        h = self._handle(info["file"])
+        feats = h["features"][info["idx"]]  # (O_max, 2048)
+        bboxes = np.array(h["bboxes"][info["idx"]], np.float32)  # (O_max, 4) x1y1x2y2
+        O_max = feats.shape[0]
+        out = np.zeros((O_max, self.box_dim + 6), np.float32)
+        out[:, : self.box_dim] = feats
+        out[:, self.box_dim] = info["width"]
+        out[:, self.box_dim + 1] = info["height"]
+        out[:, self.box_dim + 2] = bboxes[:, 0]
+        out[:, self.box_dim + 3] = bboxes[:, 1]
+        out[:, self.box_dim + 4] = bboxes[:, 2] - bboxes[:, 0]
+        out[:, self.box_dim + 5] = bboxes[:, 3] - bboxes[:, 1]
+        return out, n
+
+
+class SyntheticFeatures(FeatureSource):
+    """Deterministic per-image random scenes for tests and benchmarks."""
+
+    def __init__(self, box_dim: int = 2048, min_objects: int = 4, max_objects: int = 16,
+                 seed: int = 0):
+        self.box_dim = box_dim
+        self._min = min_objects
+        self._max = max_objects
+        self._seed = seed
+        self._cache: Dict[str, Tuple[np.ndarray, int]] = {}
+
+    def image(self, image_id: str) -> Tuple[np.ndarray, int]:
+        if image_id in self._cache:
+            return self._cache[image_id]
+        # Process-independent seed (crc32, not builtin hash(): the latter is
+        # PYTHONHASHSEED-randomized across interpreters, so spawn workers and
+        # re-runs would see different scenes — same scheme as planted.py).
+        # NOTE: changed in r4 from hash(); r4 synthetic scenes differ from r3.
+        h = (zlib.crc32(f"synth/{image_id}".encode()) ^ (self._seed * 0x9E3779B1)) % (2**32)
+        rng = np.random.default_rng(h)
+        n = int(rng.integers(self._min, self._max + 1))
+        out = np.zeros((n, self.box_dim + 6), np.float32)
+        out[:, : self.box_dim] = rng.standard_normal((n, self.box_dim)).astype(np.float32)
+        out[:, self.box_dim] = 640
+        out[:, self.box_dim + 1] = 480
+        out[:, self.box_dim + 2] = rng.uniform(0, 600, n)
+        out[:, self.box_dim + 3] = rng.uniform(0, 440, n)
+        out[:, self.box_dim + 4] = rng.uniform(5, 40, n)
+        out[:, self.box_dim + 5] = rng.uniform(5, 40, n)
+        self._cache[image_id] = (out, n)
+        return out, n

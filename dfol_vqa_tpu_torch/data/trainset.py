@@ -22,12 +22,12 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
-from dfol_vqa_tpu.compiler.program_compiler import ProgramCompiler
-from dfol_vqa_tpu.config import Config
-from dfol_vqa_tpu.data.dataset import ProgramDataset
-from dfol_vqa_tpu.data.loader import BatchLoader
-from dfol_vqa_tpu.data.planted import PlantedWorld
-from dfol_vqa_tpu.ontology import GQAOntology
+from dfol_vqa_tpu_torch.compiler.program_compiler import ProgramCompiler
+from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.data.dataset import ProgramDataset
+from dfol_vqa_tpu_torch.data.loader import BatchLoader
+from dfol_vqa_tpu_torch.data.planted import PlantedWorld
+from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.data import evalset
 
 # (family, hops, questions): 560 questions, 7 batches of 80, 5 of them relating

@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from dfol_vqa_tpu.config import Config
+from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch import nn
 
 

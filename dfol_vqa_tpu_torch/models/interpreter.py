@@ -26,15 +26,15 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from dfol_vqa_tpu.compiler.program_compiler import (
+from dfol_vqa_tpu_torch.compiler.program_compiler import (
     OP_FILTER,
     OP_PAD,
     OP_RELATE,
     OP_SELECT,
     BucketSpec,
 )
-from dfol_vqa_tpu.config import Config
-from dfol_vqa_tpu.ontology import GQAOntology
+from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.featurizer import featurize_objects
 from dfol_vqa_tpu_torch.ops.cells import filter_update, normalize_over_options, relate_update

@@ -21,7 +21,7 @@ import torch
 from torch import nn as tnn
 from torch.nn import functional as F
 
-from dfol_vqa_tpu.config import Config
+from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.models.featurizer import pair_geometry
 

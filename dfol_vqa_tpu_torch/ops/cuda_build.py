@@ -2,7 +2,8 @@
 
 Each library is compiled at first use, from the sources in the checkout,
 into ``dfol_vqa_tpu_torch/_build/<name>-<hash>/`` (listed in .gitignore),
-where the hash covers the sources and the nvcc flags. The sources expose a
+where the hash covers the sources, the headers in ``csrc/`` and the nvcc
+flags. The sources expose a
 plain C interface, so the build needs no PyTorch headers and takes seconds;
 libraries of different names build concurrently (one lock per name). Every
 source defines ``dfol_cuda_error_string``, which ``check`` uses to name a
@@ -56,10 +57,14 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(sources: Sequence[str]) -> str:
+def _digest(sources: Sequence[str], csrc_dir: str = CSRC_DIR) -> str:
+    """Hash of the nvcc flags, the sources and every header in ``csrc_dir``
+    (a source may include any of them), so an edited header rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as f:
+    headers = sorted(os.path.join(csrc_dir, f) for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    for path in [*sources, *headers]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 

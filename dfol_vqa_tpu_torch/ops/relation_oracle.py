@@ -13,7 +13,9 @@ per object pair,
 and writes the R-major (B, R, O, O) cache with ``default_ll`` on pad slots,
 so neither the (B, O, O, H) hidden nor the (B, O, O, E) pair code reaches
 device memory. ``h_s``/``h_o`` stay ``torch.matmul``, as they are XLA dots
-in the JAX version.
+in the JAX version. Both kernels run their H x E products on the tensor
+cores in split-precision TF32 ("3xTF32", ``tf32_split``), which keeps
+float32-level error.
 
 The backward kernel is ``csrc/relation_oracle_bwd.cu`` (the TPU's
 ``_bwd_kernel``): it recomputes each pair's activations on chip and emits
@@ -37,7 +39,7 @@ from typing import Optional
 import torch
 from torch.nn import functional as F
 
-from dfol_vqa_tpu.config import Config
+from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.featurizer import pair_geometry
@@ -51,20 +53,29 @@ BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 
+def _configure_widths(lib: ctypes.CDLL) -> None:
+    lib.dfol_pair_tail_widths.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.dfol_pair_tail_widths.restype = None
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dfol_relation_oracle_fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
     lib.dfol_relation_oracle_fwd.restype = i
+    _configure_widths(lib)
 
 
 def _configure_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dfol_relation_oracle_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
+    lib.dfol_relation_oracle_bwd.argtypes = [p] * 19 + [i] * 9 + [p]
     lib.dfol_relation_oracle_bwd.restype = i
-    lib.dfol_relation_oracle_bwd_rows.argtypes = []
-    lib.dfol_relation_oracle_bwd_rows.restype = i
+    lib.dfol_relation_oracle_bwd_tile.argtypes = []
+    lib.dfol_relation_oracle_bwd_tile.restype = i
+    lib.dfol_relation_oracle_bwd_pad.argtypes = []
+    lib.dfol_relation_oracle_bwd_pad.restype = i
     lib.dfol_relation_oracle_bwd_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.dfol_relation_oracle_bwd_blocks_per_sm.restype = i
+    _configure_widths(lib)
 
 
 def build() -> cuda_build.Built:
@@ -144,6 +155,31 @@ def pair_tail_bwd_reference(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_t
             torch.einsum("brij,bije->bre", dlogits, h2), dlogits.sum((2, 3)))
 
 
+def tf32_split(x: torch.Tensor):
+    """The kernels' split of a float32 operand into the two TF32 values their
+    tensor cores multiply: ``big`` is x rounded to TF32 (a 10-bit mantissa,
+    to nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds), and
+    ``small`` the remainder ``x - big`` (exact in float32) as the tensor core
+    reads it, its 13 low bits dropped. The kernels' products are ``a_big
+    b_small + a_small b_big + a_big b_big`` with float32 sums ("3xTF32")."""
+    bits = x.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    small = ((x - big).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, small
+
+
+def _check_widths(lib: ctypes.CDLL, what: str, H: int, E: int) -> None:
+    """Raise unless the library's kernel takes the relation hidden width H
+    and the pair-code width E (the limits are the library's own)."""
+    max_h, max_e, mult = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.dfol_pair_tail_widths(ctypes.byref(max_h), ctypes.byref(max_e), ctypes.byref(mult))
+    max_h, max_e, mult = max_h.value, max_e.value, mult.value
+    if not (0 < H <= max_h and 0 < E <= max_e and H % mult == 0 and E % mult == 0):
+        raise ValueError(f"{what} kernel: takes a relation hidden width H <= {max_h} and a "
+                         f"pair-code width E <= {max_e}, both multiples of {mult}; got H={H}, "
+                         f"E={E}")
+
+
 def _check_args(what: str, h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens, g=None):
     """Raise unless the pair-tail tensors are float32, contiguous, of the
     pair tail's shapes and on one device (``rel_tokens`` int32)."""
@@ -178,6 +214,7 @@ def pair_tail_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
     R = e_sel.shape[1]
     device = h_s.device
     lib, _ = cuda_build.load("relation_oracle", ["relation_oracle.cu"], _configure)
+    _check_widths(lib, "relation_oracle", H, E)
     out = torch.empty((B, R, O, O), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -192,16 +229,33 @@ def pair_tail_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
     return out
 
 
+def bwd_schedule(B: int, n_t: int, resident: int):
+    """The backward kernel's persistent grid for B questions of n_t x n_t
+    steps and ``resident`` blocks on the card at once: (per, grid,
+    band_slots, question_slots). Block k takes the steps [k per, (k + 1)
+    per), in the order (question, row band, column band); a row band's n_t
+    consecutive steps and a question's n_t^2 meet at most ``band_slots`` and
+    ``question_slots`` blocks, each of which adds into a slot of its own."""
+    steps = B * n_t * n_t
+    per = -(-steps // min(steps, resident))
+
+    def slots(n):
+        return 1 + -(-(n - 1) // per)
+
+    return per, -(-steps // per), slots(n_t), slots(n_t * n_t)
+
+
 def pair_tail_bwd_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens, g,
                          need_dgeom: bool = True):
     """Launch the backward CUDA kernel on the current stream; arguments and
     result as ``pair_tail_bwd_reference``'s, with the forward kernel's
     argument rules and ``g`` float32 (B, R, O, O) contiguous.
 
-    The kernel writes per-item and per-block partials (a block of the
-    persistent grid owns a slice of each); they are summed here with
-    ``torch.sum`` over their leading axis, as the JAX wrapper sums its dh_o
-    partials."""
+    The persistent grid's blocks take runs of ``per`` consecutive steps
+    (kT x kT pairs each). The kernel writes partials per slot (the blocks
+    whose runs meet one question, or one row band), per row band and per
+    block; they are summed here with ``torch.sum`` over that axis, as the
+    JAX wrapper sums its dh_o partials."""
     _check_args("relation_oracle_bwd", h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel,
                 rel_tokens, g)
     B, O, H = h_s.shape
@@ -209,37 +263,42 @@ def pair_tail_bwd_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_toke
     R = e_sel.shape[1]
     device = h_s.device
     lib, _ = cuda_build.load("relation_oracle_bwd", ["relation_oracle_bwd.cu"], _configure_bwd)
-    n_i = -(-O // lib.dfol_relation_oracle_bwd_rows())  # work items (row bands) per question
+    _check_widths(lib, "relation_oracle_bwd", H, E)
+    n_t = -(-O // lib.dfol_relation_oracle_bwd_tile())  # row (and column) bands per question
+    pad = lib.dfol_relation_oracle_bwd_pad()
+    hp, ep = -(-H // pad) * pad, -(-E // pad) * pad  # dW2's padded widths, in 32 x 32 chunks
     f32 = dict(dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         per_sm = ctypes.c_int(0)
         cuda_build.check(lib, lib.dfol_relation_oracle_bwd_blocks_per_sm(
             H, E, R, ctypes.byref(per_sm)), "relation_oracle_bwd occupancy")
-        # a persistent grid: every block resident at once
-        grid = min(B * n_i, max(1, per_sm.value) * torch.cuda.get_device_properties(
-            device).multi_processor_count)
+        per, grid, band_slots, question_slots = bwd_schedule(
+            B, n_t, max(1, per_sm.value) * torch.cuda.get_device_properties(
+                device).multi_processor_count)
         w2t = w2.t().contiguous()
-        dh_s = torch.empty((B, O, H), **f32)
-        dho_part = torch.empty((B, n_i, O, H), **f32)
+        dhs_part = torch.zeros((B, band_slots, O, H), **f32)
+        dho_part = torch.empty((B, n_t, O, H), **f32)
         dgeom = torch.empty((B, O, O, 4), **f32) if need_dgeom else None
-        desel_part = torch.empty((B, n_i, R, E), **f32)
-        dbsel_part = torch.empty((B, n_i, R), **f32)
-        dw2_part = torch.zeros((grid, H, E), **f32)
+        desel_part = torch.zeros((B, question_slots, R, E), **f32)
+        dbsel_part = torch.zeros((B, question_slots, R), **f32)
+        dw2_part = torch.zeros((grid, hp // 32, ep // 32, 32, 32), **f32)
         small_part = torch.empty((grid, 5 * H + E), **f32)
         rc = lib.dfol_relation_oracle_bwd(
             h_s.data_ptr(), h_o.data_ptr(), geom.data_ptr(), w_g.data_ptr(), b0.data_ptr(),
             w2.data_ptr(), w2t.data_ptr(), b2.data_ptr(), e_sel.data_ptr(), b_sel.data_ptr(),
-            rel_tokens.data_ptr(), g.data_ptr(), dh_s.data_ptr(), dho_part.data_ptr(),
+            rel_tokens.data_ptr(), g.data_ptr(), dhs_part.data_ptr(), dho_part.data_ptr(),
             None if dgeom is None else dgeom.data_ptr(), desel_part.data_ptr(),
             dbsel_part.data_ptr(), dw2_part.data_ptr(), small_part.data_ptr(),
-            B, O, H, E, R, grid, torch.cuda.current_stream(device).cuda_stream)
+            B, O, H, E, R, grid, per, band_slots, question_slots,
+            torch.cuda.current_stream(device).cuda_stream)
     cuda_build.check(lib, rc, "relation_oracle_bwd")
     global BWD_LAUNCHES
     with _COUNT_LOCK:
         BWD_LAUNCHES += 1
     small = small_part.sum(0)
-    return (dh_s, dho_part.sum(1), dgeom, small[:4 * H].view(4, H), small[4 * H:5 * H],
-            dw2_part.sum(0), small[5 * H:], desel_part.sum(1), dbsel_part.sum(1))
+    return (dhs_part.sum(1), dho_part.sum(1), dgeom, small[:4 * H].view(4, H), small[4 * H:5 * H],
+            dw2_part.sum(0).permute(0, 2, 1, 3).reshape(hp, ep)[:H, :E], small[5 * H:],
+            desel_part.sum(1), dbsel_part.sum(1))
 
 
 class PairTail(torch.autograd.Function):
@@ -285,9 +344,10 @@ def rel_cache_kernel(
 
     Goes through ``PairTail``: CUDA tensors launch the forward kernel, and
     under autograd the backward kernel (or raise); CPU tensors run their
-    plain versions. Shapes the kernel does not cover and active dropout go to
-    ``oracle.rel_cache`` on either device, as in the JAX wrapper
-    (``generator`` feeds its dropout)."""
+    plain versions. A relation MLP of other than two layers and active
+    dropout go to ``oracle.rel_cache`` on either device, as in the JAX
+    wrapper (``generator`` feeds its dropout). On the card, widths the
+    kernels do not take (``_check_widths``) raise."""
     if not _kernel_applies(params, cfg, deterministic):
         return om.rel_cache(params, attr_in, pos, rel_tokens, cfg, generator, deterministic,
                             default_ll)

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dfol_vqa_tpu.compiler.program_compiler import (
+from dfol_vqa_tpu_torch.compiler.program_compiler import (
     OP_FILTER,
     OP_RELATE,
     OP_SELECT,
@@ -51,9 +51,9 @@ from dfol_vqa_tpu.compiler.program_compiler import (
     ProgramCompiler,
     _pad_ladder,
 )
-from dfol_vqa_tpu.config import Config
-from dfol_vqa_tpu.data.loader import LoadedBatch
-from dfol_vqa_tpu.ontology import GQAOntology
+from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.data.loader import LoadedBatch
+from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.data.transfer import to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter, decode_answer_flags
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
@@ -195,7 +195,8 @@ class _Request:
 
 
 class ServingEngine:
-    """Continuous-batching online inference on one device.
+    """Continuous-batching online inference on one device (``device``,
+    default the card: CPU callers pass ``device="cpu"``).
 
     ``submit`` returns a Future[ServeResult]; a dispatcher thread groups
     requests per canonical spec and flushes on size/deadline.
@@ -208,7 +209,7 @@ class ServingEngine:
         params: OracleParams,
         features=None,
         *,
-        device="cpu",
+        device="cuda",
         max_batch: int = 16,
         max_delay_ms: float = 10.0,
         batch_ladder: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
@@ -508,14 +509,14 @@ def build_demo_engine(tiny: bool = False, objects: int = 24, max_batch: int = 32
                       max_pending: Optional[int] = None,
                       seg_ladder: Optional[Sequence[int]] = None,
                       fill_ladder: Optional[Sequence[int]] = None,
-                      device="cpu", params: Optional[OracleParams] = None):
+                      device="cuda", params: Optional[OracleParams] = None):
     """Demo engine over the planted world, as the JAX package builds it.
 
     Weights are random from ``seed`` (drawn on the CPU, so every device gets
     the same ones) unless ``params`` is given; ``tiny`` sends float32
-    objects, production dims send bf16. Returns (cfg, ontology, world,
-    engine)."""
-    from dfol_vqa_tpu.data.planted import PlantedWorld
+    objects, production dims send bf16. The engine runs on ``device``
+    (default the card). Returns (cfg, ontology, world, engine)."""
+    from dfol_vqa_tpu_torch.data.planted import PlantedWorld
 
     cfg = demo_config(tiny, objects)
     ont = GQAOntology()

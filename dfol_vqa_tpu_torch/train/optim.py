@@ -29,7 +29,7 @@ from typing import Dict, List
 
 import torch
 
-from dfol_vqa_tpu.config import Config
+from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
 
 

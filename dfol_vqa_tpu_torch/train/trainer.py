@@ -38,8 +38,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dfol_vqa_tpu.config import Config
-from dfol_vqa_tpu.data.loader import LoadedBatch
+from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.data.loader import LoadedBatch
 from dfol_vqa_tpu_torch.data.transfer import to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import (
     Interpreter,
@@ -74,8 +74,9 @@ def readback(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 
 class VQATrainer:
-    """Trains and evaluates on one device (``device``, default CPU);
-    ``params`` passed to its methods live on that device."""
+    """Trains and evaluates on one device (``device``, default the card:
+    CPU callers pass ``device="cpu"``); ``params`` passed to its methods
+    live on that device."""
 
     def __init__(
         self,
@@ -83,7 +84,7 @@ class VQATrainer:
         interpreter: Interpreter,
         logger: Optional[logging.Logger] = None,
         hardset_path: Optional[str] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.cfg = cfg
         self.interp = interpreter

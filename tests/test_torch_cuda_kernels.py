@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from chip_smoke import bf16_ulp
-from dfol_vqa_tpu.config import Config
-from dfol_vqa_tpu.ontology import GQAOntology
+from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter
@@ -82,8 +82,11 @@ def ontology():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,O,H,E", [(2, 7, 8, 12), (3, 33, 16, 40), (32, 24, 256, 300)])
+@pytest.mark.parametrize("B,O,H,E", [(2, 7, 8, 12), (3, 33, 16, 40), (3, 37, 256, 300),
+                                     (32, 24, 256, 300)])
 def test_cuda_relation_oracle_matches_plain(cuda, ontology, B, O, H, E):
+    """Kernel 1 (3xTF32 tensor-core products) at ragged O (not a multiple of
+    its 64-pair bands), narrow widths and the production widths."""
     cfg = Config(box_features_dim=32, oracle_input_dim=16, word_embedding_dim=E,
                  featurizer_layers_config=[], attribute_network_layers_config=[8],
                  relation_network_layers_config=[H], dropout=0.0)
@@ -173,11 +176,11 @@ def test_cuda_rel_cache_shared_takes_the_kernels(cuda, ontology, stream):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,O,H,E,R", [(2, 7, 8, 12, 3), (3, 33, 16, 40, 11),
-                                       (32, 24, 256, 300, 8)])
+                                       (3, 37, 256, 300, 8), (32, 24, 256, 300, 8)])
 def test_cuda_relation_oracle_bwd_matches_plain(cuda, B, O, H, E, R):
     """All nine gradients of kernel 2, dgeom included, called directly and
     through ``PairTail``; pad slots whose cotangent is nonzero (the kernel
-    must zero them itself)."""
+    must zero them itself); ragged O (not a multiple of its 8 x 8 steps)."""
     rng = np.random.default_rng(B * O)
     ins = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
         rng.standard_normal((B, O, H)) * 0.5, rng.standard_normal((B, O, H)) * 0.5,
@@ -201,6 +204,34 @@ def test_cuda_relation_oracle_bwd_matches_plain(cuda, B, O, H, E, R):
             assert torch.isfinite(x).all()
             torch.testing.assert_close(x, b, atol=1e-4 * b.abs().max().item(), rtol=0)
     assert ro.pair_tail_bwd_kernel(*ins, tok, g, False)[2] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,E", [(512, 300), (260, 300), (256, 324), (254, 300), (256, 302)])
+def test_cuda_pair_tail_kernels_raise_on_widths_they_do_not_take(cuda, ontology, H, E):
+    """Kernels 1 and 2 take H <= 256 and E <= 320, multiples of 4 (the
+    library's own limits): other widths raise a ValueError that says so,
+    from the wrappers and from ``rel_cache_kernel``, and launch nothing."""
+    B, O, R = 2, 5, 3
+    ins = [torch.zeros(s, device=cuda) for s in ((B, O, H), (B, O, H), (B, O, O, 4), (4, H),
+                                                 (H,), (H, E), (E,), (B, R, E), (B, R))]
+    tok = torch.ones((B, R), dtype=torch.int32, device=cuda)
+    g = torch.zeros((B, R, O, O), device=cuda)
+    cfg = Config(box_features_dim=32, oracle_input_dim=16, word_embedding_dim=E,
+                 featurizer_layers_config=[], attribute_network_layers_config=[8],
+                 relation_network_layers_config=[H], dropout=0.0)
+    tp = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0), cuda)
+    attr_in = torch.zeros((B, O, cfg.attr_input_dim), device=cuda)
+    before = (ro.LAUNCHES, ro.BWD_LAUNCHES)
+    match = r"takes a relation hidden width H <= 256 and a pair-code width E <= 320, both " \
+            rf"multiples of 4; got H={H}, E={E}"
+    with pytest.raises(ValueError, match=match):
+        ro.pair_tail_kernel(*ins, tok)
+    with pytest.raises(ValueError, match=match):
+        ro.pair_tail_bwd_kernel(*ins, tok, g)
+    with pytest.raises(ValueError, match=match):
+        ro.rel_cache_kernel(tp, attr_in, torch.zeros((B, O, 4), device=cuda), tok, cfg)
+    assert (ro.LAUNCHES, ro.BWD_LAUNCHES) == before
 
 
 @pytest.mark.cuda

@@ -100,7 +100,7 @@ def test_eval_workload_shares_images(loader):
 def test_test_epoch_and_hardsets_equal_jax(setup, loader, tmp_path):
     cfg, _, jinterp, jparams, tinterp, tparams = setup
     jt = JVQATrainer(cfg, jinterp, hardset_path=str(tmp_path / "jax"))
-    tt = tr.VQATrainer(cfg, tinterp, hardset_path=str(tmp_path / "port"))
+    tt = tr.VQATrainer(cfg, tinterp, hardset_path=str(tmp_path / "port"), device="cpu")
     want, _ = jt.test(loader, jparams)
     got, seconds = tt.test(loader, tparams)
     assert tt._prepare_output_metric_dict(got) == jt._prepare_output_metric_dict(want)
@@ -122,7 +122,8 @@ def test_predict_equals_jax(setup, loader, submission):
     cfg, _, jinterp, jparams, tinterp, tparams = setup
     jout, tout = io.StringIO(), io.StringIO()
     want = JVQATrainer(cfg, jinterp).predict(loader, jparams, jout, is_submission=submission)
-    got = tr.VQATrainer(cfg, tinterp).predict(loader, tparams, tout, is_submission=submission)
+    got = tr.VQATrainer(cfg, tinterp, device="cpu").predict(loader, tparams, tout,
+                                                           is_submission=submission)
     assert got == want and len(got) == 60
     assert json.loads(tout.getvalue()) == json.loads(jout.getvalue())
 
@@ -133,7 +134,7 @@ def test_test_loads_a_jax_checkpoint(setup, loader, tmp_path):
     other = jinterp.init_params(jax.random.PRNGKey(5))
     jckpt.save(str(tmp_path), cfg.model_name, other, global_step=12)
     want = JVQATrainer(cfg, jinterp).test_epoch(loader, other)
-    tt = tr.VQATrainer(cfg, tinterp)
+    tt = tr.VQATrainer(cfg, tinterp, device="cpu")
     got, _ = tt.test(loader, tparams, import_path_base=str(tmp_path))
     np.testing.assert_array_equal(got, want)
     assert tt.global_step == 12
@@ -198,4 +199,4 @@ def test_unported_checkpoint_and_training_paths_raise(setup, tmp_path):
     (tmp_path / "m.orbax").mkdir()
     with pytest.raises(NotImplementedError, match="queue 6"):
         ckpt.load(str(tmp_path), "m", tparams)
-    assert callable(tr.VQATrainer(cfg, tinterp).train)
+    assert callable(tr.VQATrainer(cfg, tinterp, device="cpu").train)

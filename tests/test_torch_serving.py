@@ -53,7 +53,8 @@ def stream(world, seed=0):
 def engines():
     cfg, ont, world, jeng = jserve.build_demo_engine(tiny=True, seed=0, max_batch=8)
     params = params_from_numpy(jax.tree.map(np.asarray, jeng.params))
-    _, _, tworld, teng = serve.build_demo_engine(tiny=True, seed=0, max_batch=8, params=params)
+    _, _, tworld, teng = serve.build_demo_engine(tiny=True, seed=0, max_batch=8, params=params,
+                                                  device="cpu")
     yield cfg, ont, world, jeng, tworld, teng
     jeng.stop()
     teng.stop()
@@ -161,7 +162,7 @@ def test_transfer_dtypes(engines):
 
 
 def tiny_engine(**kw):
-    cfg, ont, world, eng = serve.build_demo_engine(tiny=True, seed=0, **kw)
+    cfg, ont, world, eng = serve.build_demo_engine(tiny=True, seed=0, device="cpu", **kw)
     return world, eng
 
 

@@ -123,6 +123,31 @@ def test_pair_tail_function_matches_autograd_of_the_plain_forward():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=name)
 
 
+@pytest.mark.parametrize("B,O,resident", [(80, 100, 132), (32, 100, 132), (32, 24, 132),
+                                          (3, 37, 132), (1, 7, 132), (5, 9, 7), (2, 100, 1)])
+def test_bwd_schedule_gives_every_slot_one_block(B, O, resident):
+    """Kernel 2's grid, as the kernel indexes it: block k takes the steps
+    [k per, (k + 1) per); its slot of question b's partials is k minus the
+    block of b's first step, and of row band (b, it)'s likewise. Every step
+    is taken once, every slot lies within the partials and belongs to one
+    block, and the grid fits the resident blocks."""
+    n_t = -(-O // 8)
+    steps = B * n_t * n_t
+    per, grid, band_slots, question_slots = ro.bwd_schedule(B, n_t, resident)
+    assert grid <= resident and (grid - 1) * per < steps <= grid * per
+    owner, taken = {}, []
+    for k in range(grid):
+        for step in range(k * per, min((k + 1) * per, steps)):
+            b, it = step // (n_t * n_t), step // n_t % n_t
+            slots = (("question", b, k - b * n_t * n_t // per),
+                     ("band", b, it, k - (b * n_t + it) * n_t // per))
+            assert 0 <= slots[0][-1] < question_slots and 0 <= slots[1][-1] < band_slots
+            for slot in slots:
+                assert owner.setdefault(slot, k) == k
+            taken.append(step)
+    assert taken == list(range(steps))
+
+
 # ------------------------------------------------------- shared-route autograd
 
 

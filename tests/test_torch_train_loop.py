@@ -155,7 +155,7 @@ def test_train_matches_the_jax_trainer(ontology, setup, tmp_path):
     runs = {}
     for name, trainer, params in (
             ("jax", JVQATrainer(cfg, JInterpreter(cfg, ontology)), jparams),
-            ("port", tr.VQATrainer(cfg, Interpreter(cfg, ontology)),
+            ("port", tr.VQATrainer(cfg, Interpreter(cfg, ontology), device="cpu"),
              params_from_numpy(jax.tree.map(np.asarray, jparams)))):
         out = trainer.train(shuffled_loader(ontology, cfg, world, seed=1),
                             shared_loader(ontology, cfg, world), params,
@@ -188,9 +188,10 @@ def test_train_reloads_the_last_checkpoint(ontology, setup, tmp_path, reset_step
     other = params_from_numpy(jax.tree.map(np.asarray, jinterp.init_params(
         jax.random.PRNGKey(7))))
     ckpt.save(str(tmp_path), cfg.model_name, other, global_step=5)
-    want = tr.VQATrainer(cfg, tinterp).train(shuffled_loader(ontology, cfg, world), None,
-                                             params_from_numpy(flatten(params_to_numpy(other))))[0]
-    trainer = tr.VQATrainer(cfg, tinterp)
+    want = tr.VQATrainer(cfg, tinterp, device="cpu").train(
+        shuffled_loader(ontology, cfg, world), None,
+        params_from_numpy(flatten(params_to_numpy(other))))[0]
+    trainer = tr.VQATrainer(cfg, tinterp, device="cpu")
     got = trainer.train(shuffled_loader(ontology, cfg, world), None,
                         params_from_numpy(jax.tree.map(np.asarray, jparams)),
                         last_export_path_base=str(tmp_path), load_model="last",
@@ -216,7 +217,7 @@ class _Boom:
 def test_crash_save_keeps_the_last_good_parameters(ontology, setup, tmp_path):
     cfg, world, _, jparams, tinterp = setup
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
-    trainer = tr.VQATrainer(cfg, tinterp)
+    trainer = tr.VQATrainer(cfg, tinterp, device="cpu")
     with pytest.raises(RuntimeError, match="the loader failed"):
         trainer.train(_Boom(shuffled_loader(ontology, cfg, world)), None, tparams,
                       last_export_path_base=str(tmp_path))
