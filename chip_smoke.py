@@ -9,11 +9,15 @@ Phases, each reported on its own line(s):
    paths from ``csrc/`` (nvcc, sm_90a, all four started together), with its
    seconds and the ptxas register, shared-memory and spill lines;
 3. each kernel against its plain PyTorch version at the paths' shapes, with
-   median CUDA-event times of both, timed in turns: the relation-oracle pair
-   tail (kernel 1) and its backward (kernel 2) at a ragged B=3, O=37, at
-   B=32 with O=24 and O=100, and at B=80, O=100, kernel 2's nine gradients
-   within ``BWD_RTOL`` of each gradient's largest value (float32 sums over up
-   to 800k pairs in another order); the pair MLP at U=8 and U=26 (the unique
+   median CUDA-event times of the wrapper and the plain version, timed in
+   turns, and the kernel's own device time from ``torch.profiler``: the
+   relation-oracle pair tail (kernel 1) and its backward (kernel 2) at a
+   ragged B=3, O=37, at B=32 with O=24 and O=100, and at B=80, O=100 (the
+   engine's weights, H=256, E=300), and at B=8, O=24 with H=512, E=600 (two
+   slices of the tile in each) and H=20, E=30 (not multiples of 4; random
+   weights), kernel 2's nine gradients within ``BWD_RTOL`` of each
+   gradient's largest value (float32 sums over up to 800k pairs in another
+   order); the pair MLP at U=8 and U=26 (the unique
    images of 80- and 256-question batches at 10 questions per image) and the
    shared contraction at B=80/U=8 and B=256/U=26, both at O=100, H=256,
    E=300, R=8 with 3 pad slots, with h2 in float32 and bfloat16. Tolerance:
@@ -215,24 +219,74 @@ def random_pair_tail_inputs(eng, gen, B, O):
 # (B, O): a ragged shape (O not a multiple of the kernels' 8 x 8 and 64-pair
 # tiles), the serving shape, and the training shapes at 32 and 80 questions
 PAIR_TAIL_SHAPES = ((3, 37), (32, 24), (32, 100), (80, 100))
+# (B, O, H, E): widths past one slice of the tile in both H and E (256, 320),
+# and widths that are not multiples of 4 (zero-padded), random weights
+PAIR_TAIL_WIDTHS = ((8, 24, 512, 600), (8, 24, 20, 30))
+R_SLOTS = 8
 
 
-def shape_record(t, work, **shape) -> dict:
-    """One timed shape: its dims, kernel and plain ms, work and bound."""
-    return {**shape, "ms": t["kernel"], "plain_ms": t["plain"], **work,
+def random_width_inputs(gen, B, O, H, E, R=R_SLOTS, device="cuda"):
+    """Pair-tail inputs at widths H and E from ``gen`` (weights scaled as an
+    initialiser would), three pad slots."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device).contiguous()
+
+    ins = [randn(B, O, H, scale=0.5), randn(B, O, H, scale=0.5),
+           (torch.rand((B, O, O, 4), generator=gen) * 2 - 1).to(device), randn(4, H), randn(H),
+           randn(H, E, scale=H ** -0.5), randn(E), randn(B, R, E), randn(B, R)]
+    tok = torch.randint(1, 2336, (B, R), generator=gen, dtype=torch.int32)
+    tok[:, 5:] = 0
+    return ins, tok.to(device)
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Median device milliseconds of the CUDA kernel whose name contains
+    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``
+    (CUPTI): the kernel alone, without its wrapper's other launches and host
+    work. Raises when the profiler saw no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.time_range.end - e.time_range.start) / 1000.0 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if not times:
+        raise RuntimeError(f"the profiler saw no CUDA kernel named like {kernel!r}")
+    return statistics.median(times)
+
+
+def shape_record(t, work, device_ms: float, **shape) -> dict:
+    """One timed shape: its dims, work and bound; ``ms``, the wrapper's
+    CUDA-event time (every launch it makes, as ``share_of_bound`` counts
+    it); ``device_ms``, the profiler's time of the kernel alone; and the
+    plain version's event time (``plain_ms``)."""
+    return {**shape, "ms": t["kernel"], "device_ms": device_ms, "plain_ms": t["plain"], **work,
             "share_of_bound": work["bound_ms"] / t["kernel"]}
 
 
+def pair_tail_cases(eng, gen):
+    """Kernels 1 and 2's inputs: (B, O, ins, tok) at ``PAIR_TAIL_SHAPES`` with
+    the serving engine's weights, then at ``PAIR_TAIL_WIDTHS`` with random
+    ones."""
+    for B, O in PAIR_TAIL_SHAPES:
+        yield (B, O, *random_pair_tail_inputs(eng, gen, B, O))
+    for B, O, H, E in PAIR_TAIL_WIDTHS:
+        yield (B, O, *random_width_inputs(gen, B, O, H, E, device=eng.device))
+
+
 def phase_kernels(eng, stamp: str) -> dict:
-    """Kernel 1 vs plain at the ragged, serving and training shapes, with the
-    serving engine's weights; returns the kernel's record, timed at B=80,
-    O=100 (the training shape), with every shape under ``shapes``."""
+    """Kernel 1 vs plain at the ragged, serving and training shapes, with
+    the serving engine's weights, and at a wide (two slices of H and E) and
+    an odd (not multiples of 4) pair of widths; returns the kernel's record,
+    timed at B=80, O=100 (the training shape), with every shape under
+    ``shapes``."""
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
 
     gen = torch.Generator().manual_seed(1)
     worst, shapes = 0.0, []
-    for B, O in PAIR_TAIL_SHAPES:
-        ins, tok = random_pair_tail_inputs(eng, gen, B, O)
+    for B, O, ins, tok in pair_tail_cases(eng, gen):
         H, E, R = ins[0].shape[-1], ins[5].shape[1], tok.shape[1]
         with torch.inference_mode():
             got = ro.pair_tail_kernel(*ins, tok)
@@ -240,40 +294,44 @@ def phase_kernels(eng, stamp: str) -> dict:
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             if not (torch.isfinite(got).all() and err <= KERNEL_ATOL):
-                raise AssertionError(f"relation_oracle kernel disagrees at B={B} O={O}: "
-                                     f"max abs {err} > {KERNEL_ATOL}")
+                raise AssertionError(f"relation_oracle kernel disagrees at B={B} O={O} H={H} "
+                                     f"E={E}: max abs {err} > {KERNEL_ATOL}")
             worst = max(worst, err)
             t = cuda_ms({"kernel": lambda: ro.pair_tail_kernel(*ins, tok),
                          "plain": lambda: ro.pair_tail_reference(*ins, tok)})
-        rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=False), B=B, O=O)
+            dev = kernel_device_ms(lambda: ro.pair_tail_kernel(*ins, tok),
+                                   "relation_oracle_fwd_kernel")
+        rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=False), dev, B=B, O=O, H=H,
+                           E=E, max_abs_err=err)
         shapes.append(rec)
         log(f"[3] relation_oracle B={B} O={O} H={H} E={E} R={R}: max_abs_err={err!r} "
-            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} flop={rec['flop']!r} "
-            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}, 3xTF32) share_of_bound="
-            f"{rec['share_of_bound']!r} f32_simt_bound_ms={rec['f32_simt_bound_ms']!r} ({stamp})")
-    main = shapes[-1]
+            f"ms={rec['ms']!r} device_ms={rec['device_ms']!r} "
+            f"plain_ms={t['plain']!r} flop={rec['flop']!r} bound_ms={rec['bound_ms']!r} "
+            f"({rec['bound_by']}, 3xTF32) share_of_bound={rec['share_of_bound']!r} "
+            f"f32_simt_bound_ms={rec['f32_simt_bound_ms']!r} ({stamp})")
+    main = next(r for r in shapes if (r["B"], r["O"], r["H"]) == (80, 100, 256))
     return {"name": "relation_oracle_fwd", "route": "cuda",
             "source": "dfol_vqa_tpu_torch/csrc/relation_oracle.cu",
             "replaces": "dfol_vqa_tpu/ops/pallas/relation_oracle.py:38",
-            "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "flop": main["flop"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "share_of_bound": main["share_of_bound"], "library_ms": None,
-            "library_note": LIBRARY_NOTE, "at": {"B": 80, "O": 100}, "shapes": shapes}
+            "max_abs_err": worst, "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "flop": main["flop"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "share_of_bound": main["share_of_bound"],
+            "library_ms": None, "library_note": LIBRARY_NOTE, "at": {"B": 80, "O": 100},
+            "shapes": shapes}
 
 
 def phase_bwd_kernel(eng, stamp: str) -> dict:
-    """Kernel 2 against its plain version at the ragged, serving and training
-    shapes, with the engine's weights: all nine gradients (dgeom included)
-    for a random cotangent, pad slots included; returns the kernel's record,
-    timed at B=80, O=100 without dgeom (the training path does not ask for
-    it), with every shape under ``shapes``."""
+    """Kernel 2 against its plain version at kernel 1's shapes and widths:
+    all nine gradients (dgeom included) for a random cotangent, pad slots
+    included; returns the kernel's record, timed at B=80, O=100 without
+    dgeom (the training path does not ask for it), with every shape under
+    ``shapes``."""
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
 
     gen = torch.Generator().manual_seed(3)
     names = ("dh_s", "dh_o", "dgeom", "dWg", "db0", "dW2", "db2", "de_sel", "db_sel")
     worst_abs, shapes = 0.0, []
-    for B, O in PAIR_TAIL_SHAPES:
-        ins, tok = random_pair_tail_inputs(eng, gen, B, O)
+    for B, O, ins, tok in pair_tail_cases(eng, gen):
         H, E, R = ins[0].shape[-1], ins[5].shape[1], tok.shape[1]
         g = torch.randn((B, R, O, O), generator=gen).to(eng.device)  # nonzero on pad slots too
         with torch.no_grad():
@@ -284,28 +342,33 @@ def phase_bwd_kernel(eng, stamp: str) -> dict:
             for name, a, b in zip(names, got, want):
                 err, mag = (a - b).abs().max().item(), b.abs().max().item()
                 if not (torch.isfinite(a).all() and err <= BWD_RTOL * max(mag, 1e-30)):
-                    raise AssertionError(f"relation_oracle_bwd {name} disagrees at B={B} O={O}: "
-                                         f"max abs {err!r} > {BWD_RTOL} x {mag!r}")
+                    raise AssertionError(f"relation_oracle_bwd {name} disagrees at B={B} O={O} "
+                                         f"H={H} E={E}: max abs {err!r} > {BWD_RTOL} x {mag!r}")
                 rel[name] = err / max(mag, 1e-30)
                 worst_abs = max(worst_abs, err)
             t = cuda_ms({"kernel": lambda: ro.pair_tail_bwd_kernel(*ins, tok, g, False),
                          "plain": lambda: ro.pair_tail_bwd_reference(*ins, tok, g, False)}, reps=5)
-        rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=True), B=B, O=O)
-        shapes.append(rec)
+            dev = kernel_device_ms(lambda: ro.pair_tail_bwd_kernel(*ins, tok, g, False),
+                                   "relation_oracle_bwd", reps=5)
         worst = max(rel, key=rel.get)
+        rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=True), dev, B=B, O=O, H=H,
+                           E=E, worst_grad_rel_err=rel[worst])
+        shapes.append(rec)
         log(f"[3] relation_oracle_bwd B={B} O={O} H={H} E={E} R={R}: nine gradients within "
             f"{BWD_RTOL} of their largest value (worst {worst} {rel[worst]!r}) "
-            f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} flop={rec['flop']!r} "
-            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}, 3xTF32) share_of_bound="
-            f"{rec['share_of_bound']!r} f32_simt_bound_ms={rec['f32_simt_bound_ms']!r} ({stamp})")
-    main = shapes[-1]
+            f"ms={rec['ms']!r} device_ms={rec['device_ms']!r} "
+            f"plain_ms={t['plain']!r} flop={rec['flop']!r} bound_ms={rec['bound_ms']!r} "
+            f"({rec['bound_by']}, 3xTF32) share_of_bound={rec['share_of_bound']!r} "
+            f"f32_simt_bound_ms={rec['f32_simt_bound_ms']!r} ({stamp})")
+    main = next(r for r in shapes if (r["B"], r["O"], r["H"]) == (80, 100, 256))
     return {"name": "relation_oracle_bwd", "route": "cuda",
             "source": "dfol_vqa_tpu_torch/csrc/relation_oracle_bwd.cu",
             "replaces": "dfol_vqa_tpu/ops/pallas/relation_oracle.py:66",
-            "max_abs_err": worst_abs, "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "flop": main["flop"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "share_of_bound": main["share_of_bound"], "library_ms": None,
-            "library_note": LIBRARY_NOTE, "at": {"B": 80, "O": 100}, "shapes": shapes}
+            "max_abs_err": worst_abs, "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "flop": main["flop"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "share_of_bound": main["share_of_bound"],
+            "library_ms": None, "library_note": LIBRARY_NOTE, "at": {"B": 80, "O": 100},
+            "shapes": shapes}
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -450,6 +513,8 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                                                                  dtype),
                              "plain": lambda: pm.pair_mlp_reference(pos, h_s, h_o, w_g, b0,
                                                                     layers, dtype)})
+                dev = kernel_device_ms(lambda: pm.pair_mlp_fused(pos, h_s, h_o, w_g, b0, layers,
+                                                                 dtype), "pair_mlp_fwd_kernel")
                 E = h2.shape[-1]
                 # the Linear chain, 2kn FLOP per pair and layer, f32 inputs, h2 out
                 chain = list(zip(widths, widths[1:]))
@@ -457,12 +522,14 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                                     4 * (U * O * 4 + 2 * U * O * H + 5 * H
                                          + sum(k * n + n for k, n in chain))
                                     + esize * U * O * O * E)
-                times[("pair_mlp", U, name)] = shape_record(t, work, U=U, O=O, h2=name)
+                rec = times[("pair_mlp", U, name)] = shape_record(t, work, dev, U=U, O=O, h2=name)
                 log(f"[3] pair_mlp U={U} O={O} H={H} E={E} h2 {name}: "
                     f"max_abs_err={diff.max().item()!r} (within {bound}) "
-                    f"kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} flop={work['flop']!r} "
-                    f"bound_ms={work['bound_ms']!r} ({work['bound_by']}) "
-                    f"f32_simt_bound_ms={work['f32_simt_bound_ms']!r} ({stamp})")
+                    f"ms={rec['ms']!r} device_ms={rec['device_ms']!r} "
+                    f"plain_ms={t['plain']!r} flop={work['flop']!r} "
+                    f"bound_ms={work['bound_ms']!r} ({work['bound_by']}, 3xTF32) share_of_bound="
+                    f"{rec['share_of_bound']!r} f32_simt_bound_ms="
+                    f"{work['f32_simt_bound_ms']!r} ({stamp})")
 
                 es = e_sel.to(dtype)
                 got = sc.shared_contract_kernel(h2, img, es, b_sel, tok)
@@ -476,16 +543,21 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                 t = cuda_ms({"kernel": lambda: sc.shared_contract_kernel(h2, img, es, b_sel, tok),
                              "plain": lambda: sc.shared_contract_reference(h2, img, es, b_sel,
                                                                            tok)})
+                dev = kernel_device_ms(lambda: sc.shared_contract_kernel(h2, img, es, b_sel, tok),
+                                       "shared_contract_kernel")
                 # h2[img[b]] . e_sel[b, r]: 2RE FLOP per (question, pair); h2 and
                 # e_sel in the stream's dtype, float32 log-likelihoods out
                 work = kernel_bound(B * O * O * 2 * R * E, 0,
-                                    esize * (U * O * O * E + B * R * E) + 4 * (B + 2 * B * R)
+                                    esize * (U * O * O * E + B * R * E) + 4 * (B + 2 * U + 2 * B * R)
                                     + 4 * B * R * O * O, dtype)
-                times[("shared_contract", U, name)] = shape_record(t, work, B=B, U=U, O=O, h2=name)
+                rec = times[("shared_contract", U, name)] = shape_record(t, work, dev, B=B, U=U,
+                                                                         O=O, h2=name)
                 log(f"[3] shared_contract B={B} U={U} O={O} E={E} R={R} h2 {name}: "
-                    f"max_abs_err={e!r} kernel_ms={t['kernel']!r} plain_ms={t['plain']!r} "
-                    f"flop={work['flop']!r} bound_ms={work['bound_ms']!r} ({work['bound_by']}) "
-                    f"f32_simt_bound_ms={work['f32_simt_bound_ms']!r} ({stamp})")
+                    f"max_abs_err={e!r} ms={rec['ms']!r} device_ms={rec['device_ms']!r} "
+                    f"plain_ms={t['plain']!r} flop={work['flop']!r} "
+                    f"bound_ms={work['bound_ms']!r} ({work['bound_by']}) share_of_bound="
+                    f"{rec['share_of_bound']!r} f32_simt_bound_ms="
+                    f"{work['f32_simt_bound_ms']!r} ({stamp})")
     sources = {"pair_mlp": ("pair_mlp.cu", "dfol_vqa_tpu/ops/pallas/pair_mlp.py:90"),
                "shared_contract": ("shared_contract.cu",
                                    "dfol_vqa_tpu/ops/pallas/shared_contract.py:46")}
@@ -494,7 +566,8 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
         main = times[(name, 8, "bfloat16")]  # the offline-eval default: U=8, bf16 stream
         records.append({"name": f"{name}_fwd", "route": "cuda",
                         "source": f"dfol_vqa_tpu_torch/csrc/{src}", "replaces": replaces,
-                        "max_abs_err": err[name], "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "max_abs_err": err[name], "ms": main["ms"], "device_ms": main["device_ms"],
+                        "plain_ms": main["plain_ms"],
                         "flop": main["flop"], "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"], "share_of_bound": main["share_of_bound"],
                         "library_ms": None, "library_note": LIBRARY_NOTE,

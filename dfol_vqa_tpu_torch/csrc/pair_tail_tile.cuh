@@ -17,6 +17,12 @@
 // single TF32 term would keep only a 10-bit mantissa. The split is done in
 // registers as fragments are loaded.
 //
+// Any width H and E (multiples of 4, which the callers pad to with zeros) is
+// taken in slices of at most kSliceH hidden units and kSliceE code columns:
+// z2 accumulates over the H slices, h1 is rebuilt for each, and the logits
+// are summed over the E slices. A width within one slice runs one iteration
+// of each loop, so the tile's row lengths stay the compile-time slice sizes.
+//
 // A kernel's warps form a Layout: 2 along the pairs (32 rows, two m16 tiles
 // each) x kWN along the output columns. The weights stream through a ring of
 // stages of sixteen k-rows in shared memory, filled by cp.async (16-byte
@@ -37,17 +43,32 @@
 namespace pair_tail {
 
 constexpr int kPairs = 64;              // pairs per tile
-constexpr int kMaxH = 256;              // widest relation hidden layer taken
-constexpr int kMaxE = 320;              // widest pair code taken
+constexpr int kSliceH = 256;            // hidden units per slice of H
+constexpr int kSliceE = 320;            // pair-code columns per slice of E
 constexpr int kWidthMultiple = 4;       // H and E: 16-byte weight rows for cp.async
-constexpr int kLdH = kMaxH;             // floats per row of the [pair][h] tile
-constexpr int kLdE = kMaxE;             // floats per row of the [pair][e] tile
+constexpr int kLdH = kSliceH;           // floats per row of the [pair][h] tile
+constexpr int kLdE = kSliceE;           // floats per row of the [pair][e] tile
 constexpr int kRChunk = 8;              // relation slots per register pass
 
-// The relation hidden width H and pair-code width E the kernels take.
+// The relation hidden width H and pair-code width E the kernels take: any,
+// as multiples of 4 (the callers zero-pad other widths).
 __host__ __device__ constexpr bool widths_ok(int H, int E) {
-  return H > 0 && E > 0 && H <= kMaxH && E <= kMaxE && H % kWidthMultiple == 0 &&
-         E % kWidthMultiple == 0;
+  return H > 0 && E > 0 && H % kWidthMultiple == 0 && E % kWidthMultiple == 0;
+}
+
+__host__ __device__ constexpr int slices(int n, int slice) { return (n + slice - 1) / slice; }
+
+// Width of slice s of a dimension of n cut into slices of `slice`.
+__host__ __device__ constexpr int slice_width(int n, int slice, int s) {
+  return n - s * slice < slice ? n - s * slice : slice;
+}
+
+// slice_width in a kernel instance that takes its widths in slices
+// (kSliced) or as one slice (not kSliced): the latter gets the width itself,
+// so the compiler keeps no second, clamped copy of it live.
+template <bool kSliced>
+__host__ __device__ constexpr int width_of(int n, int slice, int s) {
+  return kSliced ? slice_width(n, slice, s) : n;
 }
 
 // Warps: 2 along the pairs x kWN along the columns. A padded width (Hp, Ep)
@@ -57,7 +78,7 @@ struct Layout {
   static constexpr int kWN = kWN_;
   static constexpr int kThreads = 64 * kWN;
   static constexpr int kCols = 8 * kWN;
-  static constexpr int kZ2Tiles = kMaxE / kCols;  // n8 tiles per warp of z2, at most
+  static constexpr int kZ2Tiles = kSliceE / kCols;  // n8 tiles per warp of z2, at most
   __device__ static int wm() { return (threadIdx.x >> 5) / kWN; }
   __device__ static int wn() { return (threadIdx.x >> 5) % kWN; }
   __host__ __device__ static int pad(int n) { return (n + kCols - 1) / kCols * kCols; }
@@ -184,21 +205,21 @@ __device__ __forceinline__ void cp_wait() {
 // conflicts). The weights arrive as they are and are split by each warp that
 // reads a fragment.
 constexpr int kRingRows = 16;
-constexpr int kRingStride = kMaxE + 8;
+constexpr int kRingStride = kSliceE + 8;
 constexpr int kStageFloats = kRingRows * kRingStride;
 
-// Rows k0..k0 + kRingRows - 1, columns [0, np) of the row-major
-// n_rows x n_cols weight matrix w into one ring stage; what lies outside the
-// matrix is zero-filled. n_cols is a multiple of 4 (16-byte copies).
-// kThreads / kRingRows threads copy a row.
+// Rows k0..k0 + kRingRows - 1, columns [0, np) of the n_rows x n_cols weight
+// block w (row-major, ld floats per row) into one ring stage; what lies
+// outside the block is zero-filled. n_cols, ld and w's offset are multiples
+// of 4 (16-byte copies). kThreads / kRingRows threads copy a row.
 template <int kThreads>
-__device__ __forceinline__ void load_stage(float* stage, const float* __restrict__ w, int k0,
-                                           int n_rows, int n_cols, int np) {
+__device__ __forceinline__ void load_stage(float* stage, const float* __restrict__ w, int ld,
+                                           int k0, int n_rows, int n_cols, int np) {
   constexpr int kPerRow = kThreads / kRingRows;
   const int r = threadIdx.x / kPerRow;
   const int k = k0 + r;
   float* dst = stage + r * kRingStride;
-  const float* src = w + static_cast<size_t>(k) * n_cols;
+  const float* src = w + static_cast<size_t>(k) * ld;
   for (int c = 4 * (threadIdx.x % kPerRow); c < np; c += 4 * kPerRow) {
     const bool ok = k < n_rows && c < n_cols;
     cp_async16(dst + c, ok ? src + c : w, ok);
@@ -209,12 +230,12 @@ __device__ __forceinline__ void load_stage(float* stage, const float* __restrict
 // multiple of kRingRows). Every thread commits kStages - 1 groups, empty or
 // not.
 template <int kStages, int kThreads>
-__device__ __forceinline__ void ring_prologue(float* ring, const float* __restrict__ w, int kp,
-                                              int n_rows, int n_cols, int np) {
+__device__ __forceinline__ void ring_prologue(float* ring, const float* __restrict__ w, int ld,
+                                              int kp, int n_rows, int n_cols, int np) {
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s * kRingRows < kp) {
-      load_stage<kThreads>(ring + s * kStageFloats, w, s * kRingRows, n_rows, n_cols, np);
+      load_stage<kThreads>(ring + s * kStageFloats, w, ld, s * kRingRows, n_rows, n_cols, np);
     }
     cp_commit();
   }
@@ -230,8 +251,8 @@ __device__ __forceinline__ void ring_prologue(float* ring, const float* __restri
 template <class L, int NT, int kStages, int kLda>
 __device__ __forceinline__ void ring_product(float (&acc)[2][NT][4], const float* a_tile,
                                              int kp, float* ring,
-                                             const float* __restrict__ w, int n_rows,
-                                             int n_cols, int np) {
+                                             const float* __restrict__ w, int ld,
+                                             int n_rows, int n_cols, int np) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -244,7 +265,7 @@ __device__ __forceinline__ void ring_product(float (&acc)[2][NT][4], const float
     __syncthreads();
     const int next = st_i + kStages - 1;
     if (next < stages) {
-      load_stage<L::kThreads>(ring + (next % kStages) * kStageFloats, w, next * kRingRows,
+      load_stage<L::kThreads>(ring + (next % kStages) * kStageFloats, w, ld, next * kRingRows,
                               n_rows, n_cols, np);
     }
     cp_commit();
@@ -295,15 +316,16 @@ struct BlockPairs {  // the backward: rows i0..i0+7 x columns j0..j0+7
   }
 };
 
-// e_sel[b] into es_s [Rp][Ep], zero past R and E.
+// Columns [e0, e0 + Es) of e_sel[b] (B, R, E) into es_s [Rp][Eps], zero past
+// R and Es.
 template <int kThreads>
 __device__ __forceinline__ void load_esel(float* es_s, const float* __restrict__ e_sel, int b,
-                                          int R, int E, int Rp, int Ep) {
-  const float* src = e_sel + static_cast<size_t>(b) * R * E;
-  for (int k = threadIdx.x; k < Rp * Ep; k += kThreads) {
-    const int r = k / Ep;
-    const int e = k - r * Ep;
-    es_s[k] = (r < R && e < E) ? src[r * E + e] : 0.f;
+                                          int R, int E, int e0, int Es, int Rp, int Eps) {
+  const float* src = e_sel + static_cast<size_t>(b) * R * E + e0;
+  for (int k = threadIdx.x; k < Rp * Eps; k += kThreads) {
+    const int r = k / Eps;
+    const int e = k - r * Eps;
+    es_s[k] = (r < R && e < Es) ? src[r * E + e] : 0.f;
   }
 }
 
@@ -324,28 +346,30 @@ __device__ __forceinline__ void load_pairs(int2* pij_s, float* geom_s,
   }
 }
 
-// h1 of the tile into the swizzled h1s [kPairs][kLdH], zero outside O x O and
-// past H (up to Hp). Thread tid builds column tid % kLdH of every
-// (kThreads / kLdH)-th pair. Reads pij_s, geom_s.
+// Hidden units [h0, h0 + Hs) of the tile's h1 into the swizzled h1s
+// [kPairs][kLdH] (column h - h0), zero outside O x O and past Hs (up to Hps).
+// Thread tid builds column tid % kLdH of every (kThreads / kLdH)-th pair.
+// Reads pij_s, geom_s.
 template <int kThreads>
 __device__ __forceinline__ void build_h1(float* h1s, const int2* pij_s, const float* geom_s,
                                          const float* __restrict__ h_s,
                                          const float* __restrict__ h_o,
                                          const float* __restrict__ w_g,
                                          const float* __restrict__ b0, int b, int O, int H,
-                                         int Hp) {
+                                         int h0, int Hs, int Hps) {
   constexpr int kStep = kThreads / kLdH;
   const int h = threadIdx.x % kLdH;
   const int p0 = threadIdx.x / kLdH;
-  if (h >= Hp) return;
-  if (h >= H) {
+  if (h >= Hps) return;
+  if (h >= Hs) {
     for (int p = p0; p < kPairs; p += kStep) h1s[at(p, h, kLdH)] = 0.f;
     return;
   }
-  const float* hs = h_s + static_cast<size_t>(b) * O * H + h;
-  const float* ho = h_o + static_cast<size_t>(b) * O * H + h;
-  const float wg0 = w_g[h], wg1 = w_g[H + h], wg2 = w_g[2 * H + h], wg3 = w_g[3 * H + h];
-  const float bias = b0[h];
+  const int hg = h0 + h;
+  const float* hs = h_s + static_cast<size_t>(b) * O * H + hg;
+  const float* ho = h_o + static_cast<size_t>(b) * O * H + hg;
+  const float wg0 = w_g[hg], wg1 = w_g[H + hg], wg2 = w_g[2 * H + hg], wg3 = w_g[3 * H + hg];
+  const float bias = b0[hg];
 #pragma unroll 8
   for (int p = p0; p < kPairs; p += kStep) {
     const int2 ij = pij_s[p];
@@ -394,7 +418,7 @@ __device__ __forceinline__ void finish_h2(float (&acc)[2][NT][4], const float* _
 
 // Each warp's partial logits over its own columns, h2 . e_sel[r], for the
 // tile's pairs: lp_s [kWN][kPairs][Rp], summed over the column warps by
-// logit_of in a fixed order. es_s is [Rp][Ep].
+// logit_of (or sum_logits) in a fixed order. es_s is [Rp][Ep].
 template <class L, int NT>
 __device__ __forceinline__ void partial_logits(const float (&h2)[2][NT][4], const float* es_s,
                                                int Ep, int Rp, float* lp_s) {
@@ -464,13 +488,26 @@ __device__ __forceinline__ float logit_of(const float* lp_s, int p, int r, int R
   return s + bias;
 }
 
+// Where E spans several slices: lg_s [kPairs][Rp] (+)= the column warps'
+// partial logits of this slice, in a fixed order (one thread per element).
+template <class L>
+__device__ __forceinline__ void sum_logits(const float* lp_s, float* lg_s, int Rp, bool first) {
+  for (int q = threadIdx.x; q < kPairs * Rp; q += L::kThreads) {
+    float s = lp_s[q];
+#pragma unroll
+    for (int w = 1; w < L::kWN; ++w) s += lp_s[w * kPairs * Rp + q];
+    lg_s[q] = first ? s : lg_s[q] + s;
+  }
+}
+
 }  // namespace pair_tail
 
-// The widths the library's kernel takes (pair_tail::widths_ok), for the
-// caller's error message: each of the two libraries is one translation unit
-// that includes this header once and exports this function.
-extern "C" void dfol_pair_tail_widths(int* max_h, int* max_e, int* multiple) {
-  *max_h = pair_tail::kMaxH;
-  *max_e = pair_tail::kMaxE;
+// The slice sizes of H and E and the multiple of both that the libraries'
+// kernels take (pair_tail::widths_ok); the callers zero-pad H and E to it.
+// Each library is one translation unit that includes this header once and
+// exports this function.
+extern "C" void dfol_pair_tail_slices(int* slice_h, int* slice_e, int* multiple) {
+  *slice_h = pair_tail::kSliceH;
+  *slice_e = pair_tail::kSliceE;
   *multiple = pair_tail::kWidthMultiple;
 }

@@ -32,13 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 @dataclasses.dataclass
 class Built:
     """How a library was obtained: the nvcc command, its seconds (0 when an
-    earlier build with the same hash was reused), and the compiler's output
-    (ptxas registers / shared memory / spills)."""
+    earlier build with the same hash was reused), the compiler's output
+    (ptxas registers / shared memory / spills), and, for a library that
+    includes ``csrc/pair_tail_tile.cuh``, its ``pair_tail_slices``, read once
+    when it is loaded."""
 
     path: str
     command: List[str]
     seconds: float
     log: str
+    slices: Optional[Tuple[int, int, int]] = None
 
 
 _LOCK = threading.Lock()
@@ -108,8 +111,23 @@ def load(name: str, sources: Sequence[str],
             lib.dfol_cuda_error_string.restype = ctypes.c_char_p
             if configure is not None:
                 configure(lib)
+            if hasattr(lib, "dfol_pair_tail_slices"):
+                built.slices = pair_tail_slices(lib)
             hit = _LOADED[name] = (lib, built)
         return hit
+
+
+def pair_tail_slices(lib: ctypes.CDLL) -> Tuple[int, int, int]:
+    """(slice_h, slice_e, multiple) of a library that includes
+    ``csrc/pair_tail_tile.cuh``: its kernels take a width in slices of
+    slice_h (a layer's input) and slice_e (its output), and any width that is
+    a multiple of ``multiple`` (the callers zero-pad to it)."""
+    fn = lib.dfol_pair_tail_slices
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = None
+    out = [ctypes.c_int() for _ in range(3)]
+    fn(*[ctypes.byref(x) for x in out])
+    return out[0].value, out[1].value, out[2].value
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

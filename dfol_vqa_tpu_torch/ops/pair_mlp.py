@@ -10,11 +10,14 @@ so it is computed once per unique image:
     h2 = sigmoid(W_L(elu(... W_1(elu(h)))))          # (U, O, O, E)
 
 stored in the stream dtype (``tpu.rel_stream_dtype``). The kernel is
-``csrc/pair_mlp.cu``: it keeps every hidden layer on chip and writes only
-h2. Unlike the TPU kernel it runs at the true object count (no 128-lane
-padding) and with float32 dot operands (the TPU kernel rounds them to bf16
-on the MXU; JAX's CPU and interpret paths do not). It takes chains of up
-to ``MAX_LAYERS`` Linear layers after the split first layer.
+``csrc/pair_mlp.cu``: it runs every Linear on the tensor cores in
+split-precision TF32 ("3xTF32", as kernels 1 and 2 do), keeps hidden layers
+of up to 256 units on chip and writes only h2. Unlike the TPU kernel it runs
+at the true object count (no 128-lane padding) and with float32 dot
+operands (the TPU kernel rounds them to bf16 on the MXU; JAX's CPU and
+interpret paths do not). It takes chains of up to ``MAX_LAYERS`` Linear
+layers after the split first layer, at any widths (``pad_chain`` zero-pads
+them to the kernel's multiple; wider hidden layers go through a scratch).
 
 ``pair_mlp_fused`` launches the kernel for CUDA tensors (through the
 ``autograd.Function`` ``PairMLP``) and uses ``pair_mlp_reference`` — the
@@ -31,6 +34,7 @@ import threading
 from typing import NamedTuple, Sequence
 
 import torch
+from torch.nn import functional as F
 
 from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.models.featurizer import pair_geometry
@@ -48,8 +52,11 @@ OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(ctypes.c_void_p)
-    lib.dfol_pair_mlp_fwd.argtypes = ([p] * 5 + [pp, pp, ctypes.POINTER(i), i, p, i, i, i, p])
+    lib.dfol_pair_mlp_fwd.argtypes = ([p] * 5 + [pp, pp, ctypes.POINTER(i), i, p, i, i, i, i, p,
+                                                 i, p])
     lib.dfol_pair_mlp_fwd.restype = i
+    lib.dfol_pair_mlp_tile_width.argtypes = []
+    lib.dfol_pair_mlp_tile_width.restype = i
 
 
 def build() -> cuda_build.Built:
@@ -98,17 +105,25 @@ def pair_mlp_launch(geom: torch.Tensor, h_s: torch.Tensor, h_o: torch.Tensor,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"pair_mlp kernel: {name} must be contiguous")
-    lib, _ = cuda_build.load("pair_mlp", ["pair_mlp.cu"], _configure)
+    lib, built = cuda_build.load("pair_mlp", ["pair_mlp.cu"], _configure)
+    (h_s, h_o, w_g, b0), layers = pad_chain(h_s, h_o, w_g, b0, layers, built.slices[2])
+    padded = [h_s.shape[-1]] + [int(layer.w.shape[1]) for layer in layers]
     out = torch.empty((U, O, O, widths[-1]), dtype=out_dtype, device=device)
     n = len(layers)
     ws = (ctypes.c_void_p * max(n, 1))(*[layer.w.data_ptr() for layer in layers])
     bs = (ctypes.c_void_p * max(n, 1))(*[layer.b.data_ptr() for layer in layers])
-    wd = (ctypes.c_int * (n + 1))(*widths)
+    wd = (ctypes.c_int * (n + 1))(*padded)
+    # hidden layers wider than the on-chip tile go through a per-band scratch
+    wide = [w for w in padded[1:n] if w > lib.dfol_pair_mlp_tile_width()]
+    s_ld = max(wide, default=0)
+    scratch = (torch.empty(2 * -(-O * O // 64) * U * 64 * s_ld, dtype=torch.float32,
+                           device=device) if wide else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dfol_pair_mlp_fwd(
             h_s.data_ptr(), h_o.data_ptr(), geom.data_ptr(), w_g.data_ptr(), b0.data_ptr(),
-            ws, bs, wd, n, out.data_ptr(), OUT_DTYPES[out_dtype], U, O, stream)
+            ws, bs, wd, n, out.data_ptr(), widths[-1], OUT_DTYPES[out_dtype], U, O,
+            None if scratch is None else scratch.data_ptr(), s_ld, stream)
     cuda_build.check(lib, rc, "pair_mlp")
     global LAUNCHES
     with _COUNT_LOCK:
@@ -121,6 +136,26 @@ class _Layer(NamedTuple):
 
     w: torch.Tensor
     b: torch.Tensor
+
+
+def pad_chain(h_s: torch.Tensor, h_o: torch.Tensor, w_g: torch.Tensor, b0: torch.Tensor,
+              layers: Sequence, multiple: int):
+    """The first layer's (h_s, h_o, w_g, b0) and the chain with every width
+    zero-padded to a multiple of ``multiple`` (the tensors themselves where
+    it is one): a padded unit's pre-activation is 0, so elu gives 0, and it
+    meets zero rows of the next weight; the padded output columns are not
+    stored. -> ((h_s, h_o, w_g, b0), [_Layer])."""
+    def pad_to(n):
+        return -n % multiple
+
+    dh = pad_to(h_s.shape[-1])
+    first = tuple(F.pad(t, (0, dh)) if dh else t for t in (h_s, h_o, w_g, b0))
+    chain = []
+    for layer in layers:
+        dk, dn = pad_to(layer.w.shape[0]), pad_to(layer.w.shape[1])
+        chain.append(_Layer(F.pad(layer.w, (0, dn, 0, dk)) if dk or dn else layer.w,
+                            F.pad(layer.b, (0, dn)) if dn else layer.b))
+    return first, chain
 
 
 class PairMLP(torch.autograd.Function):

@@ -53,21 +53,15 @@ BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def _configure_widths(lib: ctypes.CDLL) -> None:
-    lib.dfol_pair_tail_widths.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-    lib.dfol_pair_tail_widths.restype = None
-
-
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dfol_relation_oracle_fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
     lib.dfol_relation_oracle_fwd.restype = i
-    _configure_widths(lib)
 
 
 def _configure_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dfol_relation_oracle_bwd.argtypes = [p] * 19 + [i] * 9 + [p]
+    lib.dfol_relation_oracle_bwd.argtypes = [p] * 20 + [i] * 9 + [p]
     lib.dfol_relation_oracle_bwd.restype = i
     lib.dfol_relation_oracle_bwd_tile.argtypes = []
     lib.dfol_relation_oracle_bwd_tile.restype = i
@@ -75,7 +69,8 @@ def _configure_bwd(lib: ctypes.CDLL) -> None:
     lib.dfol_relation_oracle_bwd_pad.restype = i
     lib.dfol_relation_oracle_bwd_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.dfol_relation_oracle_bwd_blocks_per_sm.restype = i
-    _configure_widths(lib)
+    lib.dfol_relation_oracle_bwd_wide.argtypes = [i, i]
+    lib.dfol_relation_oracle_bwd_wide.restype = i
 
 
 def build() -> cuda_build.Built:
@@ -168,16 +163,27 @@ def tf32_split(x: torch.Tensor):
     return big, small
 
 
-def _check_widths(lib: ctypes.CDLL, what: str, H: int, E: int) -> None:
-    """Raise unless the library's kernel takes the relation hidden width H
-    and the pair-code width E (the limits are the library's own)."""
-    max_h, max_e, mult = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.dfol_pair_tail_widths(ctypes.byref(max_h), ctypes.byref(max_e), ctypes.byref(mult))
-    max_h, max_e, mult = max_h.value, max_e.value, mult.value
-    if not (0 < H <= max_h and 0 < E <= max_e and H % mult == 0 and E % mult == 0):
-        raise ValueError(f"{what} kernel: takes a relation hidden width H <= {max_h} and a "
-                         f"pair-code width E <= {max_e}, both multiples of {mult}; got H={H}, "
-                         f"E={E}")
+def pad_widths(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, multiple: int):
+    """The pair tail's inputs with H and E zero-padded to multiples of
+    ``multiple`` (the inputs themselves when they are). A padded hidden unit
+    has z1 = 0, so h1 = elu(0) = 0, and meets zero rows of W2; a padded code
+    column has h2 = sigmoid(0) but meets zero columns of e_sel. So the log-
+    likelihoods are unchanged, and ``unpad_grads`` cuts the gradients back to
+    the true widths (the padded ones are zero, or unused)."""
+    H, E = w2.shape
+    dh, de = -H % multiple, -E % multiple
+    if not (dh or de):
+        return h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel
+    return (F.pad(h_s, (0, dh)), F.pad(h_o, (0, dh)), geom, F.pad(w_g, (0, dh)),
+            F.pad(b0, (0, dh)), F.pad(w2, (0, de, 0, dh)), F.pad(b2, (0, de)),
+            F.pad(e_sel, (0, de)), b_sel)
+
+
+def unpad_grads(grads, H: int, E: int):
+    """The nine gradients of the pair tail at padded widths, cut to H and E."""
+    dh_s, dh_o, dgeom, dwg, db0, dw2, db2, de_sel, db_sel = grads
+    return (dh_s[..., :H], dh_o[..., :H], dgeom, dwg[:, :H], db0[:H], dw2[:H, :E], db2[:E],
+            de_sel[..., :E], db_sel)
 
 
 def _check_args(what: str, h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens, g=None):
@@ -207,14 +213,16 @@ def pair_tail_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
                      default_ll: float = om.DEFAULT_LOG_LIKELIHOOD) -> torch.Tensor:
     """Launch the forward CUDA kernel on the current stream; inputs as
     ``pair_tail_reference``'s, all on one CUDA device, float32 and
-    contiguous, ``rel_tokens`` int32."""
+    contiguous, ``rel_tokens`` int32. Any H and E: widths that are not
+    multiples of the library's are zero-padded (``pad_widths``)."""
     _check_args("relation_oracle", h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens)
+    lib, built = cuda_build.load("relation_oracle", ["relation_oracle.cu"], _configure)
+    h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel = pad_widths(
+        h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, built.slices[2])
     B, O, H = h_s.shape
     E = w2.shape[1]
     R = e_sel.shape[1]
     device = h_s.device
-    lib, _ = cuda_build.load("relation_oracle", ["relation_oracle.cu"], _configure)
-    _check_widths(lib, "relation_oracle", H, E)
     out = torch.empty((B, R, O, O), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -249,21 +257,28 @@ def pair_tail_bwd_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_toke
                          need_dgeom: bool = True):
     """Launch the backward CUDA kernel on the current stream; arguments and
     result as ``pair_tail_bwd_reference``'s, with the forward kernel's
-    argument rules and ``g`` float32 (B, R, O, O) contiguous.
+    argument rules (any H and E) and ``g`` float32 (B, R, O, O) contiguous.
 
     The persistent grid's blocks take runs of ``per`` consecutive steps
     (kT x kT pairs each). The kernel writes partials per slot (the blocks
     whose runs meet one question, or one row band), per row band and per
     block; they are summed here with ``torch.sum`` over that axis, as the
-    JAX wrapper sums its dh_o partials."""
+    JAX wrapper sums its dh_o partials. Past one slice of H or E the
+    kernel's sliced instance also adds dWg, db0 and db2 into the zeroed
+    per-block rows, and past one slice of E it spills h2 and dz2 to a
+    per-block scratch."""
     _check_args("relation_oracle_bwd", h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel,
                 rel_tokens, g)
+    true_h, true_e = w2.shape
+    lib, built = cuda_build.load("relation_oracle_bwd", ["relation_oracle_bwd.cu"], _configure_bwd)
+    _, slice_e, multiple = built.slices
+    h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel = pad_widths(
+        h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, multiple)
     B, O, H = h_s.shape
     E = w2.shape[1]
     R = e_sel.shape[1]
     device = h_s.device
-    lib, _ = cuda_build.load("relation_oracle_bwd", ["relation_oracle_bwd.cu"], _configure_bwd)
-    _check_widths(lib, "relation_oracle_bwd", H, E)
+    wide = bool(lib.dfol_relation_oracle_bwd_wide(H, E))
     n_t = -(-O // lib.dfol_relation_oracle_bwd_tile())  # row (and column) bands per question
     pad = lib.dfol_relation_oracle_bwd_pad()
     hp, ep = -(-H // pad) * pad, -(-E // pad) * pad  # dW2's padded widths, in 32 x 32 chunks
@@ -282,13 +297,16 @@ def pair_tail_bwd_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_toke
         desel_part = torch.zeros((B, question_slots, R, E), **f32)
         dbsel_part = torch.zeros((B, question_slots, R), **f32)
         dw2_part = torch.zeros((grid, hp // 32, ep // 32, 32, 32), **f32)
-        small_part = torch.empty((grid, 5 * H + E), **f32)
+        small_part = (torch.zeros if wide else torch.empty)((grid, 5 * H + E), **f32)
+        # the sliced instance's h2 / dz2 spill: 64 pairs x ep per block
+        scratch = torch.empty((grid, 64, ep), **f32) if E > slice_e else None
         rc = lib.dfol_relation_oracle_bwd(
             h_s.data_ptr(), h_o.data_ptr(), geom.data_ptr(), w_g.data_ptr(), b0.data_ptr(),
             w2.data_ptr(), w2t.data_ptr(), b2.data_ptr(), e_sel.data_ptr(), b_sel.data_ptr(),
             rel_tokens.data_ptr(), g.data_ptr(), dhs_part.data_ptr(), dho_part.data_ptr(),
             None if dgeom is None else dgeom.data_ptr(), desel_part.data_ptr(),
             dbsel_part.data_ptr(), dw2_part.data_ptr(), small_part.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, O, H, E, R, grid, per, band_slots, question_slots,
             torch.cuda.current_stream(device).cuda_stream)
     cuda_build.check(lib, rc, "relation_oracle_bwd")
@@ -296,9 +314,10 @@ def pair_tail_bwd_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_toke
     with _COUNT_LOCK:
         BWD_LAUNCHES += 1
     small = small_part.sum(0)
-    return (dhs_part.sum(1), dho_part.sum(1), dgeom, small[:4 * H].view(4, H), small[4 * H:5 * H],
-            dw2_part.sum(0).permute(0, 2, 1, 3).reshape(hp, ep)[:H, :E], small[5 * H:],
-            desel_part.sum(1), dbsel_part.sum(1))
+    return unpad_grads(
+        (dhs_part.sum(1), dho_part.sum(1), dgeom, small[:4 * H].view(4, H), small[4 * H:5 * H],
+         dw2_part.sum(0).permute(0, 2, 1, 3).reshape(hp, ep)[:H, :E], small[5 * H:],
+         desel_part.sum(1), dbsel_part.sum(1)), true_h, true_e)
 
 
 class PairTail(torch.autograd.Function):
@@ -346,8 +365,8 @@ def rel_cache_kernel(
     under autograd the backward kernel (or raise); CPU tensors run their
     plain versions. A relation MLP of other than two layers and active
     dropout go to ``oracle.rel_cache`` on either device, as in the JAX
-    wrapper (``generator`` feeds its dropout). On the card, widths the
-    kernels do not take (``_check_widths``) raise."""
+    wrapper (``generator`` feeds its dropout). The kernels take any relation
+    hidden width and pair-code width."""
     if not _kernel_applies(params, cfg, deterministic):
         return om.rel_cache(params, attr_in, pos, rel_tokens, cfg, generator, deterministic,
                             default_ll)

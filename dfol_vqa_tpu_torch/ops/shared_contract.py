@@ -10,10 +10,11 @@ once per unique image (``ops/pair_mlp.py``); each question then needs
 R-major ``(B, R, O, O)`` in the cache dtype, ``default_ll`` on pad slots
 (``rel_tokens == 0``). The kernel is ``csrc/shared_contract.cu``: it fuses
 the gather with the contraction, so the ``(B, O, O, E)`` gather that the
-plain version materialises never reaches device memory, and it visits the
-questions sorted by image so each image's h2 is read from L2 by all of its
-questions. h2 and e_sel arrive in the stream dtype (float32 or bfloat16);
-the sums are float32.
+plain version materialises never reaches device memory. It scores all the
+questions of one image as one matrix product on the tensor cores, reading
+each band of that image's h2 into shared memory once; ``image_segments``
+sorts the questions by image and gives each image's run. h2 and e_sel
+arrive in the stream dtype (float32 or bfloat16); the sums are float32.
 
 ``shared_contract_kernel`` launches the kernel for CUDA tensors (through
 the ``autograd.Function`` ``SharedContract``) and uses
@@ -43,7 +44,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dfol_shared_contract_fwd.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, i, i, p]
+    lib.dfol_shared_contract_fwd.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, i, i, p]
     lib.dfol_shared_contract_fwd.restype = i
 
 
@@ -64,13 +65,29 @@ def shared_contract_reference(h2_u: torch.Tensor, img_index: torch.Tensor, e_sel
     return ll.to(out_dtype)
 
 
-def shared_contract_launch(h2_u: torch.Tensor, img_index: torch.Tensor, order: torch.Tensor,
-                           e_sel: torch.Tensor, b_sel: torch.Tensor, rel_tokens: torch.Tensor,
-                           default_ll: float, out_dtype: torch.dtype) -> torch.Tensor:
+def image_segments(img_index: torch.Tensor, U: int):
+    """The questions grouped by image, on the index's device and without a
+    host sync: (order, starts, counts), int32. Indices are clamped to
+    [0, U) first (an out-of-range index reads image 0 or U - 1, as a JAX
+    gather does); ``order`` lists the questions sorted by image (stable),
+    and image u's questions are ``order[starts[u]:starts[u] + counts[u]]``."""
+    img = img_index.long().clamp(0, U - 1)
+    order = torch.argsort(img, stable=True)
+    # a scatter-add, not bincount, which reads its input's max back to the host
+    counts = torch.zeros(U, dtype=torch.long, device=img.device).scatter_add_(
+        0, img, torch.ones_like(img))
+    starts = torch.cumsum(counts, 0) - counts
+    return order.to(torch.int32), starts.to(torch.int32), counts.to(torch.int32)
+
+
+def shared_contract_launch(h2_u: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
+                           counts: torch.Tensor, e_sel: torch.Tensor, b_sel: torch.Tensor,
+                           rel_tokens: torch.Tensor, default_ll: float,
+                           out_dtype: torch.dtype) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream. h2_u (U, O, O, E) and
-    e_sel (B, R, E) in one stream dtype, b_sel (B, R) float32, img_index,
-    order (questions sorted by image) and rel_tokens int32; all contiguous
-    on one CUDA device."""
+    e_sel (B, R, E) in one stream dtype, b_sel (B, R) float32, rel_tokens
+    and the ``image_segments`` (order (B,), starts and counts (U,)) int32;
+    all contiguous on one CUDA device."""
     U, O, O2, E = h2_u.shape
     B, R, E2 = e_sel.shape
     device = h2_u.device
@@ -83,7 +100,8 @@ def shared_contract_launch(h2_u: torch.Tensor, img_index: torch.Tensor, order: t
                          f"got {out_dtype}")
     expect = {"h2_u": (h2_u, h2_u.dtype, (U, O, O, E)), "e_sel": (e_sel, h2_u.dtype, (B, R, E)),
               "b_sel": (b_sel, torch.float32, (B, R)),
-              "img_index": (img_index, torch.int32, (B,)), "order": (order, torch.int32, (B,)),
+              "order": (order, torch.int32, (B,)), "starts": (starts, torch.int32, (U,)),
+              "counts": (counts, torch.int32, (U,)),
               "rel_tokens": (rel_tokens, torch.int32, (B, R))}
     for name, (t, dtype, shape) in expect.items():
         if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
@@ -96,9 +114,9 @@ def shared_contract_launch(h2_u: torch.Tensor, img_index: torch.Tensor, order: t
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.dfol_shared_contract_fwd(
-            h2_u.data_ptr(), img_index.data_ptr(), order.data_ptr(), e_sel.data_ptr(),
-            b_sel.data_ptr(), rel_tokens.data_ptr(), out.data_ptr(), U, B, O, E, R,
-            default_ll, DTYPES[h2_u.dtype], DTYPES[out_dtype], stream)
+            h2_u.data_ptr(), order.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            e_sel.data_ptr(), b_sel.data_ptr(), rel_tokens.data_ptr(), out.data_ptr(), U, B, O,
+            E, R, default_ll, DTYPES[h2_u.dtype], DTYPES[out_dtype], stream)
     cuda_build.check(lib, rc, "shared_contract")
     global LAUNCHES
     with _COUNT_LOCK:
@@ -131,14 +149,16 @@ def shared_contract_bwd(h2_u: torch.Tensor, img_index: torch.Tensor, e_sel: torc
 
 
 class SharedContract(torch.autograd.Function):
-    """``SharedContract.apply(h2_u, img_index, order, e_sel, b_sel,
-    rel_tokens, default_ll, out_dtype)``, arguments as
-    ``shared_contract_launch``'s: the kernel forward and
-    ``shared_contract_bwd``; no cotangent for the indices."""
+    """``SharedContract.apply(h2_u, img_index, order, starts, counts, e_sel,
+    b_sel, rel_tokens, default_ll, out_dtype)``, arguments as
+    ``shared_contract_launch``'s (the segments of ``image_segments(img_index,
+    U)``): the kernel forward and ``shared_contract_bwd``; no cotangent for
+    the indices."""
 
     @staticmethod
-    def forward(ctx, h2_u, img_index, order, e_sel, b_sel, rel_tokens, default_ll, out_dtype):
-        out = shared_contract_launch(h2_u, img_index, order, e_sel, b_sel, rel_tokens,
+    def forward(ctx, h2_u, img_index, order, starts, counts, e_sel, b_sel, rel_tokens,
+                default_ll, out_dtype):
+        out = shared_contract_launch(h2_u, order, starts, counts, e_sel, b_sel, rel_tokens,
                                      default_ll, out_dtype)
         ctx.save_for_backward(h2_u, img_index, e_sel, out, rel_tokens)
         return out
@@ -146,7 +166,7 @@ class SharedContract(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dh2, d_esel, d_bsel = shared_contract_bwd(*ctx.saved_tensors, g)
-        return dh2, None, None, d_esel, d_bsel, None, None, None
+        return dh2, None, None, None, None, d_esel, d_bsel, None, None, None
 
 
 def shared_contract_kernel(h2_u: torch.Tensor, img_index: torch.Tensor, e_sel: torch.Tensor,
@@ -161,9 +181,8 @@ def shared_contract_kernel(h2_u: torch.Tensor, img_index: torch.Tensor, e_sel: t
     if h2_u.device.type == "cpu":
         return shared_contract_reference(h2_u, img_index, e_sel, b_sel, rel_tokens, default_ll,
                                          out_dtype)
-    img = img_index.to(torch.int32).contiguous()
-    order = torch.argsort(img, stable=True).to(torch.int32)
-    return SharedContract.apply(h2_u.contiguous(), img, order, e_sel.contiguous(),
-                                b_sel.float().contiguous(),
+    order, starts, counts = image_segments(img_index, h2_u.shape[0])
+    return SharedContract.apply(h2_u.contiguous(), img_index, order, starts, counts,
+                                e_sel.contiguous(), b_sel.float().contiguous(),
                                 rel_tokens.to(torch.int32).contiguous(), float(default_ll),
                                 out_dtype)

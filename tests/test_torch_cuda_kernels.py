@@ -108,11 +108,14 @@ def test_cuda_relation_oracle_matches_plain(cuda, ontology, B, O, H, E):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("U,O,widths", [(2, 7, (8, 12)), (3, 33, (16, 24, 40)), (2, 5, (16,)),
-                                        (8, 100, (256, 300))])
+                                        (8, 100, (256, 300)), (2, 9, (300, 520, 600)),
+                                        (2, 9, (30, 18, 22)), (3, 10, (254, 302))])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_pair_mlp_matches_plain(cuda, U, O, widths, dtype):
     """Chains of one and two Linear layers, and none (sigmoid of the split
-    first layer), at odd O and at the production shape."""
+    first layer), at odd O and at the production shape; a chain past one
+    slice of the tile (input 300 > 256, a hidden 520 through the scratch,
+    output 600 > 320) and widths that are not multiples of 4."""
     arrays, chain = pair_arrays(np.random.default_rng(U * O), U, O, widths)
     ins = [torch.from_numpy(a).to(cuda) for a in arrays]
     layers = [nn.Linear(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda))
@@ -207,31 +210,77 @@ def test_cuda_relation_oracle_bwd_matches_plain(cuda, B, O, H, E, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,E", [(512, 300), (260, 300), (256, 324), (254, 300), (256, 302)])
-def test_cuda_pair_tail_kernels_raise_on_widths_they_do_not_take(cuda, ontology, H, E):
-    """Kernels 1 and 2 take H <= 256 and E <= 320, multiples of 4 (the
-    library's own limits): other widths raise a ValueError that says so,
-    from the wrappers and from ``rel_cache_kernel``, and launch nothing."""
-    B, O, R = 2, 5, 3
-    ins = [torch.zeros(s, device=cuda) for s in ((B, O, H), (B, O, H), (B, O, O, 4), (4, H),
-                                                 (H,), (H, E), (E,), (B, R, E), (B, R))]
-    tok = torch.ones((B, R), dtype=torch.int32, device=cuda)
-    g = torch.zeros((B, R, O, O), device=cuda)
+@pytest.mark.parametrize("H,E", [(512, 300), (260, 300), (256, 324), (254, 300), (256, 302),
+                                 (512, 600)])
+def test_cuda_pair_tail_kernels_match_plain_at_any_width(cuda, ontology, H, E):
+    """Kernels 1 and 2 past one slice of H (256) or E (320), and at widths
+    that are not multiples of 4 (zero-padded by the wrappers): kernel 1
+    against ``pair_tail_reference``, kernel 2's nine gradients against
+    ``pair_tail_bwd_reference`` and ``rel_cache_kernel`` against its plain
+    version, each launching its kernel once."""
+    B, O, R = 2, 9, 3
+    rng = np.random.default_rng(H + E)
+    ins = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.standard_normal((B, O, H)) * 0.5, rng.standard_normal((B, O, H)) * 0.5,
+        rng.uniform(-1, 1, (B, O, O, 4)), rng.standard_normal((4, H)), rng.standard_normal(H),
+        rng.standard_normal((H, E)) / np.sqrt(H), rng.standard_normal(E),
+        rng.standard_normal((B, R, E)), rng.standard_normal((B, R)))]
+    tok = torch.from_numpy(rng.integers(1, 300, (B, R)).astype(np.int32)).to(cuda)
+    tok[0, R - 1] = 0
+    g = torch.from_numpy(rng.standard_normal((B, R, O, O)).astype(np.float32)).to(cuda)
+    before = (ro.LAUNCHES, ro.BWD_LAUNCHES)
+    with torch.no_grad():
+        got = ro.pair_tail_kernel(*ins, tok)
+        grads = ro.pair_tail_bwd_kernel(*ins, tok, g, True)
+    torch.cuda.synchronize()
+    assert (ro.LAUNCHES, ro.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert_matches(got, ro.pair_tail_reference(*ins, tok))
+    for a, b in zip(grads, ro.pair_tail_bwd_reference(*ins, tok, g, True)):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=0)
+
     cfg = Config(box_features_dim=32, oracle_input_dim=16, word_embedding_dim=E,
                  featurizer_layers_config=[], attribute_network_layers_config=[8],
                  relation_network_layers_config=[H], dropout=0.0)
     tp = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0), cuda)
-    attr_in = torch.zeros((B, O, cfg.attr_input_dim), device=cuda)
-    before = (ro.LAUNCHES, ro.BWD_LAUNCHES)
-    match = r"takes a relation hidden width H <= 256 and a pair-code width E <= 320, both " \
-            rf"multiples of 4; got H={H}, E={E}"
-    with pytest.raises(ValueError, match=match):
-        ro.pair_tail_kernel(*ins, tok)
-    with pytest.raises(ValueError, match=match):
-        ro.pair_tail_bwd_kernel(*ins, tok, g)
-    with pytest.raises(ValueError, match=match):
-        ro.rel_cache_kernel(tp, attr_in, torch.zeros((B, O, 4), device=cuda), tok, cfg)
-    assert (ro.LAUNCHES, ro.BWD_LAUNCHES) == before
+    attr_in = torch.from_numpy(rng.uniform(size=(B, O, cfg.attr_input_dim)).astype(np.float32))
+    pos = torch.from_numpy(rng.uniform(size=(B, O, 4)).astype(np.float32))
+    cache_tok = torch.from_numpy(rng.integers(1, 2300, (B, R)).astype(np.int32))
+    args = [t.to(cuda) for t in (attr_in, pos, cache_tok)]
+    before = ro.LAUNCHES
+    with torch.inference_mode():
+        got = ro.rel_cache_kernel(tp, *args, cfg)
+        want = ro.rel_cache_kernel_reference(tp, *args)
+    torch.cuda.synchronize()
+    assert ro.LAUNCHES == before + 1
+    assert_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,R,img", [
+    (4, 8, [1] * 17 + [3, 0, 0]),   # 17 questions on image 1 (past one 128-column group),
+                                    # one on image 3, none on image 2
+    (3, 8, [0, -2, 7, 1, 2, 5]),    # out-of-range indices read image 0 or U - 1
+    (2, 11, [0, 1, 1, 0, 1, 0, 0, 1, 1]),  # R = 11
+])
+@pytest.mark.parametrize("dtype,out", [("float32", "float32"), ("bfloat16", "float32"),
+                                       ("bfloat16", "bfloat16")])
+def test_cuda_shared_contract_image_segments(cuda, U, R, img, dtype, out):
+    """Kernel 4 scores each image's questions as one product: images with
+    many, one and no questions, clamped indices, more slots than 8."""
+    B, O, E = len(img), 9, 40
+    h2, _, e_sel, b_sel, tok = (torch.from_numpy(a).to(cuda) for a in contract_inputs(
+        np.random.default_rng(B * R), U, B, O, E, R, False))
+    h2, e_sel = h2.to(DTYPES[dtype]), e_sel.to(DTYPES[dtype])
+    img = torch.tensor(img, dtype=torch.int32, device=cuda)
+    before = sc.LAUNCHES
+    with torch.inference_mode():
+        got = sc.shared_contract_kernel(h2, img, e_sel, b_sel, tok, out_dtype=DTYPES[out])
+        want = sc.shared_contract_reference(h2, img.clamp(0, U - 1), e_sel, b_sel, tok,
+                                            out_dtype=DTYPES[out])
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == before + 1
+    assert_matches(got, want)
 
 
 @pytest.mark.cuda

@@ -257,3 +257,22 @@ def test_shared_kernel_route_gates():
     assert om.shared_kernel_route(cfg, cuda, True)
     with pytest.raises(ValueError):
         om.shared_kernel_route(shared_cfg(rel_route="mosaic"), cuda, True)
+
+
+@pytest.mark.parametrize("img,U,order,starts,counts", [
+    ([0, 0, 1, 1, 2], 3, [0, 1, 2, 3, 4], [0, 2, 4], [2, 2, 1]),        # sorted
+    ([2, 0, 2, 1, 0], 3, [1, 4, 3, 0, 2], [0, 2, 3], [2, 1, 2]),        # unsorted, stable
+    ([1, 1, 1], 4, [0, 1, 2], [0, 0, 3, 3], [0, 3, 0, 0]),              # images without questions
+    ([-3, 5, 1, 0, 9], 3, [0, 3, 2, 1, 4], [0, 2, 3], [2, 1, 2]),       # clamped to [0, U)
+    ([4], 5, [0], [0, 0, 0, 0, 0], [0, 0, 0, 0, 1]),                    # one question
+])
+def test_image_segments(img, U, order, starts, counts):
+    """``sc.image_segments``: the questions sorted by their clamped image
+    (stable), and each image's start and count in that order, int32."""
+    got = sc.image_segments(torch.tensor(img, dtype=torch.int32), U)
+    assert all(t.dtype == torch.int32 for t in got)
+    assert [t.tolist() for t in got] == [order, starts, counts]
+    clamped = np.clip(img, 0, U - 1)
+    for u in range(U):  # each image's run holds exactly its questions
+        run = got[0][starts[u]:starts[u] + counts[u]].tolist()
+        assert sorted(run) == run and all(clamped[q] == u for q in run)

@@ -137,3 +137,75 @@ def test_kernel_bound_charges_products_at_their_operands_rate(dtype, rate):
 def test_one_tf32_product_misses_the_card_gates(B, O):
     out_err, rel = errors("tf32", B, O)
     assert out_err > chip_smoke.KERNEL_ATOL or max(rel.values()) > chip_smoke.BWD_RTOL, rel
+
+
+# ----------------------------------------------------- kernels 3 and 4's products
+
+
+def pair_mlp_emulated(mm, pos, h_s, h_o, w_g, b0, w, b):
+    """Kernel 3's one-Linear chain with its H x E product through ``mm``:
+    (U, O, O, E) sigmoid outputs in the inputs' dtype."""
+    from dfol_vqa_tpu_torch.models.featurizer import pair_geometry
+
+    geom = pair_geometry(pos)
+    h = (geom[..., 0, None] * w_g[0] + geom[..., 1, None] * w_g[1]
+         + geom[..., 2, None] * w_g[2] + geom[..., 3, None] * w_g[3])
+    h1 = nn.elu_exp(h + h_s[:, :, None, :] + h_o[:, None, :, :] + b0)
+    U, O, _, H = h1.shape
+    return torch.sigmoid(mm(h1.reshape(-1, H), w).reshape(U, O, O, -1) + b)
+
+
+def pair_mlp_errors(product):
+    """(max abs error against float64, bf16 outputs within one bf16 ULP of
+    the plain float32 version's) of kernel 3's pair code at H=256, E=300,
+    its product through ``product``."""
+    from chip_smoke import bf16_ulp
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from tests.test_torch_cuda_kernels import pair_arrays
+
+    arrays, chain = pair_arrays(np.random.default_rng(7), 1, 12, (256, 300))
+    (w, b), = chain
+    ins = [torch.from_numpy(a) for a in arrays + [w, b]]
+    want = pair_mlp_emulated(f32, *[t.double() for t in ins])
+    got = pair_mlp_emulated(PRODUCTS[product], *ins)
+    plain16 = pm.pair_mlp_reference(*ins[:5], [pm._Layer(ins[5], ins[6])], torch.bfloat16)
+    ulp_ok = bool(((got.to(torch.bfloat16).float() - plain16.float()).abs()
+                   <= bf16_ulp(plain16)).all())
+    return (got.double() - want).abs().max().item(), ulp_ok
+
+
+def test_pair_mlp_3xtf32_product_meets_the_card_gates():
+    """Kernel 3 at H=256, E=300: 3xTF32 meets KERNEL_ATOL on a float32 pair
+    code and one bf16 ULP on a bf16 one; one TF32 product misses the first."""
+    err, ulp_ok = pair_mlp_errors("3xtf32")
+    assert err <= chip_smoke.KERNEL_ATOL and ulp_ok
+    assert pair_mlp_errors("tf32")[0] > chip_smoke.KERNEL_ATOL
+
+
+def bf16_tiled_contract(h2, img, e_sel, b_sel, tok, k_step=16):
+    """Kernel 4's bf16 product: exact bf16 x bf16 products (exact in
+    float32), summed in float32 in runs of ``k_step`` (one mma.sync.k16),
+    each run added to the float32 accumulator; then the logsigmoid and the
+    pad fill."""
+    h2q = h2[img.long()].float()   # (B, O, O, E)
+    e = e_sel.float()
+    acc = torch.zeros(h2q.shape[0], e.shape[1], h2q.shape[1], h2q.shape[2])
+    for k0 in range(0, h2q.shape[-1], k_step):
+        acc = acc + torch.einsum("bije,bre->brij", h2q[..., k0:k0 + k_step], e[..., k0:k0 + k_step])
+    out = torch.nn.functional.logsigmoid(acc + b_sel[:, :, None, None])
+    return out.masked_fill((tok == 0)[:, :, None, None], -30.0)
+
+
+def test_shared_contract_bf16_product_meets_the_card_gate():
+    """Kernel 4 with a bf16 stream at E=300, R=8: exact products and float32
+    sums in the kernel's tiled order stay within KERNEL_ATOL of the plain
+    version, which sums the same products in one float32 einsum."""
+    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+    from tests.test_torch_cuda_kernels import contract_inputs
+
+    h2, img, e_sel, b_sel, tok = (torch.from_numpy(a) for a in contract_inputs(
+        np.random.default_rng(3), 2, 6, 10, 300, 8, False))
+    h2, e_sel = h2.to(torch.bfloat16), e_sel.to(torch.bfloat16)
+    want = sc.shared_contract_reference(h2, img, e_sel, b_sel, tok, -30.0)
+    got = bf16_tiled_contract(h2, img, e_sel, b_sel, tok)
+    assert (got - want).abs().max().item() <= chip_smoke.KERNEL_ATOL

@@ -199,13 +199,14 @@ def test_shared_contract_function_grads_match_jax(monkeypatch, dtype):
         return jnp.sum(out * w)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(h2_j, e_j, jnp.asarray(b_sel))
+    img_t = torch.from_numpy(img)
     monkeypatch.setattr(sc, "shared_contract_launch",
-                        lambda h2_u, img_index, order, *a: sc.shared_contract_reference(
-                            h2_u, img_index, *a))  # the kernel's stand-in
+                        lambda h2_u, order, starts, counts, *a: sc.shared_contract_reference(
+                            h2_u, img_t, *a))  # the kernel's stand-in
     ins = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(td).requires_grad_()
            for a in (h2_j, e_j)]
     b_t = torch.from_numpy(b_sel).requires_grad_()
-    out = sc.SharedContract.apply(ins[0], torch.from_numpy(img), None, ins[1], b_t,
+    out = sc.SharedContract.apply(ins[0], img_t, *sc.image_segments(img_t, 3), ins[1], b_t,
                                   torch.from_numpy(tok), om.DEFAULT_LOG_LIKELIHOOD,
                                   torch.float32)
     (out * torch.from_numpy(w)).sum().backward()
