@@ -72,10 +72,27 @@ Phases, each reported on its own line(s):
    per-question relating step, kernels 3 and 4 once per relating batch of
    the validation passes (shared route), every batch on its route. Then one
    profiled epoch of train steps (device busy/idle share, top device
-   events). The loss trend is reported, not gated.
+   events). The loss trend is reported, not gated;
+8. the terminals (every terminal of the executor, at production dims
+   unless said): the fourth JAX golden (``torch_port_golden_terminals.npz``:
+   each terminal soft and hard at tiny dims, and the supervision
+   terminals' loss and gradients); a 68-request burst of the ten newer
+   question families (``SERVE_TERMINALS_MIX``, 0-2 hops, choose_rel
+   included) through phase 4's engine, answers equal to the CPU engine's,
+   kernel 1 once per relating group; offline evaluation of every question
+   terminal (``evalset.TERMINAL_HOPS``, one batch of 80 on 8 images each,
+   O=100) soft and hard through ``VQATrainer.test_epoch`` and ``predict``
+   against the CPU: probabilities within ``EVAL_P_ATOL``, answers and error
+   vector equal up to the near-tie rule (``near_ties``: a query's options,
+   compare's two branches, a binary flag at 0.5), kernels 3 and 4 once per
+   relating batch, questions/s per terminal; and one training step each,
+   card vs CPU under phase 7's gates, of ``choose_rel`` and ``compare`` on
+   the per-question route, the supervision terminals ``object_attr``,
+   ``object_rel`` and ``scene`` (``trainset.supervision_loader``), and a
+   ``trainable_gate`` batch on the shared route.
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4, 6 and 7, each counted from 0), error, times, FLOP, bound and
+of phases 4, 6, 7 and 8, each counted from 0), error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
 result line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -85,6 +102,7 @@ non-zero before the result line. TF32 is off for matmuls and cuDNN.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -101,9 +119,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 EVAL_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
+TERMINALS_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
+SUPERVISION_GOLDEN = {"n": 2, "seed": 3}  # the terminals golden's supervision batches
 KERNEL_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4
-TIE_ULPS = 4  # float32 ULPs within which two query options count as tied
+TIE_ULPS = 4  # float32 ULPs within which an answer counts as a near-tie (near_ties)
 # gradients: float32 sums over up to 800k pairs (and the plain path's cuBLAS /
 # MKL sums) taken in another order, relative to the gradient's largest value
 BWD_RTOL = 1e-4
@@ -114,12 +134,25 @@ GOLDEN_GRAD_RTOL = 1e-4
 # with TF32 matmuls on, the same steps read 2.7e-3 and 8.0e-3
 TRAIN_GRAD_RTOL = 3e-4
 TRAIN_LOSS_RTOL = 1e-4
+# phase 8's eval, card vs CPU at O=100, in probability space: ~8x the worst
+# reading on an NVIDIA H100 80GB HBM3 at 700 W (1.17e-4, compare in hard
+# mode; every other terminal within 1.5e-6). Log space is no place for the
+# gate: near the 1e-20 clamp one side's hard-mode minimum reads log(1e-20) =
+# -46.05, the other's -16.6
+EVAL_P_ATOL = 1e-3
 ADAM_EPS = 1e-8
 
 # (family, hops, count): the serving slice's terminals, 64 requests
 SERVE_MIX = (("exist", 0, 10), ("exist", 1, 10), ("exist", 2, 12),
              ("verify_rel", 1, 8), ("verify_rel", 2, 8),
              ("query_attr", 0, 8), ("query_attr", 1, 8))
+# phase 8's burst: the ten question families of the terminals slice, 0-2
+# hops, 68 requests
+SERVE_TERMINALS_MIX = (("verify_attrs", 1, 6), ("choose_attr", 0, 6), ("choose_rel", 0, 6),
+                       ("choose_rel", 1, 6), ("choose_rel", 2, 4), ("and", 1, 6), ("or", 2, 4),
+                       ("all_same", 1, 6), ("all_different", 0, 4), ("two_same", 1, 6),
+                       ("two_different", 0, 4), ("compare", 1, 6), ("compare", 2, 4))
+TERMINALS_SEED = 8  # phase 8's question sets
 
 
 def log(msg: str) -> None:
@@ -576,44 +609,51 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
     return records
 
 
-def serve_questions(world):
+def serve_questions(world, mix=SERVE_MIX, seed=1000):
     qs = []
-    for fi, (fam, hops, n) in enumerate(SERVE_MIX):
-        qs += world.generate_family(fam, n, length=hops, seed=1000 + fi,
+    for fi, (fam, hops, n) in enumerate(mix):
+        qs += world.generate_family(fam, n, length=hops, seed=seed + fi,
                                     neg_prob=0.3 if fam == "exist" else 0.0,
                                     id_prefix=f"smoke-{fam}{hops}-")
     return qs
 
 
-def phase_serve(eng, world, stamp: str) -> int:
-    """Serve 64 requests on the card; returns the kernel launches of the run."""
+def phase_serve(eng, cpu_eng, world, stamp: str, mix=SERVE_MIX, tag: str = "4",
+                seed: int = 1000) -> int:
+    """Serve ``mix`` (default: phase 4's 64 requests) on the card; the
+    answers must equal ``cpu_eng``'s (the same engine and weights on the
+    CPU), and kernel 1 must have launched once per relating group: at least
+    once per relating canonical spec, at most once per relating request.
+    Returns the kernel launches of the run."""
+    from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
-    from dfol_vqa_tpu_torch.serve import build_demo_engine
 
-    _, _, _, cpu_eng = build_demo_engine(device="cpu", max_batch=32, seed=0)
-    try:
-        qs = serve_questions(world)
-        info = eng.warmup(qs)
-        log(f"[4] warmup: {info['specs']} specs x rungs {info['batch_sizes']} in "
-            f"{info['seconds']!r} s ({stamp})")
-        ro.LAUNCHES = 0
-        t0 = time.perf_counter()
-        results = eng.answer_many(qs)
-        seconds = time.perf_counter() - t0
-        launches = ro.LAUNCHES
-        want = [r.answers for r in cpu_eng.answer_many(qs)]
-    finally:
-        cpu_eng.stop()
+    qs = serve_questions(world, mix, seed)
+    specs = [eng._prepare(q)[0] for q in qs]
+    relating = [spec_needs_relations(k) for k in specs]
+    keys = {k for k, r in zip(specs, relating) if r}
+    info = eng.warmup(qs)
+    log(f"[{tag}] warmup: {info['specs']} specs x rungs {info['batch_sizes']} in "
+        f"{info['seconds']!r} s ({stamp})")
+    ro.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = eng.answer_many(qs)
+    seconds = time.perf_counter() - t0
+    launches = ro.LAUNCHES
+    want = [r.answers for r in cpu_eng.answer_many(qs)]
     got = [r.answers for r in results]
     if got != want:
         bad = sum(a != b for a, b in zip(got, want))
         raise AssertionError(f"{bad}/{len(qs)} GPU answers differ from the CPU plain engine")
-    if launches <= 0:
-        raise AssertionError("the relation_oracle kernel never launched while serving")
+    if not len(keys) <= launches <= sum(relating) or launches <= 0:
+        raise AssertionError(f"the relation_oracle kernel launched {launches} times for "
+                             f"{sum(relating)} relating requests of {len(keys)} specs")
     p50 = statistics.median(r.latency_ms for r in results)
-    log(f"[4] served {len(qs)} requests in {seconds!r} s: {len(qs) / seconds!r} requests/s, "
-        f"p50 latency {p50!r} ms, batches {eng.stats['batches']}, "
-        f"relation_oracle launches {launches}; answers == CPU plain engine ({stamp})")
+    families = sorted({q["program"]["last_op"]["operator"] for q in qs})
+    log(f"[{tag}] served {len(qs)} requests ({', '.join(families)}) in {seconds!r} s: "
+        f"{len(qs) / seconds!r} requests/s, p50 latency {p50!r} ms, batches "
+        f"{eng.stats['batches']}, relation_oracle launches {launches} for {sum(relating)} "
+        f"relating requests of {len(keys)} specs; answers == CPU plain engine ({stamp})")
     return launches
 
 
@@ -780,6 +820,130 @@ def check_train_golden(device, grad_rtol: float) -> int:
     return n
 
 
+def terminals_golden_setup(ontology):
+    """(cfg, supervision cfg, world, {terminal: question file}) of the
+    terminals golden: tiny dims, dropout 0, each question terminal of
+    ``evalset.TERMINAL_HOPS`` as 8 questions on 2 images of their own (U * 2
+    <= B: the shared-image route), the supervision batches of
+    ``SUPERVISION_GOLDEN["n"]`` questions. numpy only."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+
+    cfg = trainset.demo_train_config(tiny=True)
+    cfg.train_batch_size = 8
+    sup_cfg = dataclasses.replace(cfg, train_batch_size=SUPERVISION_GOLDEN["n"])
+    world = evalset.demo_world(ontology, tiny=True)
+    sets = evalset.eval_datasets(world, tuple((t, h, 8) for t, h in evalset.TERMINAL_HOPS), 8, 2,
+                                 seed=11)
+    return cfg, sup_cfg, world, {t: qs for (t, _), qs in zip(evalset.TERMINAL_HOPS, sets)}
+
+
+def pack_arrays(arrays: dict) -> tuple:
+    """A batch's compiled arrays as one float64 vector (every int32 and
+    float32 value is exact in float64) and its layout, JSON [name, dtype,
+    shape] in name order: one npz entry per batch instead of one per array."""
+    names = sorted(arrays)
+    layout = [[k, str(arrays[k].dtype), list(arrays[k].shape)] for k in names]
+    blob = np.concatenate([np.asarray(arrays[k], np.float64).ravel() for k in names])
+    return blob, np.array(json.dumps(layout))
+
+
+def scene_summary(lp: dict, attr_weight: np.ndarray) -> dict:
+    """``scene``'s log-probabilities as the terminals golden keeps them: the
+    listed-pair relation scores whole; of the (B, O, A) attribute scores,
+    the entries that ``attr_weight`` supervises (``attr_at``) and the sums
+    over the A attributes (``attr_sum``)."""
+    attr = np.asarray(lp["attr"])
+    return {"rel": np.asarray(lp["rel"]), "attr_at": attr[np.asarray(attr_weight) > 0],
+            "attr_sum": attr.sum(axis=-1)}
+
+
+def check_terminals_golden(device, atol: float, grad_rtol: float) -> tuple:
+    """Every terminal, soft and hard, against the JAX terminals golden on
+    ``device`` (the eval golden's weights); returns (batches checked, answers
+    that differ inside a near-tie). The rebuilt batches must equal the
+    golden's; log-probabilities agree within ``atol`` (``scene``'s attribute
+    sums within ``atol`` per term); answer flags and matches be equal except
+    on a row that the golden's scores put in a near-tie (``near_ties``); and
+    for the supervision terminals the training loss agree within
+    ``grad_rtol`` relative and every gradient leaf within ``grad_rtol`` of
+    max(1, its largest value)."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.convert import params_from_numpy
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    golden = np.load(TERMINALS_GOLDEN)
+    with np.load(EVAL_GOLDEN) as eval_golden:
+        start = {k[len("params/"):]: eval_golden[k] for k in eval_golden.files
+                 if k.startswith("params/")}
+    ont = GQAOntology()
+    cfg, sup_cfg, world, _ = terminals_golden_setup(ont)
+    n = ties = 0
+    for term in [t for t, _ in evalset.TERMINAL_HOPS] + list(trainset.SUPERVISION_TERMINALS):
+        p = f"batch/{term}/"
+        if term in trainset.SUPERVISION_TERMINALS:
+            c = sup_cfg
+            (lb,) = list(trainset.supervision_loader(sup_cfg, ont, term, **SUPERVISION_GOLDEN))
+        else:
+            c = cfg
+            (lb,) = list(trainset.train_loader(
+                cfg, ont, world, [json.loads(str(golden["datasets/" + term]))], shuffle=False))
+        blob, layout = pack_arrays(lb.arrays)
+        for name, v in (("objects", lb.objects), ("obj_mask", lb.obj_mask), ("arrays", blob),
+                        ("array_layout", layout)):
+            if not np.array_equal(v, golden[p + name]):
+                raise AssertionError(f"{term} batch: {name} differs from the golden")
+        params = params_from_numpy(start).to(device)
+        _, o, m, arrays = to_device_batch(lb, device)
+        for mode in ("soft", "hard"):
+            interp = Interpreter(dataclasses.replace(c, hard_mode=mode == "hard"), ont)
+            with torch.inference_mode():
+                res = interp.forward(params, o, m, arrays, lb.spec)
+            lp, q = res["log_probability"], f"{p}{mode}/"
+            if isinstance(lp, dict):  # the mode does not enter scene's scores
+                got = scene_summary({k: v.cpu().numpy() for k, v in lp.items()},
+                                    lb.arrays["attr_weight"])
+                want = {k: golden[f"{p}log_probability/{k}"] for k in got}
+                tie = np.zeros((len(lb.arrays["question_mask"]), 1), bool)
+            else:
+                got = {"": lp.cpu().numpy()}
+                want = {"": golden[q + "log_probability"]}
+                tie = near_ties(term, want[""], lb.arrays["opt_mask"])
+            for k, v in got.items():
+                tol = atol * (lp["attr"].shape[-1] if k == "attr_sum" else 1)
+                err = np.abs(v - want[k]).max()
+                if not (np.isfinite(v).all() and v.shape == want[k].shape and err <= tol):
+                    raise AssertionError(f"{term} {mode}: log_probability {k} off by {err} > {tol}")
+            flags = res["answer_flags"].cpu().numpy()
+            differ = (flags != golden[q + "answer_flags"]).reshape(len(flags), -1).any(axis=1)
+            row_tie = tie.any(axis=1)
+            match = res["match"].cpu().numpy()
+            bad_match = match != golden[q + "match"]
+            if term in trainset.SUPERVISION_TERMINALS:  # a batch-wide average
+                bad_match = bad_match & ~row_tie.any()
+            else:
+                bad_match = bad_match & ~row_tie
+            if (differ & ~row_tie).any() or bad_match.any():
+                raise AssertionError(f"{term} {mode}: answer flags or matches differ from the "
+                                     "golden outside a near-tie")
+            ties += int(differ.sum())
+        if term in trainset.SUPERVISION_TERMINALS:
+            trainer = VQATrainer(c, Interpreter(c, ont), device=device)
+            loss = trainer.compute_grads(params, lb).item()
+            want = float(golden[p + "loss"])
+            if not (np.isfinite(loss) and abs(loss - want) <= grad_rtol * abs(want)):
+                raise AssertionError(f"{term}: loss {loss!r} != golden {want!r}")
+            want_grads = {k[len(p + "grads/"):]: golden[k] for k in golden.files
+                          if k.startswith(p + "grads/")}
+            for k, (err, mag) in leaf_errors(grads_of(params), want_grads).items():
+                if not err <= grad_rtol * max(1.0, mag):
+                    raise AssertionError(f"{term}: gradient {k} off by {err!r} (max {mag!r})")
+        n += 1
+    return n, ties
+
+
 def device_time(prof):
     """From a ``torch.profiler`` run: the union of its device-side (kernel,
     copy) event intervals in ms, None when it saw no device event, and the
@@ -802,40 +966,85 @@ def device_time(prof):
     return (busy + cur_e - cur_s) / 1000.0, by_name
 
 
+def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray) -> np.ndarray:
+    """(B, options) mask of the answers that a float32 near-tie decides,
+    from one batch's log-probabilities: a query's options whose scores
+    exp(lp) lie within ``TIE_ULPS`` float32 ULPs of the best one (where two
+    or more do: the tie rule flags every option equal to the best;
+    ``compare``'s argmax picks one of its two branches); a binary or
+    statement flag, or an object statement's, whose exp(lp) lies within
+    ``TIE_ULPS`` ULPs of 0.5. Such an answer hinges on the last bits of sums
+    taken in another order on another device. Binary rows come back as
+    (B, 1)."""
+    from dfol_vqa_tpu_torch.models.interpreter import QUERY_OPS
+
+    score = np.exp(lp).astype(np.float32)
+    if term in QUERY_OPS:
+        live = opt_mask[:, :score.shape[1]] > 0
+        score = np.where(live, score, 0.0).astype(np.float32)
+        best = score.max(axis=1, keepdims=True)
+        near = live & (np.abs(score - best) <= TIE_ULPS * np.spacing(best))
+        return near & (near.sum(axis=1, keepdims=True) > 1)
+    near = np.abs(score - 0.5) <= TIE_ULPS * np.spacing(np.float32(0.5))
+    return near.reshape(len(near), -1)
+
+
 def float_ties(interp, loader, params) -> dict:
-    """QUERY questions whose answer the CPU decides by a float32 near-tie:
-    two or more options whose scores exp(log_probability) lie within
-    ``TIE_ULPS`` float32 ULPs of the best one. The tie rule flags every
-    option equal to the best, so such an answer hinges on the last bits of
-    sums taken in another order on another device. Returns {question id:
-    (terminal op, near-tie option strings)}."""
+    """Questions whose answer the CPU decides by a float32 near-tie
+    (``near_ties``). Returns {question id: (terminal op, the answers inside
+    the tie: option strings, or "yes" and "no")}."""
     from dfol_vqa_tpu_torch.data.transfer import to_device_batch
     from dfol_vqa_tpu_torch.models.interpreter import QUERY_OPS
 
     ties = {}
     for lb in loader:
-        if lb.spec.terminal_op not in QUERY_OPS:
-            continue
         _, o, m, arrays = to_device_batch(lb, "cpu")
         with torch.inference_mode():
             lp = interp.forward(params, o, m, arrays, lb.spec)["log_probability"].numpy()
-        live = lb.arrays["opt_mask"] > 0
-        score = np.where(live, np.exp(lp), 0.0).astype(np.float32)
-        best = score.max(axis=1, keepdims=True)
-        near = live & (np.abs(score - best) <= TIE_ULPS * np.spacing(best))
-        cb = lb.compiled
-        for qi in np.flatnonzero((near.sum(axis=1) > 1) & (cb.question_mask > 0)):
-            opts = cb.option_strings[qi]
-            ties[cb.question_ids[qi]] = (lb.spec.terminal_op,
-                                         [opts[k] for k in np.flatnonzero(near[qi])])
+        term, cb = lb.spec.terminal_op, lb.compiled
+        near = near_ties(term, lp, lb.arrays["opt_mask"])
+        for qi in np.flatnonzero(near.any(axis=1) & (cb.question_mask > 0)):
+            inside = ([cb.option_strings[qi][k] for k in np.flatnonzero(near[qi])]
+                      if term in QUERY_OPS else ["yes", "no"])
+            ties[cb.question_ids[qi]] = (term, inside)
     return ties
 
 
-def tie_buckets(ties: dict) -> dict:
-    counts: dict = {}
+def same_up_to_ties(preds, preds_cpu, ties) -> int:
+    """Checks the card's predictions against the CPU's: equal, except where
+    the CPU's answer is a near-tie (``float_ties``), where the card's must
+    lie inside the tie. Returns the count of such answers that differ."""
+    flipped = 0
+    for got, want in zip(preds, preds_cpu):
+        if got == want:
+            continue
+        tie = ties.get(want["questionId"])
+        pred = got["prediction"] if isinstance(got["prediction"], list) else [got["prediction"]]
+        if (got["questionId"] != want["questionId"] or tie is None or not pred
+                or not set(pred) <= set(tie[1])):
+            raise AssertionError(f"prediction on the card {got} != CPU {want}")
+        flipped += 1
+    if len(preds) != len(preds_cpu):
+        raise AssertionError(f"{len(preds)} predictions on the card, {len(preds_cpu)} on the CPU")
+    return flipped
+
+
+def check_error_up_to_ties(error, counts, error_cpu, counts_cpu, ties) -> None:
+    """``test_epoch``'s error vector on the card against the CPU's: the same
+    question counts, and each bucket's error count apart by at most its
+    near-tie questions (a tie-decided answer moves its bucket by at most
+    one)."""
+    from dfol_vqa_tpu_torch.train.trainer import OP_INDEX
+
+    bound = np.zeros_like(error)
     for term, _ in ties.values():
-        counts[term] = counts.get(term, 0) + 1
-    return counts
+        bound[0] += 1
+        if term in OP_INDEX:
+            bound[OP_INDEX[term]] += 1
+    if not (np.array_equal(counts, counts_cpu)
+            and np.all(np.abs(error - error_cpu) * counts <= bound + 1e-3)):
+        raise AssertionError(f"test_epoch error on the card {error} != CPU {error_cpu} beyond "
+                             f"the float-tie bound {bound}")
 
 
 def phase_eval(device, stamp: str) -> dict:
@@ -847,7 +1056,7 @@ def phase_eval(device, stamp: str) -> dict:
     from dfol_vqa_tpu_torch.ops import pair_mlp as pm
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
     from dfol_vqa_tpu_torch.ops import shared_contract as sc
-    from dfol_vqa_tpu_torch.train.trainer import OP_INDEX, VQATrainer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
 
     t0 = time.perf_counter()
     ont = GQAOntology()
@@ -898,29 +1107,12 @@ def phase_eval(device, stamp: str) -> dict:
     preds_cpu = cpu.predict(loader, params_cpu, io.StringIO())
     cpu_seconds = time.perf_counter() - t0
     ties = float_ties(cpu.interp, loader, params_cpu)
-    flipped = 0
-    for got, want in zip(preds, preds_cpu):
-        if got == want:
-            continue
-        tie = ties.get(want["questionId"])
-        if (got["questionId"] != want["questionId"] or tie is None or not got["prediction"]
-                or not set(got["prediction"]) <= set(tie[1])):
-            raise AssertionError(f"prediction on the card {got} != CPU {want}")
-        flipped += 1
-    # a tie-decided question moves its bucket's error count by at most 1
-    bound = np.zeros_like(error)
-    for term, n in tie_buckets(ties).items():
-        bound[0] += n
-        bound[OP_INDEX[term]] += n
-    counts = cpu.last_test_counts
-    if not (np.array_equal(counts, gpu.last_test_counts)
-            and np.all(np.abs(error - error_cpu) * counts <= bound + 1e-3)):
-        raise AssertionError(f"test_epoch error on the card {error} != CPU {error_cpu} beyond "
-                             f"the float-tie bound {bound}")
+    flipped = same_up_to_ties(preds, preds_cpu, ties)
+    check_error_up_to_ties(error, gpu.last_test_counts, error_cpu, cpu.last_test_counts, ties)
     log(f"[6] f32 h2 stream vs CPU plain path (CPU test_epoch + predict {cpu_seconds!r} s): "
-        f"every answer equal except {flipped} of the {len(ties)} query answers that the CPU "
-        f"decides by a float32 near-tie (options within {TIE_ULPS} ULPs of the best; the card "
-        f"picked inside the tie); test_epoch error equal bucket by bucket beyond those "
+        f"every answer equal except {flipped} of the {len(ties)} answers that the CPU "
+        f"decides by a float32 near-tie (near_ties: within {TIE_ULPS} ULPs; the card picked "
+        f"inside the tie); test_epoch error equal bucket by bucket beyond those "
         f"(card {error.tolist()}, CPU {error_cpu.tolist()})")
 
     cfg16 = evalset.demo_eval_config(stream_dtype="bfloat16")
@@ -992,6 +1184,78 @@ def profile_steps(trainer, params, opt, batches) -> tuple:
     return wall, busy, by_name
 
 
+def launch_counts() -> list:
+    """The kernels' launch counts: (relation_oracle, its backward, pair_mlp,
+    shared_contract)."""
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+
+    return [ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES]
+
+
+def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_launches) -> dict:
+    """Training steps over ``batches`` on the card and on the CPU plain path
+    from the same weights ``params_cpu``: every step's gradients within
+    ``TRAIN_GRAD_RTOL`` of each leaf's largest value, every loss within
+    ``TRAIN_LOSS_RTOL``, the parameters after the steps finite and, element
+    by element, within ``adam_bound`` of the CPU's; the kernels' launches
+    over the card's steps (``launch_counts`` order) must be
+    ``want_launches``. Returns {"launches", "losses", "text"}."""
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    p_gpu, p_cpu = copy.deepcopy(params_cpu).to(device), copy.deepcopy(params_cpu)
+    gpu = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
+    o_gpu, o_cpu = Optimizer(cfg, p_gpu), Optimizer(cfg, p_cpu)
+    before = launch_counts()
+    steps, losses, worst = [], [], (0.0, "")
+    for k, lb in enumerate(batches):
+        l_gpu = gpu.compute_grads(p_gpu, lb).item()
+        start = flat_params(p_cpu)
+        l_cpu = cpu.compute_grads(p_cpu, lb).item()
+        g_gpu, g_cpu, delta = grads_of(p_gpu), grads_of(p_cpu), {}
+        for key, (err, mag) in leaf_errors(g_gpu, g_cpu).items():
+            delta[key] = TRAIN_GRAD_RTOL * mag
+            if not err <= delta[key]:
+                raise AssertionError(f"{what} step {k} gradient {key}: card vs CPU "
+                                     f"{err!r} > {TRAIN_GRAD_RTOL} x {mag!r}")
+            worst = max(worst, (err / max(mag, 1e-30), f"{key} at step {k}"))
+        steps.append((g_cpu, g_gpu, start, delta))
+        if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu)):
+            raise AssertionError(f"{what} step {k}: loss {l_gpu!r} on the card, {l_cpu!r} "
+                                 "on the CPU")
+        losses.append((l_gpu, l_cpu))
+        o_gpu.step()
+        o_cpu.step()
+    d = [a - b for a, b in zip(launch_counts(), before)]
+    if d != list(want_launches):
+        raise AssertionError(f"{what}: {len(batches)} steps launched (fwd, bwd, pair_mlp, "
+                             f"contract) {d} times, not {list(want_launches)}")
+    n = len(batches)
+    bound = adam_bound(cfg, trainable_keys(cfg, params_cpu), steps)
+    got, want_p = flat_params(p_gpu), flat_params(p_cpu)
+    if not all(torch.isfinite(p).all() for p in p_gpu.parameters()):
+        raise AssertionError(f"{what}: non-finite parameters after {n} steps on the card")
+    diff, used = 0.0, (0.0, "")
+    for key, b in bound.items():
+        gap = np.abs(got[key].astype(np.float64) - want_p[key])
+        if not np.all(gap <= b):
+            at = np.unravel_index(np.argmax(gap - b), gap.shape)
+            raise AssertionError(f"{what}: parameter {key}{list(at)} after {n} steps is "
+                                 f"{gap[at]!r} from the CPU's, beyond the Adam bound {b[at]!r}")
+        diff = max(diff, float(gap.max()))
+        if np.any(b > 0):
+            used = max(used, (float(np.max(gap / np.where(b > 0, b, np.inf))), key))
+    text = (f"gradients of every step within {TRAIN_GRAD_RTOL} of each leaf's largest (worst "
+            f"{worst[1]} {worst[0]!r}); losses (card, CPU) {losses}; parameters apart by at most "
+            f"{diff / cfg.learning_rate!r} lr, within the Adam bound of those gradient gates "
+            f"element by element (largest share of its bound {used[0]!r}, {used[1]})")
+    return {"launches": d, "losses": losses, "text": text}
+
+
 def phase_train(device, stamp: str) -> dict:
     """Training at production widths on the card (``data/trainset.py``,
     random weights from seed 0, float32 h2 stream for the comparison);
@@ -1029,65 +1293,15 @@ def phase_train(device, stamp: str) -> dict:
     log(f"[7] sets built in {time.perf_counter() - t0!r} s")
 
     params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
-    lr = cfg.learning_rate
-    trainable = trainable_keys(cfg, params_cpu)
-
-    def counts():
-        return ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES
 
     for route, batches in routes.items():
         batches = batches[:TRAIN_COMPARE_STEPS]
         relating = sum(spec_needs_relations(lb.spec) for lb in batches)
-        p_gpu, p_cpu = copy.deepcopy(params_cpu).to(device), copy.deepcopy(params_cpu)
-        gpu = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
-        cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
-        o_gpu, o_cpu = Optimizer(cfg, p_gpu), Optimizer(cfg, p_cpu)
-        before = counts()
-        steps, losses, worst = [], [], (0.0, "")
-        for k, lb in enumerate(batches):
-            l_gpu = gpu.compute_grads(p_gpu, lb).item()
-            start = flat_params(p_cpu)
-            l_cpu = cpu.compute_grads(p_cpu, lb).item()
-            g_gpu, g_cpu, delta = grads_of(p_gpu), grads_of(p_cpu), {}
-            for key, (err, mag) in leaf_errors(g_gpu, g_cpu).items():
-                delta[key] = TRAIN_GRAD_RTOL * mag
-                if not err <= delta[key]:
-                    raise AssertionError(f"{route} step {k} gradient {key}: card vs CPU "
-                                         f"{err!r} > {TRAIN_GRAD_RTOL} x {mag!r}")
-                worst = max(worst, (err / max(mag, 1e-30), f"{key} at step {k}"))
-            steps.append((g_cpu, g_gpu, start, delta))
-            if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu)):
-                raise AssertionError(f"{route} step {k}: loss {l_gpu!r} on the card, {l_cpu!r} "
-                                     "on the CPU")
-            losses.append((l_gpu, l_cpu))
-            o_gpu.step()
-            o_cpu.step()
-        d = [a - b for a, b in zip(counts(), before)]
         want = [relating, relating, 0, 0] if route == "per_question" else [0, 0, relating, relating]
-        if d != want:
-            raise AssertionError(f"{route}: {relating} relating steps launched (fwd, bwd, "
-                                 f"pair_mlp, contract) {d} times, not {want}")
-        n = len(batches)
-        bound = adam_bound(cfg, trainable, steps)
-        got, want_p = flat_params(p_gpu), flat_params(p_cpu)
-        if not all(torch.isfinite(p).all() for p in p_gpu.parameters()):
-            raise AssertionError(f"{route}: non-finite parameters after {n} steps on the card")
-        diff, used = 0.0, (0.0, "")
-        for key, b in bound.items():
-            gap = np.abs(got[key].astype(np.float64) - want_p[key])
-            if not np.all(gap <= b):
-                at = np.unravel_index(np.argmax(gap - b), gap.shape)
-                raise AssertionError(f"{route}: parameter {key}{list(at)} after {n} steps is "
-                                     f"{gap[at]!r} from the CPU's, beyond the Adam bound {b[at]!r}")
-            diff = max(diff, float(gap.max()))
-            if np.any(b > 0):
-                used = max(used, (float(np.max(gap / np.where(b > 0, b, np.inf))), key))
-        log(f"[7] {route} route, {n} steps card vs CPU plain path: gradients of every step within "
-            f"{TRAIN_GRAD_RTOL} of each leaf's largest (worst {worst[1]} {worst[0]!r}); losses "
-            f"(card, CPU) {losses}; parameters apart by at most {diff / lr!r} lr, within the Adam "
-            f"bound of those gradient gates element by element (largest share of its bound "
-            f"{used[0]!r}, {used[1]}); launches (fwd, bwd, pair_mlp, contract) {d} for "
-            f"{relating} relating steps")
+        rec = card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, f"{route} route", want)
+        log(f"[7] {route} route, {len(batches)} steps card vs CPU plain path: {rec['text']}; "
+            f"launches (fwd, bwd, pair_mlp, contract) {rec['launches']} for {relating} relating "
+            "steps")
 
     n = check_train_golden(device, GOLDEN_GRAD_RTOL)
     log(f"[7] JAX training golden: {n} batches (per-question and shared route), loss and "
@@ -1163,6 +1377,186 @@ def phase_train(device, stamp: str) -> dict:
     return launches
 
 
+def lp_error(got, want) -> tuple:
+    """(largest |exp(got) - exp(want)|, largest |got - want| / max(1,
+    |want|), and the (got, want) pair of the latter) of two log-probability
+    arrays (a dict for ``scene``)."""
+    if isinstance(want, dict):
+        errs = [lp_error(got[k], want[k]) for k in want]
+        return max(e[0] for e in errs), *max((e[1:] for e in errs), key=lambda e: e[0])
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rel = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    at = np.unravel_index(np.argmax(rel), rel.shape)
+    return (float(np.max(np.abs(np.exp(got) - np.exp(want)))), float(rel[at]),
+            (float(got[at]), float(want[at])))
+
+
+def forward_lp(interp, params, lb, device):
+    """``log_probability`` of one batch as numpy (a dict for ``scene``)."""
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+
+    _, o, m, arrays = to_device_batch(lb, device)
+    with torch.inference_mode():
+        lp = interp.forward(params, o, m, arrays, lb.spec)["log_probability"]
+    if isinstance(lp, dict):
+        return {k: v.cpu().numpy() for k, v in lp.items()}
+    return lp.cpu().numpy()
+
+
+def phase_terminals_eval(device, stamp: str) -> dict:
+    """Offline evaluation of every question terminal at production dims on
+    the card through ``VQATrainer``: one batch of 80 questions per terminal
+    of ``evalset.TERMINAL_HOPS`` on 8 images of its own (O=100, the float32
+    h2 stream, random weights from seed 0), soft and hard. Against the same
+    trainer on the CPU: probabilities exp(log_probability) within
+    ``EVAL_P_ATOL``, ``predict``'s answers and ``test_epoch``'s error vector equal
+    up to the near-tie rule (``near_ties``); the pair-MLP and
+    shared-contract kernels launch once per relating batch in each
+    ``test_epoch`` and ``predict``. Returns the launches of the timed
+    ``test_epoch`` runs."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    t0 = time.perf_counter()
+    ont = GQAOntology()
+    cfg = evalset.demo_eval_config(stream_dtype="float32")
+    world = evalset.demo_world(ont)
+    mix = tuple((t, h, evalset.PRODUCTION_BATCH) for t, h in evalset.TERMINAL_HOPS)
+    datasets = evalset.eval_datasets(world, mix, evalset.PRODUCTION_BATCH,
+                                     evalset.PRODUCTION_IMAGES_PER_BATCH, seed=TERMINALS_SEED)
+    batches = {t: list(evalset.eval_loader(cfg, ont, world, [qs]))
+               for (t, _), qs in zip(evalset.TERMINAL_HOPS, datasets)}
+    log(f"[8] eval set: {len(batches)} terminals x 1 batch of {evalset.PRODUCTION_BATCH} "
+        f"(terminal, U_pad, relating): "
+        f"{[(t, b[0].objects.shape[0], spec_needs_relations(b[0].spec)) for t, b in batches.items()]}"
+        f", built in {time.perf_counter() - t0!r} s")
+    params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    params = copy.deepcopy(params_cpu).to(device)
+    launches = {"pair_mlp_fwd": 0, "shared_contract_fwd": 0}
+    rates, errs, n_ties, n_flipped, cpu_s = {}, {}, 0, 0, 0.0
+    for mode in ("soft", "hard"):
+        c = dataclasses.replace(cfg, hard_mode=mode == "hard")
+        gpu = VQATrainer(c, Interpreter(c, ont), device=device)
+        cpu = VQATrainer(c, Interpreter(c, ont), device="cpu")
+        for term, lbs in batches.items():
+            (lb,) = lbs
+            relating = int(spec_needs_relations(lb.spec))
+            if relating and lb.objects.shape[0] * 2 > len(lb.arrays["img_index"]):
+                raise AssertionError(f"a relating {term} batch would take the per-question route")
+            gpu.test_epoch(lbs, params)  # warm-up of this spec
+            torch.cuda.synchronize()
+            pm.LAUNCHES = sc.LAUNCHES = 0
+            t0 = time.perf_counter()
+            error = gpu.test_epoch(lbs, params)
+            rates[(term, mode)] = len(lb.compiled.question_ids) / (time.perf_counter() - t0)
+            got = {"pair_mlp_fwd": pm.LAUNCHES, "shared_contract_fwd": sc.LAUNCHES}
+            pm.LAUNCHES = sc.LAUNCHES = 0
+            preds = gpu.predict(lbs, params, io.StringIO())
+            if set(got.values()) != {relating} or (pm.LAUNCHES, sc.LAUNCHES) != (relating,) * 2:
+                raise AssertionError(f"{term} {mode}: test_epoch launched {got}, predict "
+                                     f"({pm.LAUNCHES}, {sc.LAUNCHES}) for {relating} relating "
+                                     "batches")
+            for k, v in got.items():
+                launches[k] += v
+            t0 = time.perf_counter()
+            error_cpu = cpu.test_epoch(lbs, params_cpu)
+            preds_cpu = cpu.predict(lbs, params_cpu, io.StringIO())
+            ties = float_ties(cpu.interp, lbs, params_cpu)
+            lp_cpu = forward_lp(cpu.interp, params_cpu, lb, "cpu")
+            cpu_s += time.perf_counter() - t0
+            errs[(term, mode)] = lp_error(forward_lp(gpu.interp, params, lb, device), lp_cpu)
+            n_flipped += same_up_to_ties(preds, preds_cpu, ties)
+            check_error_up_to_ties(error, gpu.last_test_counts, error_cpu,
+                                   cpu.last_test_counts, ties)
+            n_ties += len(ties)
+    log("[8] log_probability card vs CPU per terminal, soft / hard: largest |exp(card) - "
+        "exp(CPU)|, largest |card - CPU| / max(1, |CPU|) at (card, CPU): " + "; ".join(
+            f"{t} {errs[(t, 'soft')]!r} / {errs[(t, 'hard')]!r}" for t in batches))
+    worst = max(errs, key=lambda k: errs[k][0])
+    if errs[worst][0] > EVAL_P_ATOL:
+        raise AssertionError(f"{worst}: probability card vs CPU {errs[worst]!r} > "
+                             f"{EVAL_P_ATOL}")
+    log(f"[8] eval of {len(batches)} terminals x (soft, hard) on the card vs the CPU plain path "
+        f"(CPU {cpu_s!r} s): exp(log_probability) within {EVAL_P_ATOL} (worst "
+        f"{errs[worst][0]!r}, {worst}); predict and test_epoch equal except {n_flipped} of the "
+        f"{n_ties} answers that a float32 near-tie decides (within {TIE_ULPS} ULPs; reported, "
+        f"not gated); launches {launches}: pair_mlp and shared_contract once per relating batch "
+        f"({stamp})")
+    log(f"[8] test_epoch questions/s per terminal on the card, one loaded batch of "
+        f"{evalset.PRODUCTION_BATCH} (loader outside), soft / hard: " + "; ".join(
+            f"{t} {rates[(t, 'soft')]!r} / {rates[(t, 'hard')]!r}" for t in batches))
+    return launches
+
+
+def phase_terminals_train(device, stamp: str) -> dict:
+    """One training step, card vs CPU plain path (``card_vs_cpu_steps``),
+    at production dims and batch 80 for: ``choose_rel`` and ``compare`` on
+    the per-question route (shuffled over the world's images, U * 2 > B;
+    choose_rel relates: kernels 1 and 2; compare pins its objects with
+    filters and launches nothing); the three supervision terminals
+    (``trainset.supervision_loader``, O=100, no relation cache: plain
+    autograd through ``rel_scores_for_pairs``); and with ``trainable_gate``
+    a deduplicated ``exist`` batch on the shared route (kernels 3 and 4,
+    plain backwards), whose eval forward must first agree with the CPU's
+    within ``EVAL_P_ATOL``.
+    Returns the launches of the card's steps."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config(stream_dtype="float32")
+    world = evalset.demo_world(ont)
+    hops = dict(evalset.TERMINAL_HOPS)
+    params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    cases = []
+    for term in ("choose_rel", "compare"):
+        files = trainset.train_datasets(world, ((term, hops[term], trainset.PRODUCTION_BATCH),),
+                                        seed=TERMINALS_SEED)
+        (lb,) = list(trainset.train_loader(cfg, ont, world, files, seed=TERMINALS_SEED))
+        r = int(spec_needs_relations(lb.spec))
+        if r and lb.objects.shape[0] * 2 <= len(lb.arrays["img_index"]):
+            raise AssertionError(f"the {term} batch would take the shared route")
+        cases.append((term, "per-question route", cfg, params_cpu, lb, [r, r, 0, 0]))
+    for term in trainset.SUPERVISION_TERMINALS:
+        (lb,) = list(trainset.supervision_loader(cfg, ont, term, trainset.PRODUCTION_BATCH,
+                                                 seed=TERMINALS_SEED))
+        cases.append((term, "no relation cache", cfg, params_cpu, lb, [0, 0, 0, 0]))
+    gated = dataclasses.replace(cfg, trainable_gate=True)
+    params_gated = Interpreter(gated, ont).init_params(torch.Generator().manual_seed(0))
+    files = evalset.eval_datasets(world, (("exist", hops["exist"], trainset.PRODUCTION_BATCH),),
+                                  trainset.PRODUCTION_BATCH, evalset.PRODUCTION_IMAGES_PER_BATCH,
+                                  seed=TERMINALS_SEED)
+    (lb,) = list(trainset.train_loader(gated, ont, world, files, shuffle=False))
+    if lb.objects.shape[0] * 2 > len(lb.arrays["img_index"]) or not spec_needs_relations(lb.spec):
+        raise AssertionError("the trainable_gate batch would not relate on the shared route")
+    before = launch_counts()
+    lp = forward_lp(Interpreter(gated, ont), copy.deepcopy(params_gated).to(device), lb, device)
+    d = [a - b for a, b in zip(launch_counts(), before)]
+    err = lp_error(lp, forward_lp(Interpreter(gated, ont), params_gated, lb, "cpu"))
+    if not (err[0] <= EVAL_P_ATOL and d == [0, 0, 1, 1]):
+        raise AssertionError(f"trainable_gate eval batch: probability card vs CPU {err!r}, "
+                             f"launches {d}")
+    log(f"[8] trainable_gate eval batch (exist, shared route): exp(log_probability) card vs "
+        f"CPU within {err[0]!r} (log space {err[1]!r} x max(1, |CPU's|)), launches (fwd, bwd, "
+        f"pair_mlp, contract) {d}")
+    cases.append(("exist, trainable_gate", "shared route", gated, params_gated, lb, [0, 0, 1, 1]))
+    total = [0, 0, 0, 0]
+    for term, route, c, p, lb, want in cases:
+        t0 = time.perf_counter()
+        rec = card_vs_cpu_steps(c, ont, p, [lb], device, f"{term} ({route})", want)
+        total = [a + b for a, b in zip(total, rec["launches"])]
+        log(f"[8] {term} ({route}), one step of batch {len(lb.compiled.question_ids)} card vs CPU "
+            f"plain path in {time.perf_counter() - t0!r} s: {rec['text']}; launches (fwd, bwd, "
+            f"pair_mlp, contract) {rec['launches']}")
+    names = ("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd", "shared_contract_fwd")
+    return dict(zip(names, total))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -1192,18 +1586,33 @@ def main() -> int:
                 log(f"[2]   {line.strip()}")
 
     _, _, world, eng = build_demo_engine(device=device, max_batch=32, seed=0)
+    _, _, _, cpu_eng = build_demo_engine(device="cpu", max_batch=32, seed=0)
     try:
         records = [phase_kernels(eng, stamp), phase_bwd_kernel(eng, stamp)]
         records += phase_shared_kernels(eng.params, eng.cfg, device, stamp)
-        serve = {"relation_oracle_fwd": phase_serve(eng, world, stamp)}
+        serve = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp)}
+        t8 = time.perf_counter()
+        serve8 = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp,
+                                                     SERVE_TERMINALS_MIX, tag="8", seed=2000)}
+        t8 = time.perf_counter() - t8
     finally:
         eng.stop()
+        cpu_eng.stop()
     n = check_golden(device, GOLDEN_ATOL)
     log(f"[5] JAX golden: {n} requests, answers equal, log_probability within {GOLDEN_ATOL}")
     n = check_eval_golden(device, GOLDEN_ATOL)
     log(f"[5] JAX eval golden: {n} loader batches, answers, test_epoch error and predict "
         f"equal, log_probability within {GOLDEN_ATOL}")
     paths = {"serve": serve, "eval": phase_eval(device, stamp), "train": phase_train(device, stamp)}
+    t0 = time.perf_counter()
+    n, ties = check_terminals_golden(device, GOLDEN_ATOL, GOLDEN_GRAD_RTOL)
+    log(f"[8] JAX terminals golden: {n} terminal batches x (soft, hard), log_probability within "
+        f"{GOLDEN_ATOL}, answer flags and matches equal ({ties} inside a near-tie), the "
+        f"supervision terminals' loss and gradients within {GOLDEN_GRAD_RTOL} relative")
+    paths["terminals_serve"] = serve8
+    paths["terminals_eval"] = phase_terminals_eval(device, stamp)
+    paths["terminals_train"] = phase_terminals_train(device, stamp)
+    log(f"[8] phase 8 took {t8 + time.perf_counter() - t0!r} s, CPU references included")
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

@@ -13,8 +13,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from torch import nn as tnn
+
 from dfol_vqa_tpu_torch import nn
-from dfol_vqa_tpu_torch.models.oracle import Embedding, OracleParams
+from dfol_vqa_tpu_torch.models.oracle import LOGIC_GATES, Embedding, OracleParams
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -78,12 +80,18 @@ def params_from_numpy(tree) -> OracleParams:
     relation = _mlp(flat, "relation_network", used)
     embedding = Embedding(_tensor(flat["embedding/w"]), _tensor(flat["embedding/b"]))
     used.update(("embedding/w", "embedding/b"))
+    gates = None
+    if any(k.startswith("logic_gates/") for k in flat):
+        gates = tnn.ModuleDict()
+        for name in LOGIC_GATES:
+            key = f"logic_gates/{name}"
+            gates[name] = nn.Linear(_tensor(flat[f"{key}/w"]), _tensor(flat[f"{key}/b"]))
+            used.update((f"{key}/w", f"{key}/b"))
     extra = sorted(set(flat) - used)
     if extra:
         raise NotImplementedError(
-            f"parameters of modules not ported yet (calibrator, logic gates, F>1 heads): "
-            f"{extra[:4]}")
-    return OracleParams(featurizer, attribute, relation, embedding)
+            f"parameters of modules not ported yet (calibrator, F>1 heads): {extra[:4]}")
+    return OracleParams(featurizer, attribute, relation, embedding, gates)
 
 
 def params_to_numpy(params: OracleParams) -> Dict[str, Any]:

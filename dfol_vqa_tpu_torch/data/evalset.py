@@ -47,6 +47,16 @@ TINY_BATCH = 16
 TINY_IMAGES_PER_BATCH = 4
 
 
+# every question terminal, with its hops: the 13 planted families and
+# ``end`` statements, a relate hop wherever the family's branches can hold
+# one. Nine of them relate; query_attr, choose_attr, two_same,
+# two_different and compare pin their objects with filters only.
+TERMINAL_HOPS = (("exist", 2), ("end", 2), ("verify_attrs", 1), ("verify_rel", 1),
+                 ("query_attr", 1), ("choose_attr", 1), ("choose_rel", 1), ("and", 1),
+                 ("or", 1), ("all_same", 1), ("all_different", 1), ("two_same", 1),
+                 ("two_different", 1), ("compare", 1))
+
+
 def demo_eval_config(tiny: bool = False, stream_dtype: str = "bfloat16") -> Config:
     """``Config()`` at production dims (2048-d boxes, 512-d oracle, E=300,
     relation hidden 256, 100 objects, batch 80), or tiny widths (box 32,

@@ -14,6 +14,10 @@ Two shapes of the same families (``exist`` select -> filter -> relate,
   so a relating batch has U * 2 <= B and takes the shared-image route:
   kernels 3 and 4 forward, plain backwards.
 
+``supervision_loader`` builds batches of the scene-graph supervision
+terminals (``object_attr``, ``object_rel``, ``scene``) from
+``data/synthetic.py`` on ``SyntheticFeatures`` scenes.
+
 numpy only, like ``evalset``: the JAX golden script, the tests and
 ``chip_smoke.py`` share it.
 """
@@ -24,7 +28,9 @@ from typing import List, Sequence, Tuple
 
 from dfol_vqa_tpu_torch.compiler.program_compiler import ProgramCompiler
 from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.data import synthetic
 from dfol_vqa_tpu_torch.data.dataset import ProgramDataset
+from dfol_vqa_tpu_torch.data.features import SyntheticFeatures
 from dfol_vqa_tpu_torch.data.loader import BatchLoader
 from dfol_vqa_tpu_torch.data.planted import PlantedWorld
 from dfol_vqa_tpu_torch.ontology import GQAOntology
@@ -71,3 +77,24 @@ def train_loader(cfg: Config, ontology: GQAOntology, world: PlantedWorld,
                                rel_slots=cfg.tpu.rel_table_size)
     return BatchLoader([ProgramDataset(qs, ontology) for qs in datasets], compiler, world,
                        cfg.train_batch_size, cfg.tpu.max_object_num, shuffle=shuffle, seed=seed)
+
+
+SUPERVISION_TERMINALS = ("object_attr", "object_rel", "scene")
+
+
+def supervision_loader(cfg: Config, ontology: GQAOntology, terminal: str, n: int,
+                       seed: int = 0) -> BatchLoader:
+    """An unshuffled ``BatchLoader`` over ``n`` supervision questions of
+    ``terminal`` (``synthetic.generate_supervision_questions``) at
+    ``cfg.train_batch_size``. The scenes are ``SyntheticFeatures`` of
+    ``cfg.box_features_dim`` with between half of ``tpu.max_object_num`` and
+    all of it; the statements name objects of the first half only, so every
+    one exists and the masks have padding to hide."""
+    O = cfg.tpu.max_object_num
+    qs = synthetic.generate_supervision_questions(ontology, n, terminal, n_objects=O // 2,
+                                                  seed=seed)
+    compiler = ProgramCompiler(ontology, object_num=O, rel_slots=cfg.tpu.rel_table_size)
+    features = SyntheticFeatures(box_dim=cfg.box_features_dim, min_objects=O // 2,
+                                 max_objects=O, seed=seed)
+    return BatchLoader([ProgramDataset(qs, ontology)], compiler, features, cfg.train_batch_size,
+                       O, shuffle=False, prefetch=0)

@@ -39,7 +39,8 @@ def to_device_batch(batch, device, transfer_dtype: Optional[str] = None
     interpreter upcasts on the device."""
     if transfer_dtype not in TRANSFER_DTYPES:
         raise NotImplementedError(
-            f"transfer_dtype={transfer_dtype!r} is not ported (ROADMAP queue 1: device transfer)")
+            f"transfer_dtype={transfer_dtype!r} is not ported "
+            "(ROADMAP queue 5: the int8 object transfer)")
     device = torch.device(device)
     objects = _put(batch.objects, device, TRANSFER_DTYPES[transfer_dtype])
     obj_mask = _put(batch.obj_mask, device)

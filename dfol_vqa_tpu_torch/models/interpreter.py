@@ -1,22 +1,26 @@
 """The program executor, in PyTorch.
 
-Port of ``dfol_vqa_tpu/models/interpreter.py`` for the serving,
-offline-evaluation and training slices:
+Port of ``dfol_vqa_tpu/models/interpreter.py``:
 
     scene build (featurizer, oracle caches)  ->  unrolled branch slot updates
         ->  terminal op  ->  answer flags and the loss
 
-The program grid is static per ``BucketSpec`` and runs eagerly. Terminals
-ported: ``exist``/``end``, ``verify_rel`` and ``query_attr``; the others
-raise ``NotImplementedError``. The relation cache takes one of two routes,
+The program grid is static per ``BucketSpec`` and runs eagerly. Every
+terminal of the JAX package runs: the thirteen question terminals, ``end``
+statements, and the scene-graph supervision terminals ``object_attr``,
+``object_rel`` and ``scene`` (these score listed object pairs through
+``oracle.rel_scores_for_pairs``). With ``trainable_gate`` the filter and
+relate updates combine through the neural logic gates of
+``OracleParams.logic_gates``. The relation cache takes one of two routes,
 as in JAX: when questions share images (U * 2 <= B, the deduplicated batches
 of ``BatchLoader``), ``oracle.rel_cache_shared``, which on a CUDA device
 runs the ``pair_mlp`` and ``shared_contract`` kernels; otherwise, per
 question, the relation-oracle kernels (``ops/relation_oracle.py``, forward
 and, under autograd, backward) when the tensors are on a CUDA device,
 ``tpu.use_pallas`` is set and ``oracle_output_dim == 1``, and the plain
-``oracle.rel_cache`` otherwise. The loss covers the question types of the
-ported terminals: STATEMENT, BINARY and QUERY.
+``oracle.rel_cache`` otherwise. The loss covers every question type:
+STATEMENT, BINARY, QUERY, OBJECT_STATEMENT and SCENE_GRAPH. The calibrator
+(``activate_attention_transfer``) is not ported (ROADMAP queue 4).
 """
 
 from __future__ import annotations
@@ -38,11 +42,11 @@ from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.featurizer import featurize_objects
 from dfol_vqa_tpu_torch.ops.cells import filter_update, normalize_over_options, relate_update
+from dfol_vqa_tpu_torch.nn import Linear
 from dfol_vqa_tpu_torch import logic
 from dfol_vqa_tpu_torch.types import QuestionType, VariableSet, World
 
 QUERY_OPS = ("query_attr", "choose_attr", "choose_rel", "compare")
-PORTED_TERMINALS = ("exist", "end", "verify_rel", "query_attr")
 
 
 def question_type_of(terminal_op: str) -> QuestionType:
@@ -109,11 +113,21 @@ def _gather_attr_options(world: World, toks: torch.Tensor) -> torch.Tensor:
     return world.attr_ll.reshape(U * Vp1, O)[flat].float()
 
 
+def _apply_option_negation(ll: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    return _apply_negation_exact(ll, (toks < 0).float())
+
+
 def _gather_rel(rel_ll: torch.Tensor, idx: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     """rel_ll (B, R, O, O), idx (B,), tok (B,) signed -> (B, O, O)."""
     B = rel_ll.shape[0]
     ll = rel_ll[torch.arange(B, device=rel_ll.device), idx.long()].float()
     return _apply_negation_exact(ll, (tok < 0).float())
+
+
+def _gather_rel_options(rel_ll: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rel_ll (B, R, O, O), idx (B, K) -> (B, K, O, O) raw (sign NOT applied)."""
+    rows = torch.arange(rel_ll.shape[0], device=rel_ll.device)[:, None]
+    return rel_ll[rows, idx.long()].float()
 
 
 def _log_probability(att, quant, obj_mask, hard: bool):
@@ -131,20 +145,35 @@ def _bce_terms(lp: torch.Tensor):
     return lg, lg1
 
 
-def _relate_core(subj, obj, ll, obj_mask):
+Gates = Optional[Dict[str, Linear]]
+
+
+def _filter_gate(gates: Gates) -> Optional[Linear]:
+    return None if gates is None else gates["filter"]
+
+
+def _relate_gates(gates: Gates):
+    return None if gates is None else (gates["relate0"], gates["relate1"])
+
+
+def _relate_core(subj, obj, ll, obj_mask, gates: Gates = None):
     """EXISTS-quantified arity-2 update (both chains are EXISTS sets)."""
     ones = torch.ones(subj.shape[:-1], dtype=subj.dtype, device=subj.device)
-    return relate_update(subj, obj, ll, ones, ones, obj_mask)
+    return relate_update(subj, obj, ll, ones, ones, obj_mask, gates=_relate_gates(gates))
 
 
-def _relate_step(world: World, att, aux, s, ll_rel):
+def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None):
     """Select the new set (token ``aux``, 0 = everything), relate it with the
     running set ``att`` through ``ll_rel``, and keep the new side: the
-    subject when ``s == 1``, else the object."""
+    subject when ``s == 1``, else the object. ``ll_rel (B, K, O, O)`` fans
+    both sets out over K options (``choose_rel``)."""
     x = torch.where((aux != 0)[:, None], _gather_attr(world, aux), 0.0)
     subj = s * x + (1.0 - s) * att
     obj = s * att + (1.0 - s) * x
-    subj2, obj2 = _relate_core(subj, obj, ll_rel, world.obj_mask)
+    if ll_rel.ndim == 4:
+        K = ll_rel.shape[1]
+        subj, obj, s = subj[:, None].expand(-1, K, -1), obj[:, None].expand(-1, K, -1), s[:, None]
+    subj2, obj2 = _relate_core(subj, obj, ll_rel, world.obj_mask, gates)
     return s * subj2 + (1.0 - s) * obj2
 
 
@@ -158,16 +187,30 @@ class Interpreter:
     def __init__(self, cfg: Config, ontology: GQAOntology):
         om.check_supported(cfg)
         if cfg.activate_attention_transfer:
-            raise _not_ported("the attention-transfer calibrator", "calibrator queue")
-        if cfg.trainable_gate:
-            raise _not_ported("trainable_gate (neural logic gates in the executor)",
-                              "remaining terminals queue")
+            raise _not_ported("the attention-transfer calibrator", "queue 4, the calibrator")
         self.cfg = cfg
         self.ont = ontology
         self._rel_gather_cache = None
+        self._index_cache: Dict[tuple, torch.Tensor] = {}
 
     def init_params(self, generator: torch.Generator, device="cpu") -> om.OracleParams:
-        return om.init_oracle_params(self.cfg, self.ont, generator, device)
+        """The oracle's parameters, then, with ``trainable_gate``, the logic
+        gates, all drawn from ``generator`` on the CPU and moved to
+        ``device``."""
+        params = om.init_oracle_params(self.cfg, self.ont, generator)
+        if self.cfg.trainable_gate:
+            params.logic_gates = om.init_logic_gates(generator)
+        return params.to(device)
+
+    def _index(self, name: str, device) -> torch.Tensor:
+        """The ontology's 0-based attribute (``name="attribute"``) or
+        relation (``"relation"``) token columns, kept on the host and moved
+        to ``device`` once."""
+        key = (name, str(device))
+        if key not in self._index_cache:
+            cols = np.asarray(getattr(self.ont, f"_{name}_index"), np.int64)
+            self._index_cache[key] = torch.as_tensor(cols, device=device)
+        return self._index_cache[key]
 
     @property
     def _rel_gather_map(self):
@@ -232,7 +275,7 @@ class Interpreter:
             rel_ll = torch.zeros((B, R, 1, 1), dtype=torch.float32, device=obj_mask.device)
             if rel_tokens is None:
                 rel_tokens = torch.zeros((B, R), dtype=torch.int32, device=obj_mask.device)
-        cache_dtype = getattr(torch, cfg.tpu.resolve_cache_dtype(int(B)))
+        cache_dtype = om.resolve_cache_dtype(cfg)
         return World(
             obj_mask=obj_mask,
             attr_ll=attr_ll.to(cache_dtype),
@@ -246,7 +289,7 @@ class Interpreter:
     # -------------------------------------------------------- branch executor
 
     def _run_branch(self, world: World, arrays: Dict[str, torch.Tensor], branch: int,
-                    grid: Sequence[int]) -> torch.Tensor:
+                    grid: Sequence[int], gates: Gates = None) -> torch.Tensor:
         """Execute one branch's slot sequence; returns the final (B, O)
         attention. Every slot is gated by ``(tok != 0) * op_mask``, so padded
         slots are exact no-ops."""
@@ -258,54 +301,163 @@ class Interpreter:
             m = arrays["op_mask"][:, branch, si]
             tok = arrays["arg_tok"][:, branch, si]
             if opc in (OP_SELECT, OP_FILTER):
-                new = filter_update(att, _gather_attr(world, tok))
+                new = filter_update(att, _gather_attr(world, tok), _filter_gate(gates))
             else:  # OP_RELATE
                 ll_rel = _gather_rel(world.rel_ll, arrays["rel_idx"][:, branch, si], tok)
                 new = _relate_step(world, att, arrays["arg_aux"][:, branch, si],
-                                   arrays["arg_flag"][:, branch, si][:, None], ll_rel)
+                                   arrays["arg_flag"][:, branch, si][:, None], ll_rel, gates)
             upd = ((tok != 0).float() * m)[:, None]
             att = upd * new + (1.0 - upd) * att
         return att
 
     # ------------------------------------------------------------- terminals
 
-    def _filter_fanout(self, world, att, options, opt_mask, normalize: bool):
+    def _filter_fanout(self, world, att, options, opt_mask, normalize: bool,
+                       gates: Gates = None):
         """Fan-out filter over a (B, K) option axis."""
         ll = _gather_attr_options(world, options)
         ll = normalize_over_options(ll, opt_mask, enabled=normalize and self.cfg.normalize_oracle)
-        ll = _apply_negation_exact(ll, (options < 0).float())
-        return filter_update(att[:, None, :], ll)
+        ll = _apply_option_negation(ll, options)
+        return filter_update(att[:, None, :], ll, _filter_gate(gates))
 
-    def _terminal(self, world: World, arrays, spec: BucketSpec, atts, hard: bool):
+    def _terminal(self, world: World, arrays, spec: BucketSpec, atts, hard: bool,
+                  gates: Gates = None, params: Optional[om.OracleParams] = None):
         """(B,) log probability for BINARY/STATEMENT terminals, (B, K) for
-        QUERY ones."""
+        QUERY and OBJECT_STATEMENT ones, and for ``scene`` a dict of the
+        attribute (B, O, A) and listed-pair relation (B, P, V_rel) ones."""
+        cfg = self.cfg
         term = spec.terminal_op
         mask = world.obj_mask
+        options, opt_mask = arrays["options"], arrays["opt_mask"]
 
         def ones(x):
             return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
 
-        # upstream quirk kept for parity: query_attr delegates without its
-        # hard_mode argument, so it always aggregates softly
-        if term == "query_attr":
+        def fanout(att, normalize=True):
+            return self._filter_fanout(world, att, options, opt_mask, normalize, gates)
+
+        def any_option(lp_k):  # OR over the option fan-out
+            return logic.log_not(torch.sum(logic.log_not(lp_k) * opt_mask, dim=1))
+
+        # upstream quirk kept for parity: these three delegate without their
+        # hard_mode argument, so they always aggregate softly
+        if term in ("query_attr", "all_different", "two_different"):
             hard = False
 
         if term in ("exist", "end"):
             att = atts[0]
             return _log_probability(att, ones(att), mask, hard)
 
-        if term == "query_attr":
-            att_k = self._filter_fanout(world, atts[0], arrays["options"], arrays["opt_mask"],
-                                        normalize=True)
+        if term == "verify_attrs":  # AND of the options' filters
+            att_k = fanout(atts[0], normalize=False)
+            combined = torch.sum(att_k * opt_mask[:, :, None], dim=1)
+            return _log_probability(combined, ones(combined), mask, hard)
+
+        if term in ("query_attr", "choose_attr"):
+            att_k = fanout(atts[0])
             return _log_probability(att_k, ones(att_k), mask, hard)
+
+        if term == "choose_rel":
+            ll = _gather_rel_options(world.rel_ll, arrays["opt_rel_idx"])  # (B, K, O, O)
+            ll = normalize_over_options(ll, opt_mask, enabled=cfg.normalize_oracle)
+            ll = _apply_option_negation(ll, options)
+            chosen = _relate_step(world, atts[0], arrays["last_aux"],
+                                  arrays["last_flag"][:, None], ll, gates)
+            return _log_probability(chosen, ones(chosen), mask, hard)
 
         if term == "verify_rel":
             ll = _gather_rel(world.rel_ll, arrays["last_rel_idx"], arrays["last_tok"])
             final = _relate_step(world, atts[0], arrays["last_aux"],
-                                 arrays["last_flag"][:, None], ll)
+                                 arrays["last_flag"][:, None], ll, gates)
             return _log_probability(final, ones(final), mask, hard)
 
-        raise _not_ported(f"terminal {term!r}", "remaining terminals queue")
+        if term in ("and", "or"):
+            lp1 = _log_probability(atts[0], ones(atts[0]), mask, hard)
+            lp2 = _log_probability(atts[1], ones(atts[1]), mask, hard)
+            return logic.log_and(lp1, lp2) if term == "and" else logic.log_or(lp1, lp2)
+
+        if term in ("all_same", "all_different"):
+            # (member => holds option k) under FOR_ALL, then OR over options
+            att = atts[0]
+            att_k = fanout(att)
+            log_post = logic.log_not(logic.log_and(att[:, None, :], logic.log_not(att_k)))
+            lp_k = _log_probability(log_post, torch.zeros_like(ones(log_post)), mask, hard)
+            lp = any_option(lp_k)
+            return logic.log_not(lp) if term == "all_different" else lp
+
+        if term in ("two_same", "two_different"):
+            att_k1, att_k2 = fanout(atts[0]), fanout(atts[1])
+            lp_k = logic.log_and(_log_probability(att_k1, ones(att_k1), mask, hard),
+                                 _log_probability(att_k2, ones(att_k2), mask, hard))
+            lp = any_option(lp_k)
+            return logic.log_not(lp) if term == "two_different" else lp
+
+        if term == "compare":
+            # both branches filtered by the attribute, a log-softmax over the
+            # two, and the is_less flip
+            ll = _gather_attr(world, arrays["last_tok"])
+            a1 = filter_update(atts[0], ll, _filter_gate(gates))
+            a2 = filter_update(atts[1], ll, _filter_gate(gates))
+            lp = torch.log_softmax(torch.stack([_log_probability(a1, ones(a1), mask, hard),
+                                                _log_probability(a2, ones(a2), mask, hard)],
+                                               dim=1), dim=1)
+            return logic.log_parametric_not(lp, arrays["last_flag"][:, None], 1.0)
+
+        if term == "object_attr":
+            # each statement filters a fresh entity set; read at its object
+            ll = _gather_attr_options(world, options)  # (B, K, O)
+            ll = normalize_over_options(ll, opt_mask, enabled=cfg.normalize_oracle)
+            ll = _apply_option_negation(ll, options)
+            att_k = filter_update(torch.zeros_like(ll), ll, _filter_gate(gates))
+            return att_k.gather(2, arrays["stmt_obj"].long()[:, :, None])[..., 0]
+
+        if term == "object_rel":
+            # statement k's relation scored on every listed pair p of its
+            # question, cluster-normalised across the statements per pair,
+            # scattered to (B, K, O, O) (unlisted pairs: log 1), then a
+            # FOR_ALL x FOR_ALL relate update and FOR_ALL aggregation
+            s_obj, s_obj2 = arrays["stmt_obj"].long(), arrays["stmt_obj2"].long()
+            scores = om.rel_scores_for_pairs(params, world.attr_in, world.pos,
+                                             torch.stack([s_obj, s_obj2], dim=-1), cfg)
+            tok0 = torch.clamp(torch.abs(options.long()) - 1, min=0)  # (B, K)
+            B, K = tok0.shape
+            P = scores.shape[1]
+            sc = scores.gather(2, tok0[:, None, :].expand(B, P, K)).transpose(1, 2)  # (B, K, P)
+            sc = normalize_over_options(sc, opt_mask, enabled=cfg.normalize_oracle)
+            sc = _apply_option_negation(sc, options) * opt_mask[:, None, :]
+            O = mask.shape[-1]
+            # index_put without accumulate: a pair listed twice writes the
+            # same value twice (same pair, same scores), and the pad slots'
+            # (0, 0) lies on the diagonal, which relate_update excludes, so
+            # the order of colliding writes cannot change the result. JAX's
+            # scatter passes the gradient to one of the colliding writes
+            # only; so does this, to the first listing of each pair.
+            flat = s_obj * O + s_obj2  # (B, P)
+            idx = torch.arange(P, device=sc.device)
+            first = ~((flat[:, :, None] == flat[:, None, :])
+                      & (idx[:, None] > idx[None, :])).any(dim=-1)
+            sc = torch.where(first[:, None, :], sc, sc.detach())
+            rows = torch.arange(B, device=sc.device)[:, None, None]
+            ks = torch.arange(K, device=sc.device)[None, :, None]
+            ll = torch.zeros((B, K, O, O), dtype=sc.dtype, device=sc.device).index_put(
+                (rows, ks, s_obj[:, None, :], s_obj2[:, None, :]), sc)
+            zeros_att = torch.zeros((B, K, O), dtype=sc.dtype, device=sc.device)
+            q_all = torch.zeros((B, K), dtype=sc.dtype, device=sc.device)  # FOR_ALL
+            subj2, _ = relate_update(zeros_att, zeros_att, ll, q_all, q_all, mask,
+                                     gates=_relate_gates(gates))
+            return _log_probability(subj2, q_all, mask, hard)
+
+        if term == "scene":
+            # the attribute rows of the vocab-major cache, as (B, O, A), and
+            # the listed pairs over the relation vocabulary
+            attr_lp = world.attr_ll[:, self._index("attribute", mask.device) + 1]
+            attr_lp = attr_lp[world.img_index.long()].float().transpose(1, 2)
+            rel_lp = om.rel_scores_for_pairs(params, world.attr_in, world.pos,
+                                             arrays["pair_idx"], cfg,
+                                             rel_cols=self._index("relation", mask.device))
+            return {"attr": attr_lp, "rel": rel_lp}
+
+        raise ValueError(f"unknown terminal {term!r}")
 
     # ---------------------------------------------------------------- output
 
@@ -313,10 +465,40 @@ class Interpreter:
         """Answer flags + accuracy match, on the device. QUERY tie rule:
         every option whose exp(lp) equals the max and exceeds
         ``likelihood_threshold`` is an answer, credited 1/|ties| (or the
-        first flagged option when ``first_answer``)."""
+        first flagged option when ``first_answer``); ``compare`` answers
+        with the argmax of its two branches."""
         cfg = self.cfg
         out: Dict[str, torch.Tensor] = {"log_probability": lp}
-        if qtype == QuestionType.QUERY:
+        qm = arrays["question_mask"]
+        if qtype == QuestionType.OBJECT_STATEMENT:
+            # weighted statement accuracy, the batch's average per question
+            w = arrays["stmt_weight"] * arrays["opt_mask"] * qm[:, None]
+            pred = torch.exp(lp) > 0.5
+            match = (pred == (arrays["answer_opt"] > 0.5)).float()
+            avg = torch.sum(match * w) / torch.clamp(torch.sum(w), min=1e-6)
+            out["answer_flags"] = pred
+            out["match"] = avg.expand(lp.shape[0])
+        elif qtype == QuestionType.SCENE_GRAPH:
+            # the error over thresholded attributes (real objects) and listed
+            # relations, counting entries that the target or the answer holds
+            a_ans = (torch.exp(lp["attr"]) > 0.5).float()
+            r_ans = (torch.exp(lp["rel"]) > 0.5).float()
+            a_t, r_t = arrays["attr_answer"], arrays["rel_answer"]
+            a_w = (arrays["attr_weight"] * ((a_t + a_ans) > 0) * qm[:, None, None]
+                   * arrays["__obj_mask__"][:, :, None])
+            r_w = (arrays["rel_weight"] * arrays["pair_mask"][:, :, None] * ((r_t + r_ans) > 0)
+                   * qm[:, None, None])
+            nom = torch.sum((a_t != a_ans) * a_w) + torch.sum((r_t != r_ans) * r_w)
+            denom = torch.clamp(torch.sum(a_w) + torch.sum(r_w), min=1e-6)
+            out["answer_flags"] = torch.zeros((qm.shape[0], 1), dtype=torch.bool,
+                                              device=qm.device)
+            out["match"] = (1.0 - nom / denom).expand(qm.shape[0])
+        elif spec.terminal_op == "compare":
+            idx = torch.argmax(lp, dim=1)
+            target = arrays.get("answer_match", arrays["answer_opt"])
+            out["answer_flags"] = torch.nn.functional.one_hot(idx, 2) > 0
+            out["match"] = target.gather(1, idx[:, None])[:, 0]
+        elif qtype == QuestionType.QUERY:
             temp = torch.exp(lp) * arrays["opt_mask"]
             mx = torch.amax(temp, dim=1, keepdim=True)
             flags = (temp == mx) & (temp > cfg.likelihood_threshold)
@@ -330,34 +512,44 @@ class Interpreter:
                 match = torch.where(n_flags > 0, hit / torch.clamp(n_flags, min=1), 0.0)
             out["answer_flags"] = flags
             out["match"] = match
-        elif qtype in (QuestionType.BINARY, QuestionType.STATEMENT):
+        else:  # BINARY, STATEMENT
             pred_yes = torch.exp(lp) > 0.5
             target = arrays["answer_binary"] > 0.5
             out["answer_flags"] = pred_yes[:, None]
             out["match"] = (pred_yes == target).float()
-        else:
-            raise _not_ported(f"{qtype.name} answers", "remaining terminals queue")
         return out
 
     def _loss(self, lp, arrays, qtype: QuestionType, params: om.OracleParams) -> torch.Tensor:
         """Per-question-type loss summed over the batch's real questions
         (``interpreter._loss``): STATEMENT -sum(lp), BINARY the BCE terms,
-        QUERY the grouped softmax cross-entropy over each question's options;
-        plus the ``l1_lambda`` term (mean absolute parameter value)."""
+        QUERY the grouped softmax cross-entropy over each question's options,
+        OBJECT_STATEMENT the statements' weighted BCE, SCENE_GRAPH the
+        weighted BCE of the attribute matrix (real objects) and the listed
+        relations; plus the ``l1_lambda`` term (mean absolute parameter
+        value)."""
         qmask = arrays["question_mask"]
+
+        def bce(lp_x, t, w):
+            lg, lg1 = _bce_terms(lp_x)
+            return -torch.sum(w * (t * lg + (1.0 - t) * lg1))
+
         if qtype == QuestionType.STATEMENT:
             loss = -torch.sum(lp * qmask)
         elif qtype == QuestionType.BINARY:
-            t = arrays["answer_binary"]
-            lg, lg1 = _bce_terms(lp)
-            loss = -torch.sum((t * lg + (1.0 - t) * lg1) * qmask)
+            loss = bce(lp, arrays["answer_binary"], qmask)
         elif qtype == QuestionType.QUERY:
             opt_mask = arrays["opt_mask"]
             denom = logic.masked_logsumexp(lp, opt_mask, axis=1)
             loss = torch.sum((denom - torch.sum(arrays["answer_opt"] * lp * opt_mask, dim=1))
                              * qmask)
-        else:
-            raise _not_ported(f"the {qtype.name} loss", "remaining terminals queue")
+        elif qtype == QuestionType.OBJECT_STATEMENT:
+            w = arrays["stmt_weight"] * arrays["opt_mask"] * qmask[:, None]
+            loss = bce(lp, arrays["answer_opt"], w)
+        else:  # SCENE_GRAPH
+            a_w = arrays["attr_weight"] * qmask[:, None, None] * arrays["__obj_mask__"][:, :, None]
+            r_w = arrays["rel_weight"] * arrays["pair_mask"][:, :, None] * qmask[:, None, None]
+            loss = bce(lp["attr"], arrays["attr_answer"], a_w) + bce(lp["rel"],
+                                                                   arrays["rel_answer"], r_w)
         if self.cfg.l1_lambda > 0:
             leaves = list(params.parameters())
             total = sum(torch.sum(torch.abs(p)) for p in leaves)
@@ -379,7 +571,7 @@ class Interpreter:
         """Execute one compiled batch. ``objects`` may arrive as bf16 (the
         serving transfer dtype); it is upcast to float32 on the device."""
         if objects.dtype == torch.int8:
-            raise _not_ported("int8 object transfer", "queue 1, device transfer")
+            raise _not_ported("int8 object transfer", "queue 5, the int8 object transfer")
         world = self.build_world(
             params, objects.float(), obj_mask, arrays.get("rel_tokens"),
             generator=generator, deterministic=not is_training,
@@ -394,12 +586,15 @@ class Interpreter:
         with ``is_training`` the ``loss`` (summed over the real questions,
         not yet normalised). JAX's jit drops the loss where nothing reads it;
         eager PyTorch would launch its ops on every serving and eval batch."""
-        if spec.terminal_op not in PORTED_TERMINALS:
-            raise _not_ported(f"terminal {spec.terminal_op!r}", "remaining terminals queue")
         qtype = question_type_of(spec.terminal_op)
-        atts = [self._run_branch(world, arrays, b, grid) for b, grid in enumerate(spec.grid)]
+        gates = None
+        if self.cfg.trainable_gate and params is not None and params.logic_gates is not None:
+            gates = params.logic_gates
+        atts = [self._run_branch(world, arrays, b, grid, gates)
+                for b, grid in enumerate(spec.grid)]
         hard = (not is_training) and self.cfg.hard_mode
-        lp = self._terminal(world, arrays, spec, atts, hard)
+        arrays = {**arrays, "__obj_mask__": world.obj_mask}  # scene-graph masking
+        lp = self._terminal(world, arrays, spec, atts, hard, gates, params)
         out = self._answers_and_metrics(lp, arrays, spec, qtype)
         if is_training:
             out["loss"] = self._loss(lp, arrays, qtype, params)

@@ -1,15 +1,17 @@
 """Visual oracle: learned attribute/relation log-likelihood scorer.
 
 Port of ``dfol_vqa_tpu/models/oracle.py`` for ``oracle_output_dim == 1``:
-the parameter tree (``OracleParams``), ``attr_cache`` (vocab-major
-``(B, V+1, O)``), ``_first_layer_split``, the plain per-question
-``rel_cache`` and the shared-image ``rel_cache_shared`` (both R-major
-``(B, R, O, O)``). The first relation layer is split into
-subject/object/geometry parts, so the O^2 term is a broadcast add of two
-(B, O, H) products and a 4-wide geometry contraction.
+the parameter tree (``OracleParams``, with the executor's optional logic
+gates), ``attr_cache`` (vocab-major ``(B, V+1, O)``),
+``_first_layer_split``, the plain per-question ``rel_cache`` and the
+shared-image ``rel_cache_shared`` (both R-major ``(B, R, O, O)``), and
+``rel_scores_for_pairs`` (listed pairs, for the supervision terminals). The
+first relation layer is split into subject/object/geometry parts, so the
+O^2 term is a broadcast add of two (B, O, H) products and a 4-wide geometry
+contraction.
 
-Still to port (ROADMAP queues): ``rel_scores_for_pairs``,
-``full_caches``, ``static_attr_cache`` and ``oracle_output_dim > 1``.
+Still to port (ROADMAP queues): ``full_caches``, ``static_attr_cache`` and
+``oracle_output_dim > 1``.
 """
 
 from __future__ import annotations
@@ -38,17 +40,30 @@ class Embedding(tnn.Module):
         self.b = tnn.Parameter(b)
 
 
+LOGIC_GATES = ("filter", "relate0", "relate1")
+
+
 class OracleParams(tnn.Module):
     """The oracle's parameters; ``featurizer`` is None for the identity
-    network (``featurizer_layers_config=None``)."""
+    network (``featurizer_layers_config=None``). ``logic_gates`` holds the
+    executor's neural logic gates (``trainable_gate``): one ``Linear(2, 6)``
+    per combine site, keyed by ``LOGIC_GATES``, or None."""
 
     def __init__(self, featurizer: Optional[nn.MLP], attribute_network: nn.MLP,
-                 relation_network: nn.MLP, embedding: Embedding):
+                 relation_network: nn.MLP, embedding: Embedding,
+                 logic_gates: Optional[tnn.ModuleDict] = None):
         super().__init__()
         self.featurizer = featurizer
         self.attribute_network = attribute_network
         self.relation_network = relation_network
         self.embedding = embedding
+        self.logic_gates = logic_gates
+
+
+def init_logic_gates(generator: torch.Generator) -> tnn.ModuleDict:
+    """Random logic gates (torch-default Linear init), drawn in
+    ``LOGIC_GATES`` order."""
+    return tnn.ModuleDict({name: nn.Linear.init(2, 6, generator) for name in LOGIC_GATES})
 
 
 def check_supported(cfg: Config) -> None:
@@ -60,6 +75,21 @@ def check_supported(cfg: Config) -> None:
     if cfg.tpu.compute_dtype != "float32":
         raise NotImplementedError(
             f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: the port computes in float32")
+
+
+def resolve_cache_dtype(cfg: Config) -> torch.dtype:
+    """Storage dtype of the likelihood caches, ``tpu.cache_dtype``. The JAX
+    package's "auto" is a TPU v5e table (bf16 from batch 256 up); the port
+    takes its dtype choices from measurements on the card, and none exists
+    for the caches yet, so "auto" raises."""
+    name = cfg.tpu.cache_dtype
+    if name == "auto":
+        raise NotImplementedError(
+            'tpu.cache_dtype="auto" follows a TPU table; the port has no H100 measurement '
+            'for it yet (ROADMAP queue 5). Set "float32" or "bfloat16".')
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"tpu.cache_dtype must be float32, bfloat16 or auto, got {name!r}")
+    return getattr(torch, name)
 
 
 def init_oracle_params(cfg: Config, ontology, generator: torch.Generator,
@@ -239,7 +269,7 @@ def rel_cache_shared(
         h2 = trunk(pos_u, h_s, h_o, w_g, b0, layers[1:], stream)
         return shared_contract.shared_contract_kernel(
             h2, img_index, e_sel.to(stream), b_sel, rel_tokens, default_ll,
-            out_dtype=getattr(torch, cfg.tpu.resolve_cache_dtype(int(B))))
+            out_dtype=resolve_cache_dtype(cfg))
 
     geom = pair_geometry(pos_u)
     h = (h_s[:, :, None, :] + h_o[:, None, :, :]
@@ -274,3 +304,44 @@ def rel_cache_shared(
     h2_q = h2[img_index.long()]  # (B, O, O, E)
     logits = torch.einsum("bije,bre->brij", h2_q, e_sel) + b_sel[:, :, None, None]
     return F.logsigmoid(logits).masked_fill(pad_slot, default_ll)
+
+
+def rel_scores_for_pairs(
+    params: OracleParams,
+    attr_in: torch.Tensor,
+    pos: torch.Tensor,
+    pair_idx: torch.Tensor,
+    cfg: Config,
+    rel_cols: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """Score LISTED object pairs against relation vocabulary columns.
+
+    attr_in (B, O, D+4), pos (B, O, 4), ``pair_idx (B, P, 2)`` (subject,
+    object) indices -> (B, P, |rel_cols|) log-likelihoods: the whole
+    relation MLP on ``[f_s, f_o, geom]`` per listed pair, then
+    logsigmoid(hmid @ emb_w[:, cols] + b[cols]). ``rel_cols`` (0-based
+    token columns) defaults to every column of the padded vocabulary. The
+    pair geometry is the listed-pair form of the JAX package (asin of dy
+    over the distance clamped at 1e-10, so a zero-distance pair has angle
+    0), not ``featurizer.pair_geometry``'s."""
+    rp = params.relation_network
+    emb_w, emb_b = params.embedding.w, params.embedding.b
+    B = pair_idx.shape[0]
+    rows = torch.arange(B, device=pair_idx.device)[:, None]
+    i_s, i_o = pair_idx[..., 0].long(), pair_idx[..., 1].long()
+    f_s, f_o = attr_in[rows, i_s], attr_in[rows, i_o]
+    x, y, w, h = pos[rows, i_s].unbind(-1)
+    x2, y2, w2, h2 = pos[rows, i_o].unbind(-1)
+    dx = (x + w / 2.0) - (x2 + w2 / 2.0)
+    dy = (y + h / 2.0) - (y2 + h2 / 2.0)
+    dist = torch.sqrt(dx * dx + dy * dy)
+    angle = torch.arcsin(dy / torch.clamp(dist, min=1e-10))
+    geom = torch.stack([dist, angle, torch.sign(x2 - x), torch.sign(y2 - y)], dim=-1)
+    pair_feat = torch.cat([f_s, f_o, geom], dim=-1)
+    hmid = nn.mlp_apply(rp, pair_feat, final="sigmoid", dropout_rate=cfg.dropout,
+                        generator=generator, deterministic=deterministic)
+    if rel_cols is not None:
+        emb_w, emb_b = emb_w[:, rel_cols], emb_b[rel_cols]
+    return F.logsigmoid(torch.matmul(hmid, emb_w) + emb_b)

@@ -36,11 +36,13 @@ from dfol_vqa_tpu_torch.models.oracle import OracleParams
 def trainable_labels(params: OracleParams, cfg: Config) -> Dict[str, bool]:
     """Parameter name -> trainable, from the freeze flags: one per module
     (featurizer, attribute network, relation network, embedding) and one
-    for the embedding bias (``trainable_labels`` in the JAX package)."""
+    for the embedding bias (``trainable_labels`` in the JAX package). The
+    logic gates have no flag and always train."""
     frozen = {"featurizer": cfg.freeze_featurizer,
               "attribute_network": cfg.freeze_attribute_network,
               "relation_network": cfg.freeze_relation_network,
-              "embedding": cfg.freeze_embedding_network}
+              "embedding": cfg.freeze_embedding_network,
+              "logic_gates": False}
     labels = {}
     for name, _ in params.named_parameters():
         top = name.split(".", 1)[0]

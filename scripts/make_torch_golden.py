@@ -41,18 +41,40 @@ compress) with the interpreter's weights (``PRNGKey(0)``), for two batches:
   ``grads/<key>`` and the change of every parameter in one
   ``build_optimizer`` step, ``update/<key>``.
 
-``chip_smoke.py`` runs the port on the card against the three files;
+``tests/data/torch_port_golden_terminals.npz`` (every terminal), with the
+offline-eval golden's weights (the same ``PRNGKey(0)`` init at the same
+tiny dims; not stored again, to keep the file small): one batch per
+terminal, the 14 question terminals of ``evalset.TERMINAL_HOPS`` as 8
+questions on 2 images (the shared-image route) and the supervision
+terminals as 2 ``trainset.supervision_loader`` questions:
+
+* ``datasets/<terminal>``: a question terminal's file (JSON);
+* ``batch/<terminal>/...``: the ``LoadedBatch`` (``objects``, ``obj_mask``,
+  the compiled arrays packed into one entry, ``arrays`` with
+  ``array_layout``, by ``chip_smoke.pack_arrays``) and, per
+  ``soft``/``hard`` mode, JAX's
+  ``log_probability``, ``answer_flags`` and ``match``. ``scene``'s scores
+  do not depend on the mode and are kept once: its relation scores whole
+  and, of its (B, O, 2002) attribute scores, the supervised entries
+  (``attr_at``) and the sums over attributes (``attr_sum``), as
+  ``chip_smoke.scene_summary`` reduces them;
+* for the supervision terminals the normalised training ``loss`` and its
+  gradients ``grads/<key>``.
+
+``chip_smoke.py`` runs the port on the card against the four files;
 ``tests/test_torch_golden.py`` regenerates them and requires them to match
 the checked-in copies.
 
     python scripts/make_torch_golden.py [--out tests/data/torch_port_golden.npz]
         [--eval-out tests/data/torch_port_golden_eval.npz]
         [--train-out tests/data/torch_port_golden_train.npz]
+        [--terminals-out tests/data/torch_port_golden_terminals.npz]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import os
@@ -65,6 +87,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 EVAL_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
 TRAIN_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
+TERMINALS_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -220,16 +243,72 @@ def build_train_golden() -> Dict[str, np.ndarray]:
     return out
 
 
+def build_terminals_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
+    import jax.numpy as jnp
+
+    from chip_smoke import SUPERVISION_GOLDEN, pack_arrays, scene_summary, terminals_golden_setup
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu.train.checkpoint import _flatten
+    from dfol_vqa_tpu_torch.data import trainset
+
+    ont = GQAOntology()
+    cfg, sup_cfg, world, files = terminals_golden_setup(ont)
+    params = Interpreter(cfg, ont).init_params(jax.random.PRNGKey(0))  # the eval golden's
+    out: Dict[str, np.ndarray] = {}
+    for term in list(files) + list(trainset.SUPERVISION_TERMINALS):
+        if term in files:
+            c = cfg
+            out[f"datasets/{term}"] = np.array(json.dumps(files[term], sort_keys=True))
+            (lb,) = list(trainset.train_loader(cfg, ont, world, [files[term]], shuffle=False))
+        else:
+            c = sup_cfg
+            (lb,) = list(trainset.supervision_loader(sup_cfg, ont, term, **SUPERVISION_GOLDEN))
+        p = f"batch/{term}/"
+        out[p + "objects"] = lb.objects
+        out[p + "obj_mask"] = lb.obj_mask
+        out[p + "arrays"], out[p + "array_layout"] = pack_arrays(lb.arrays)
+        arrays = {a: jnp.asarray(v) for a, v in lb.arrays.items()}
+        for mode in ("soft", "hard"):
+            interp = Interpreter(dataclasses.replace(c, hard_mode=mode == "hard"), ont)
+            res = interp.forward(params, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask),
+                                 arrays, lb.spec, False, None)
+            lp = jax.tree.map(np.asarray, res["log_probability"])
+            if isinstance(lp, dict):  # the mode does not enter scene's scores
+                for k, v in scene_summary(lp, lb.arrays["attr_weight"]).items():
+                    out[f"{p}log_probability/{k}"] = v
+            else:
+                out[f"{p}{mode}/log_probability"] = lp
+            out[f"{p}{mode}/answer_flags"] = np.asarray(res["answer_flags"])
+            out[f"{p}{mode}/match"] = np.asarray(res["match"])
+        if term in trainset.SUPERVISION_TERMINALS:
+            interp = Interpreter(c, ont)
+
+            def loss_fn(q):
+                res = interp.forward(q, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask),
+                                     arrays, lb.spec, True, None)
+                return res["loss"] / jnp.maximum(jnp.sum(arrays["question_mask"]), 1.0)
+
+            loss, grads = jax.value_and_grad(loss_fn)(params)
+            out[p + "loss"] = np.asarray(loss)
+            for k, g in _flatten(jax.tree.map(np.asarray, grads)).items():
+                out[p + "grads/" + k] = g
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN_PATH)
     ap.add_argument("--eval-out", default=EVAL_GOLDEN_PATH)
     ap.add_argument("--train-out", default=TRAIN_GOLDEN_PATH)
+    ap.add_argument("--terminals-out", default=TERMINALS_GOLDEN_PATH)
     args = ap.parse_args(argv)
     for path, golden, unit, what in (
             (args.out, build_golden(), "/question", "requests"),
             (args.eval_out, build_eval_golden(), "/log_probability", "batches"),
-            (args.train_out, build_train_golden(), "/loss", "training batches")):
+            (args.train_out, build_train_golden(), "/loss", "training batches"),
+            (args.terminals_out, build_terminals_golden(), "/objects", "terminal batches")):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **golden)
         n = sum(1 for k in golden if k.endswith(unit))

@@ -7,11 +7,15 @@ offline-eval workload (loader batches with shared images), JAX's
 log-probabilities and answer flags per batch, and its ``test_epoch`` error
 vector and ``predict`` output; ``tests/data/torch_port_golden_train.npz``
 holds one training step (loss, gradients, the optimizer's change of every
-parameter) on a per-question-route and a shared-route batch. All three are
-regenerated here and must match the checked-in copies, so they cannot go
-stale; and the port, on the CPU, must meet them with the checks
-``chip_smoke.py`` runs on the card (atol 1e-5 here, float32 on the same
-host type; 1e-4 on the card).
+parameter) on a per-question-route and a shared-route batch;
+``tests/data/torch_port_golden_terminals.npz`` holds one batch per terminal
+(the 14 question terminals on the shared route and the 3 supervision
+terminals, with the eval golden's weights), JAX's log-probabilities,
+answer flags and matches in soft and hard mode, and the supervision
+terminals' loss and gradients. All four are regenerated here and must
+match the checked-in copies, so they cannot go stale; and the port, on the
+CPU, must meet them with the checks ``chip_smoke.py`` runs on the card
+(atol 1e-5 here, float32 on the same host type; 1e-4 on the card).
 """
 
 import importlib.util
@@ -101,3 +105,43 @@ def test_train_golden_is_current():
 
 def test_port_meets_train_golden_on_cpu():
     assert chip_smoke.check_train_golden("cpu", grad_rtol=1e-5) == 2
+
+
+def test_terminals_golden_is_current():
+    """Log-probabilities within 1e-6 (``scene``'s sums over 2002 attributes
+    within 1e-6 per term), loss and gradients within 1e-6 of their largest
+    value (XLA:CPU may vectorise differently on another host type), the
+    rest equal; its weights are the eval golden's."""
+    import jax
+
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu.train.checkpoint import _flatten
+
+    fresh = load_script().build_terminals_golden()
+    assert sum(k.endswith("/objects") for k in fresh) == 17
+    stored = np.load(chip_smoke.TERMINALS_GOLDEN)
+    assert set(fresh) == set(stored.files)
+    for k, v in fresh.items():
+        if "/log_probability" in k:
+            atol = 1e-6 * (2002 if k.endswith("attr_sum") else 1)
+            np.testing.assert_allclose(v, stored[k], atol=atol, rtol=0, err_msg=k)
+        elif k.endswith("/loss") or "/grads/" in k:
+            atol = 1e-6 * max(1.0, float(np.abs(v).max()))
+            np.testing.assert_allclose(v, stored[k], atol=atol, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, stored[k], err_msg=k)
+    assert os.path.getsize(chip_smoke.TERMINALS_GOLDEN) < 300_000
+    ont = GQAOntology()
+    cfg = chip_smoke.terminals_golden_setup(ont)[0]
+    weights = _flatten(jax.tree.map(np.asarray,
+                                    Interpreter(cfg, ont).init_params(jax.random.PRNGKey(0))))
+    eval_golden = np.load(chip_smoke.EVAL_GOLDEN)
+    assert {k for k in eval_golden.files if k.startswith("params/")} == {
+        "params/" + k for k in weights}
+    for k, v in weights.items():
+        np.testing.assert_array_equal(v, eval_golden["params/" + k], err_msg=k)
+
+
+def test_port_meets_terminals_golden_on_cpu():
+    assert chip_smoke.check_terminals_golden("cpu", atol=1e-5, grad_rtol=1e-5) == (17, 0)

@@ -8,8 +8,9 @@ modules, and nothing of the JAX package in the port.
   ``dfol_vqa_tpu`` module in ``sys.modules``;
 * each copy equals the JAX module it copies: configurations, the ontology
   and its metadata asset, the program compiler's batches, the planted
-  world's features and questions, and the loader's batches in the
-  shuffled (training) and the deduplicated (evaluation) layout;
+  world's features and questions, the synthetic question and supervision
+  generators, and the loader's batches in the shuffled (training) and the
+  deduplicated (evaluation) layout;
 * the CUDA build hash covers the headers in ``csrc/``.
 """
 
@@ -30,11 +31,13 @@ from dfol_vqa_tpu.compiler import program_compiler as jcompiler
 from dfol_vqa_tpu.data import dataset as jdataset
 from dfol_vqa_tpu.data import loader as jloader
 from dfol_vqa_tpu.data import planted as jplanted
+from dfol_vqa_tpu.data import synthetic as jsynthetic
 from dfol_vqa_tpu_torch import config as tconfig
 from dfol_vqa_tpu_torch import ontology as tontology
 from dfol_vqa_tpu_torch.compiler import program_compiler as tcompiler
 from dfol_vqa_tpu_torch.data import evalset, trainset
 from dfol_vqa_tpu_torch.data import planted as tplanted
+from dfol_vqa_tpu_torch.data import synthetic as tsynthetic
 from dfol_vqa_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -150,9 +153,25 @@ def test_planted_world_copy_equals_jax(ontologies):
     tw, jw = tiny_worlds(ontologies)
     assert tw.image_ids == jw.image_ids
     assert_same(tw.batch(tw.image_ids, 8), jw.batch(jw.image_ids, 8), "batch")
-    for fam in ("exist", "verify_rel", "query_attr", "choose_attr"):
+    for fam in tplanted.ALL_FAMILIES:
         assert_same(tw.generate_family(fam, 6, length=1, seed=3, id_prefix="q"),
                     jw.generate_family(fam, 6, length=1, seed=3, id_prefix="q"), fam)
+
+
+@pytest.mark.parametrize("terminal", tplanted.ALL_FAMILIES)
+def test_synthetic_questions_copy_equals_jax(ontologies, terminal):
+    t, j = ontologies
+    kw = dict(length=2, seed=3, neg_prob=0.3, wildcard_prob=0.2)
+    assert_same(tsynthetic.generate_questions(t, 8, terminal, **kw),
+                jsynthetic.generate_questions(j, 8, terminal, **kw), terminal)
+
+
+@pytest.mark.parametrize("terminal", ["object_attr", "object_rel", "scene"])
+def test_synthetic_supervision_copy_equals_jax(ontologies, terminal):
+    t, j = ontologies
+    assert_same(tsynthetic.generate_supervision_questions(t, 8, terminal, n_objects=5, seed=4),
+                jsynthetic.generate_supervision_questions(j, 8, terminal, n_objects=5, seed=4),
+                terminal)
 
 
 def question_sets(world, kind):

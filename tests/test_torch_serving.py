@@ -206,22 +206,88 @@ def test_warmup_covers_every_rung():
         eng.stop()
 
 
-def test_engine_rejects_bad_requests():
+def test_engine_rejects_bad_requests(monkeypatch):
     with pytest.raises(ValueError):
         tiny_engine(max_batch=128)
     world, eng = tiny_engine(max_batch=4)
     try:
-        with pytest.raises(ValueError):
-            eng.submit({"program": {"branches": [], "last_op": {"operator": "scene",
-                                                                "arguments": []}},
-                        "imageId": world.image_ids[0]})
-        # a terminal of a later slice fails its future, not the dispatcher
+        for term in ("object_attr", "object_rel", "scene"):  # supervision, not questions
+            with pytest.raises(ValueError, match=term):
+                eng.submit({"program": {"branches": [], "last_op": {"operator": term,
+                                                                    "arguments": []}},
+                            "imageId": world.image_ids[0]})
+        # a group whose execution raises fails its futures, not the dispatcher
+        real = interp.Interpreter.execute
+
+        def execute(self, params, world_, arrays, spec, is_training=False):
+            if spec.terminal_op == "choose_attr":
+                raise RuntimeError("execution failed")
+            return real(self, params, world_, arrays, spec, is_training)
+
+        monkeypatch.setattr(interp.Interpreter, "execute", execute)
         q = world.generate_family("choose_attr", 1, length=0, seed=9)[0]
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="execution failed"):
             eng.answer_many([q])
         assert eng.answer_many(world.generate_family("exist", 1, seed=1))[0].answers
     finally:
         eng.stop()
+
+
+# the ten question families of the terminals slice, (family, hops, count)
+NEW_FAMILIES = (("verify_attrs", 1, 3), ("choose_attr", 0, 3), ("choose_rel", 0, 2),
+                ("choose_rel", 2, 2), ("and", 1, 3), ("or", 2, 3), ("all_same", 1, 2),
+                ("all_different", 0, 2), ("two_same", 1, 2), ("two_different", 0, 2),
+                ("compare", 1, 3))
+
+
+def new_family_stream(world):
+    return [q for fi, (fam, hops, n) in enumerate(NEW_FAMILIES)
+            for q in world.generate_family(fam, n, length=hops, seed=40 + fi,
+                                           id_prefix=f"{fam}{hops}-")]
+
+
+def test_engine_answers_new_families_equal_jax(engines):
+    *_, world, jeng, _, teng = engines
+    qs = new_family_stream(world)
+    assert len({q["program"]["last_op"]["operator"] for q in qs}) == 10
+    got = teng.answer_many(qs)
+    assert [r.answers for r in got] == [r.answers for r in jeng.answer_many(qs)]
+    assert all(r.answers for r in got)
+
+
+def test_coarse_ladder_engine_answers_like_the_default(engines):
+    """One canonical grid (``seg_ladder=(3,)``, ``fill_ladder=(4,)``): every
+    request pads to it, and the answers are the default engine's."""
+    *_, world, _, _, teng = engines
+    qs = stream(world) + new_family_stream(world)
+    _, coarse = tiny_engine(max_batch=8, seg_ladder=(3,), fill_ladder=(4,), params=teng.params)
+    try:
+        got = coarse.answer_many(qs)
+        assert {r.spec.grid[0] for r in got} == {serve.canonical_grid(3, 4)}
+        assert [r.answers for r in got] == [r.answers for r in teng.answer_many(qs)]
+    finally:
+        coarse.stop()
+
+
+def test_coarse_ladder_falls_through_past_its_top(engines):
+    """A branch with 4 relate segments or 5 fillers in one segment is past
+    the coarse ladder's top rung: it keeps its own size, and is answered as
+    the default engine answers it."""
+    *_, world, _, _, teng = engines
+    img = world.image_ids[3]
+    rel = {"operator": "relate", "arguments": [world.relations[0], True, world.nouns[1]]}
+    flt = {"operator": "filter", "arguments": [world.attrs[0]]}
+    sel = {"operator": "select", "arguments": [world.nouns[0]]}
+    qs = [{"program": {"branches": [ops], "last_op": {"operator": "exist", "arguments": []}},
+           "answer": "yes", "imageId": img, "question_id": f"deep{k}"}
+          for k, ops in enumerate(([sel] + [rel] * 4, [sel] + [flt] * 5 + [rel]))]
+    _, coarse = tiny_engine(max_batch=8, seg_ladder=(3,), fill_ladder=(4,), params=teng.params)
+    try:
+        got = coarse.answer_many(qs)
+        assert [serve.branch_structure(r.spec.grid[0]) for r in got] == [(4, 4), (3, 5)]
+        assert [r.answers for r in got] == [r.answers for r in teng.answer_many(qs)]
+    finally:
+        coarse.stop()
 
 
 def test_shared_image_route_not_ported(engines):

@@ -2,8 +2,10 @@
 
 * One training step, JAX versus port, with the same weights and dropout 0,
   on a per-question-route batch (shuffled over many images, U * 2 > B) and
-  a shared-route batch (deduplicated, U * 2 <= B) of each terminal the
-  workload has (``exist``, ``end``, ``verify_rel``, ``query_attr``): the
+  a shared-route batch (deduplicated, U * 2 <= B) of every question
+  terminal (the workload's ``exist``, ``end``, ``verify_rel`` and
+  ``query_attr``, and the other ten from
+  ``tests/test_torch_terminals.terminal_batch``): the
   loss within 1e-5 relative; every gradient leaf within 1e-5 * max(1,
   max|JAX|) (float32 sums in another order); the parameters after one
   optimizer step within ``chip_smoke.adam_bound``. On the CPU both packages take
@@ -35,6 +37,7 @@ from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train import trainer as tr
 from dfol_vqa_tpu_torch.train.optim import Optimizer
 from chip_smoke import adam_bound, grads_of, trainable_keys
+from tests.test_torch_terminals import RELATING, TERMINALS, terminal_batch
 
 GRAD_RTOL = 1e-5
 
@@ -68,6 +71,9 @@ def batches(ontology, setup):
                           ("shared", shared_loader(ontology, cfg, world))):
         for lb in loader:
             out[(route, lb.spec.terminal_op)] = lb
+        for term in TERMINALS:
+            if (route, term) not in out:
+                out[(route, term)] = terminal_batch(ontology, cfg, world, term, route)
     return out
 
 
@@ -88,13 +94,9 @@ def jax_step(cfg, jinterp, jparams, lb):
         jax.tree.map(np.asarray, new))
 
 
-@pytest.mark.parametrize("route", ["per_question", "shared"])
-@pytest.mark.parametrize("term", ["exist", "end", "verify_rel", "query_attr"])
-def test_train_step_matches_jax(setup, batches, route, term):
-    cfg, _, jinterp, jparams, tinterp = setup
-    lb = batches[(route, term)]
-    U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
-    assert (U * 2 <= B) == (route == "shared")
+def check_step(cfg, jinterp, jparams, tinterp, lb):
+    """One training step of the port on ``lb`` against ``jax_step``: the
+    loss, every gradient leaf and the parameters after the optimizer step."""
     want_loss, want_grads, want_params = jax_step(cfg, jinterp, jparams, lb)
 
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
@@ -113,8 +115,19 @@ def test_train_step_matches_jax(setup, batches, route, term):
     bound = adam_bound(cfg, trainable_keys(cfg, tparams),
                        [(want_grads, got_grads, start, delta)])
     got = flatten(params_to_numpy(tparams))
+    assert set(got) == set(want_params)
     for key, want in want_params.items():
         assert np.all(np.abs(got[key] - want) <= bound[key]), key
+
+
+@pytest.mark.parametrize("route", ["per_question", "shared"])
+@pytest.mark.parametrize("term", TERMINALS)
+def test_train_step_matches_jax(setup, batches, route, term):
+    cfg, _, jinterp, jparams, tinterp = setup
+    lb = batches[(route, term)]
+    U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+    assert (U * 2 <= B) == (route == "shared")
+    check_step(cfg, jinterp, jparams, tinterp, lb)
 
 
 def test_train_workload_routes(ontology, setup, batches):
@@ -122,11 +135,11 @@ def test_train_workload_routes(ontology, setup, batches):
     of the deduplicated set the shared route; the terminals are covered."""
     from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
 
-    assert {term for _, term in batches} == {"exist", "end", "verify_rel", "query_attr"}
+    assert {term for _, term in batches} == set(TERMINALS)
     for (route, term), lb in batches.items():
         U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
         assert (U * 2 <= B) == (route == "shared")
-        assert spec_needs_relations(lb.spec) == (term != "query_attr")
+        assert spec_needs_relations(lb.spec) == (term in RELATING)
 
 
 # --------------------------------------------------------------------- trainer
