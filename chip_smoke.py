@@ -57,12 +57,13 @@ Phases, each reported on its own line(s):
 7. training at production dims (``data/trainset.py``: batch 80, O=100,
    random weights from seed 0, dropout 0): the shuffled set's relating
    batches take the per-question route (U * 2 > B), the deduplicated set's
-   the shared route. Three steps per route run on the card and on the CPU
-   plain path from the same weights: every step's gradients within
-   ``TRAIN_GRAD_RTOL`` of each leaf's largest value, every loss within
-   ``TRAIN_LOSS_RTOL``, the parameters after the steps finite and, element
-   by element, within the bound that Adam's update puts on gradients that
-   far apart (``adam_bound``); kernels 1 and 2 launch once per
+   the shared route. Three steps per route run on the card, each held
+   against the CPU plain path's step from the card's parameters and Adam
+   state (``card_vs_cpu_steps``): its gradients within ``TRAIN_GRAD_RTOL``
+   of each leaf's largest value, its loss within ``TRAIN_LOSS_RTOL``, the
+   parameters after it finite and, element by element, within the bound
+   that Adam's update puts on gradients that far apart (``adam_bound``);
+   kernels 1 and 2 launch once per
    per-question relating step, kernels 3 and 4 once per shared one. Then
    the JAX training golden (``torch_port_golden_train.npz``) on the card,
    and the main run: a timed ``VQATrainer.train`` of 21 steps (3 epochs,
@@ -89,10 +90,29 @@ Phases, each reported on its own line(s):
    card vs CPU under phase 7's gates, of ``choose_rel`` and ``compare`` on
    the per-question route, the supervision terminals ``object_attr``,
    ``object_rel`` and ``scene`` (``trainset.supervision_loader``), and a
-   ``trainable_gate`` batch on the shared route.
+   ``trainable_gate`` batch on the shared route;
+9. the calibrator and the trainable interpreter (``phase_calibrator``): the
+   fifth JAX golden (``torch_port_golden_calibrator.npz``: a calibrator
+   model on every terminal and an F = 4 model, eval and training-mode
+   forwards and one step each); the last curriculum stage
+   (``configs/curriculum_training/cur7_classifier-direct-ll.yaml`` through
+   ``Config.from_yaml``, its widths, dropout 0, the calibrator's output
+   head drawn at random) serving phase 4's 64 requests at O=24 (answers
+   equal to the CPU engine's, kernel 1 once per relating group, the
+   calibrator run for exist and verify_rel and not for query_attr), every
+   question terminal evaluated soft at O=100/batch 80 as in phase 8, and
+   three training steps per route as in phase 7 (one saturated batch
+   within ``CALIB_SATURATED_STEP_RTOL``; every calibrator leaf with a
+   nonzero gradient, the frozen oracle bitwise unchanged) with the
+   bare ms/step beside phase 7's configuration on the same batches; the
+   trainable interpreter (F = 4, operator modules [8], their final layers
+   at random) on one shared-route eval batch and one per-question step,
+   card vs CPU, launching no kernel (its plain tails); and one profiled
+   calibrator eval pass (idle share, device events and host enqueue ms per
+   batch).
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4, 6, 7 and 8, each counted from 0), error, times, FLOP, bound and
+of phases 4, 6, 7, 8 and 9, each counted from 0), error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
 result line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -120,6 +140,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 EVAL_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
 TERMINALS_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
+CALIBRATOR_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
 SUPERVISION_GOLDEN = {"n": 2, "seed": 3}  # the terminals golden's supervision batches
 KERNEL_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4
@@ -128,11 +149,21 @@ TIE_ULPS = 4  # float32 ULPs within which an answer counts as a near-tie (near_t
 # MKL sums) taken in another order, relative to the gradient's largest value
 BWD_RTOL = 1e-4
 GOLDEN_GRAD_RTOL = 1e-4
-# card vs CPU at production widths, per parameter leaf and step: 6x the worst
-# reading with TF32 off on an H100 (5.0e-5, the shared route's third step,
-# after Adam has moved the two sides' parameters apart by up to 0.12 lr);
-# with TF32 matmuls on, the same steps read 2.7e-3 and 8.0e-3
+# card vs CPU at production widths, per parameter leaf and step, each step
+# from the card's parameters: 6x the worst reading with TF32 off on an H100
+# (4.9e-5, phase 7's shared route, third step); with TF32 matmuls on, phase
+# 7's steps read 2.7e-3 and 8.0e-3
 TRAIN_GRAD_RTOL = 3e-4
+# one batch's own limit: phase 9's shared route, second step (an exist batch
+# at loss 11.0, the calibrator's head drawn at random), where the card reads
+# 1.31e-3 against the CPU on an NVIDIA H100 80GB HBM3 at 700 W, the same to
+# the last digit in every run. A float64 run cannot say which side is off:
+# both float32 paths lie 0.951 from it (the reference's clamps saturate in
+# float32, not in float64). Summing the batch in reverse order moves either
+# side by 2.3e-7 at most, so the gap is not the order of the sums. With TF32
+# matmuls on, the step reads 8.2e-3 against the CPU, beyond this limit
+# (scripts/step_gradient_witness.py)
+CALIB_SATURATED_STEP_RTOL = 3e-3
 TRAIN_LOSS_RTOL = 1e-4
 # phase 8's eval, card vs CPU at O=100, in probability space: ~8x the worst
 # reading on an NVIDIA H100 80GB HBM3 at 700 W (1.17e-4, compare in hard
@@ -272,22 +303,39 @@ def random_width_inputs(gen, B, O, H, E, R=R_SLOTS, device="cuda"):
     return ins, tok.to(device)
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 10) -> float:
+PROFILE_TRIES = 3
+
+
+def kernel_device_ms(fn, kernel: str, launches, reps: int = 10) -> float:
     """Median device milliseconds of the CUDA kernel whose name contains
     ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``
     (CUPTI): the kernel alone, without its wrapper's other launches and host
-    work. Raises when the profiler saw no such kernel."""
+    work. ``launches()`` reads the wrapper's launch count, and each profiled
+    run's records are held against the launches in that run. A run with
+    fewer records lost some (on an H100, 2 of 160 profiled runs of kernel 2
+    and none of kernel 1's 160: ``scripts/profiler_record_count.py``): it is
+    logged and the kernel profiled again, up to ``PROFILE_TRIES`` runs. More
+    records than launches, or no run with all of them, raises."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [(e.time_range.end - e.time_range.start) / 1000.0 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if not times:
-        raise RuntimeError(f"the profiler saw no CUDA kernel named like {kernel!r}")
-    return statistics.median(times)
+    for _ in range(PROFILE_TRIES):
+        before = launches()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = launches() - before
+        times = [(e.time_range.end - e.time_range.start) / 1000.0 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(times) > launched or launched == 0:
+            raise RuntimeError(f"the profiler recorded {kernel!r} {len(times)} times, its "
+                               f"wrapper launched it {launched} times")
+        if len(times) == launched:
+            return statistics.median(times)
+        log(f"[3]   the profiler recorded {len(times)} of the {launched} launches of "
+            f"{kernel!r} in this run: records lost, profiled again")
+    raise RuntimeError(f"no profiled run of {PROFILE_TRIES} recorded every launch of "
+                       f"{kernel!r}")
 
 
 def shape_record(t, work, device_ms: float, **shape) -> dict:
@@ -333,7 +381,7 @@ def phase_kernels(eng, stamp: str) -> dict:
             t = cuda_ms({"kernel": lambda: ro.pair_tail_kernel(*ins, tok),
                          "plain": lambda: ro.pair_tail_reference(*ins, tok)})
             dev = kernel_device_ms(lambda: ro.pair_tail_kernel(*ins, tok),
-                                   "relation_oracle_fwd_kernel")
+                                   "relation_oracle_fwd_kernel", lambda: ro.LAUNCHES)
         rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=False), dev, B=B, O=O, H=H,
                            E=E, max_abs_err=err)
         shapes.append(rec)
@@ -382,7 +430,7 @@ def phase_bwd_kernel(eng, stamp: str) -> dict:
             t = cuda_ms({"kernel": lambda: ro.pair_tail_bwd_kernel(*ins, tok, g, False),
                          "plain": lambda: ro.pair_tail_bwd_reference(*ins, tok, g, False)}, reps=5)
             dev = kernel_device_ms(lambda: ro.pair_tail_bwd_kernel(*ins, tok, g, False),
-                                   "relation_oracle_bwd", reps=5)
+                                   "relation_oracle_bwd", lambda: ro.BWD_LAUNCHES, reps=5)
         worst = max(rel, key=rel.get)
         rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=True), dev, B=B, O=O, H=H,
                            E=E, worst_grad_rel_err=rel[worst])
@@ -416,14 +464,15 @@ def clip_scale(cfg, grads: dict, trainable: set) -> float:
     return 1.0 if norm < cfg.clip_norm else cfg.clip_norm / norm
 
 
-def adam_bound(cfg, trainable: set, steps) -> dict:
+def adam_bound(cfg, trainable: set, steps, moments: dict = None, t0: int = 0) -> dict:
     """Per-element bound on |other - ref| parameters after ``len(steps)``
     optimizer steps (global-norm clip, L2 decay, Adam) of two
     implementations from the same start. ``steps`` holds, per step, (ref
     gradients, other gradients, ref parameters before the step, delta): flat
     numpy dicts by checkpoint key, the other side's gradient known to lie
     within ``delta[key]`` of the ref's, element by element (the caller's
-    gradient gate).
+    gradient gate). Both start from Adam's zero moments, or from the same
+    ``moments`` {key: (m, v)} after ``t0`` steps (``adam_moments``).
 
     Interval arithmetic in float64: the other side's clipped, decayed
     gradient lies in an interval around the ref's (its own clip factor, the
@@ -441,7 +490,10 @@ def adam_bound(cfg, trainable: set, steps) -> dict:
     keys = list(steps[0][0])
     bound = {k: np.zeros(steps[0][0][k].shape) for k in keys}
     state = {k: [0.0] * 6 for k in trainable}  # m, v of the ref; m_lo, m_hi, v_lo, v_hi
-    for t, (ref, other, params, delta) in enumerate(steps, 1):
+    for k, (m, v) in (moments or {}).items():
+        m, v = m.astype(np.float64), v.astype(np.float64)
+        state[k] = [m, v, m, m, v, v]
+    for t, (ref, other, params, delta) in enumerate(steps, t0 + 1):
         s_ref, s_other = clip_scale(cfg, ref, trainable), clip_scale(cfg, other, trainable)
         c1, c2 = 1 - b1 ** t, 1 - b2 ** t
         # |m_hat| / sqrt(v_hat) <= cap for any gradients (Cauchy-Schwarz on
@@ -470,6 +522,20 @@ def adam_bound(cfg, trainable: set, steps) -> dict:
                                 step - np.maximum(np.minimum.reduce(corners), -cap))
             bound[k] = bound[k] + lr * (spread + 1e-4) + 2 * np.spacing(np.abs(p).astype(f32))
     return bound
+
+
+def adam_moments(opt, params) -> tuple:
+    """({checkpoint key: (m, v)} as numpy, steps taken) of ``opt``'s Adam
+    over ``params``: ``adam_bound``'s ``moments`` and ``t0``."""
+    state = opt.adam.state if opt.adam is not None else {}
+    moments, t0 = {}, 0
+    for name, p in params.named_parameters():
+        if p in state:
+            s = state[p]
+            moments[name.replace(".", "/")] = (s["exp_avg"].cpu().numpy().copy(),
+                                               s["exp_avg_sq"].cpu().numpy().copy())
+            t0 = int(s["step"])
+    return moments, t0
 
 
 def grads_of(params) -> dict:
@@ -547,7 +613,8 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                              "plain": lambda: pm.pair_mlp_reference(pos, h_s, h_o, w_g, b0,
                                                                     layers, dtype)})
                 dev = kernel_device_ms(lambda: pm.pair_mlp_fused(pos, h_s, h_o, w_g, b0, layers,
-                                                                 dtype), "pair_mlp_fwd_kernel")
+                                                                 dtype), "pair_mlp_fwd_kernel",
+                                       lambda: pm.LAUNCHES)
                 E = h2.shape[-1]
                 # the Linear chain, 2kn FLOP per pair and layer, f32 inputs, h2 out
                 chain = list(zip(widths, widths[1:]))
@@ -577,7 +644,7 @@ def phase_shared_kernels(params, cfg, device, stamp: str):
                              "plain": lambda: sc.shared_contract_reference(h2, img, es, b_sel,
                                                                            tok)})
                 dev = kernel_device_ms(lambda: sc.shared_contract_kernel(h2, img, es, b_sel, tok),
-                                       "shared_contract_kernel")
+                                       "shared_contract_kernel", lambda: sc.LAUNCHES)
                 # h2[img[b]] . e_sel[b, r]: 2RE FLOP per (question, pair); h2 and
                 # e_sel in the stream's dtype, float32 log-likelihoods out
                 work = kernel_bound(B * O * O * 2 * R * E, 0,
@@ -944,6 +1011,195 @@ def check_terminals_golden(device, atol: float, grad_rtol: float) -> tuple:
     return n, ties
 
 
+CALIBRATOR_GOLDEN_SEED = 9  # numpy seed of the calibrator golden's new leaves
+CALIBRATOR_GOLDEN_STEPS = ("per_question", "choose_rel")  # its training batches
+
+
+def calibrator_golden_setup(ontology):
+    """(calibrator cfg, F = 4 cfg, world, {batch name: question file}) of the
+    calibrator golden: the terminals golden's tiny dims and question files
+    (every question terminal, 8 questions on 2 images: the shared route)
+    and the training golden's shuffled ``exist`` file (``per_question``:
+    U * 2 > B). The calibrator cfg carries the last curriculum stage's
+    freeze flags (the oracle frozen, the calibrator trained) and state 8;
+    the F = 4 cfg ``operator_layers_config=[8]``. Weight decay 0, so a leaf
+    without a gradient keeps its value. numpy only."""
+    from dfol_vqa_tpu_torch.data import trainset
+
+    cfg, _, world, files = terminals_golden_setup(ontology)
+    cfg = dataclasses.replace(cfg, weight_decay=0.0)
+    calib = dataclasses.replace(cfg, activate_attention_transfer=True,
+                                attention_transfer_state_dim=8, freeze_featurizer=True,
+                                freeze_attribute_network=True, freeze_relation_network=True,
+                                freeze_embedding_network=True)
+    f4 = dataclasses.replace(cfg, oracle_output_dim=4, operator_layers_config=[8])
+    files = dict(files, per_question=trainset.train_datasets(world, (("exist", 2, 8),), seed=7)[0])
+    return calib, f4, world, files
+
+
+def calibrator_golden_weights(start: dict, calib, f4) -> tuple:
+    """The calibrator golden's weights, flat by checkpoint key: (calibrator
+    model, F = 4 model), each the eval golden's weights ``start`` plus new
+    leaves drawn with numpy from ``CALIBRATOR_GOLDEN_SEED``: the LSTM cells
+    as torch initialises them and the output head's weights normal x 0.4
+    (its bias at init); the extra channels normal / sqrt(E) and the operator
+    modules' first layers as torch initialises them, their final layers
+    normal x 0.4. At init the head and the final layers are identities; drawn
+    at random, the comparison reaches the calibrator and the extra channels."""
+    from dfol_vqa_tpu_torch.models import calibrator as cal
+
+    rng = np.random.default_rng(CALIBRATOR_GOLDEN_SEED)
+
+    def uniform(shape, k):
+        return rng.uniform(-k, k, shape).astype(np.float32)
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    S, in_dim = calib.attention_transfer_state_dim, calib.word_embedding_dim + 1 + cal.OPS_NUM
+    k = 1.0 / np.sqrt(S)
+    calib_w = dict(start)
+    for cell in ("fwd", "bwd"):
+        for name, shape in (("w_ih", (in_dim, 4 * S)), ("w_hh", (S, 4 * S)), ("b_ih", (4 * S,)),
+                            ("b_hh", (4 * S,))):
+            calib_w[f"calibrator/{cell}/{name}"] = uniform(shape, k)
+    calib_w["calibrator/out/w"] = normal((2 * S, cal.MOD_DIM), 0.4)
+    calib_w["calibrator/out/b"] = np.array([-np.log(cal.MAX_ACTIVATION - 1.0)] * 3 + [0.0],
+                                           np.float32)
+    E, V_pad = start["embedding/w"].shape
+    F, hidden = f4.oracle_output_dim, f4.operator_layers_config[0]
+    f4_w = dict(start)
+    f4_w["embedding_extra/w"] = normal((E, V_pad, F - 1), 1.0 / np.sqrt(E))
+    f4_w["embedding_extra/b"] = np.zeros((V_pad, F - 1), np.float32)
+    for arity in ("arity1", "arity2"):
+        key = f"op_modules/{arity}/layers"
+        f4_w[f"{key}/0/w"] = uniform((F, hidden), 1.0 / np.sqrt(F))
+        f4_w[f"{key}/0/b"] = uniform((hidden,), 1.0 / np.sqrt(F))
+        f4_w[f"{key}/1/w"] = normal((hidden, 1), 0.4)
+        f4_w[f"{key}/1/b"] = normal((1,), 0.4)
+    return calib_w, f4_w
+
+
+def calibrator_golden_batches(ontology, world, files, cfg) -> dict:
+    """{batch name: LoadedBatch} of the calibrator golden, unshuffled."""
+    from dfol_vqa_tpu_torch.data import trainset
+
+    return {name: list(trainset.train_loader(cfg, ontology, world, [qs], shuffle=False))[0]
+            for name, qs in files.items()}
+
+
+def check_calibrator_golden(device, atol: float, grad_rtol: float) -> dict:
+    """The calibrator and F = 4 models against the JAX calibrator golden on
+    ``device``; returns {model: batches checked} and logs the worst
+    reading. The rebuilt batches must equal the golden's; per model and
+    batch every eval and training-mode log_probability meets
+    ``saturated_lp_check`` at ``atol``, eval answer flags and
+    matches equal except on a row that the golden's scores put in a near-tie
+    (``near_ties``; training-mode flags answer nothing); per training batch the loss within ``grad_rtol``
+    relative, every gradient leaf stored within ``grad_rtol`` of max(1, its
+    largest value), and one optimizer step's change of every parameter
+    within ``adam_bound`` of JAX's. The calibrator model's frozen oracle
+    must not move. On a CUDA device the calibrator's per-question step
+    launches kernels 1 and 2 once each, its shared ``choose_rel`` step kernels
+    3 and 4, and the F = 4 model no kernel."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.convert import params_from_numpy
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    golden = np.load(CALIBRATOR_GOLDEN)
+    with np.load(EVAL_GOLDEN) as eval_golden:
+        start = {k[len("params/"):]: eval_golden[k] for k in eval_golden.files
+                 if k.startswith("params/")}
+    ont = GQAOntology()
+    calib, f4, world, files = calibrator_golden_setup(ont)
+    weights = dict(zip(("calibrator", "f4"), calibrator_golden_weights(start, calib, f4)))
+    batches = calibrator_golden_batches(ont, world, files, calib)
+    cuda = torch.device(device).type == "cuda"
+    checked, worst, saturated = {}, (0.0, ""), [0, 0.0]
+    for model, cfg in (("calibrator", calib), ("f4", f4)):
+        interp = Interpreter(cfg, ont)
+        names = [n for n in files if f"{model}/{n}/eval/log_probability" in golden.files]
+        for name in names:
+            lb, p = batches[name], f"{model}/{name}/"
+            blob, layout = pack_arrays(lb.arrays)
+            for key, v in (("objects", lb.objects), ("obj_mask", lb.obj_mask), ("arrays", blob),
+                           ("array_layout", layout)):
+                if not np.array_equal(v, golden[f"batch/{name}/{key}"]):
+                    raise AssertionError(f"{name} batch: {key} differs from the golden")
+            params = params_from_numpy(weights[model]).to(device)
+            _, o, m, arrays = to_device_batch(lb, device)
+            for mode in ("eval", "train"):
+                with torch.inference_mode():
+                    res = interp.forward(params, o, m, arrays, lb.spec, is_training=mode == "train")
+                lp, want = res["log_probability"].cpu().numpy(), golden[p + mode + "/log_probability"]
+                if lp.shape != want.shape or not np.isfinite(lp).all():
+                    raise AssertionError(f"{model} {name} {mode}: log_probability {lp.shape} "
+                                         f"not finite or not the golden's {want.shape}")
+                ok, by_ulp, err = saturated_lp_check(lp, want, atol)
+                if not ok.all():
+                    at = np.unravel_index(np.argmin(ok), ok.shape)
+                    raise AssertionError(f"{model} {name} {mode}: log_probability {lp[at]!r} at "
+                                         f"{list(at)}, the golden's {want[at]!r}: beyond {atol} x "
+                                         f"max(1, |golden's|) and {SATURATED_ULPS} x 2^-24 in "
+                                         "probability")
+                worst = max(worst, (err[1], f"{model} {name} {mode}"))
+                saturated = [saturated[0] + by_ulp[0], max(saturated[1], by_ulp[1])]
+                if mode == "train":
+                    continue
+                tie = near_ties(lb.spec.terminal_op, want, lb.arrays["opt_mask"]).any(axis=1)
+                flags = res["answer_flags"].cpu().numpy()
+                differ = (flags != golden[p + mode + "/answer_flags"]).reshape(len(flags), -1)
+                bad = differ.any(axis=1) | (res["match"].cpu().numpy() != golden[p + mode + "/match"])
+                if (bad & ~tie).any():
+                    raise AssertionError(f"{model} {name} {mode}: answer flags or matches differ "
+                                         "from the golden outside a near-tie")
+            if p + "loss" not in golden.files:
+                continue
+            trainer = VQATrainer(cfg, interp, device=device)
+            opt = Optimizer(cfg, params)
+            before = launch_counts()
+            loss = trainer.compute_grads(params, lb).item()
+            d = [a - b for a, b in zip(launch_counts(), before)]
+            want = float(golden[p + "loss"])
+            if not (np.isfinite(loss) and abs(loss - want) <= grad_rtol * abs(want)):
+                raise AssertionError(f"{model} {name}: loss {loss!r} != golden {want!r}")
+            want_grads = {k[len(p + "grads/"):]: golden[k] for k in golden.files
+                          if k.startswith(p + "grads/")}
+            got_grads, delta = grads_of(params), {}
+            for k, (err, mag) in leaf_errors({k: got_grads[k] for k in want_grads},
+                                             want_grads).items():
+                delta[k] = grad_rtol * max(1.0, mag)
+                if not err <= delta[k]:
+                    raise AssertionError(f"{model} {name}: gradient {k} off by {err!r} "
+                                         f"(max {mag!r})")
+            opt.step()
+            trainable = trainable_keys(cfg, params)
+            ref = {k: want_grads.get(k, np.zeros_like(v)) for k, v in weights[model].items()}
+            bound = adam_bound(cfg, trainable, [(ref, got_grads, weights[model], delta)])
+            after = flat_params(params)
+            for k, s0 in weights[model].items():
+                if k not in trainable and not np.array_equal(after[k], s0):
+                    raise AssertionError(f"{model} {name}: frozen {k} moved")
+                if not np.all(np.abs((after[k] - s0) - golden[p + "update/" + k]) <= bound[k]):
+                    raise AssertionError(f"{model} {name}: the step's change of {k} is off")
+            # F = 4 takes the plain tails; the calibrator model's per-question
+            # batch kernels 1 and 2, its shared choose_rel batch kernels 3 and 4
+            want_d = ([0, 0, 0, 0] if model == "f4" else
+                      [1, 1, 0, 0] if name == "per_question" else [0, 0, 1, 1])
+            if cuda and d != want_d:
+                raise AssertionError(f"{model} {name}: step launched (fwd, bwd, pair_mlp, "
+                                     f"contract) {d} times")
+        checked[model] = len(names)
+    log(f"[calibrator golden on {device}] worst reading outside the float32-saturated "
+        f"entries: {worst[0]!r} x max(1, |golden's|) in log space ({worst[1]}); saturated "
+        f"entries (beyond {atol} in log space, within {SATURATED_ULPS} x 2^-24 in probability): "
+        f"{saturated[0]}, the largest {saturated[1]!r} x 2^-24")
+    return checked
+
+
 def device_time(prof):
     """From a ``torch.profiler`` run: the union of its device-side (kernel,
     copy) event intervals in ms, None when it saw no device event, and the
@@ -1194,14 +1450,20 @@ def launch_counts() -> list:
     return [ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES]
 
 
-def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_launches) -> dict:
-    """Training steps over ``batches`` on the card and on the CPU plain path
-    from the same weights ``params_cpu``: every step's gradients within
-    ``TRAIN_GRAD_RTOL`` of each leaf's largest value, every loss within
-    ``TRAIN_LOSS_RTOL``, the parameters after the steps finite and, element
-    by element, within ``adam_bound`` of the CPU's; the kernels' launches
-    over the card's steps (``launch_counts`` order) must be
-    ``want_launches``. Returns {"launches", "losses", "text"}."""
+def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_launches,
+                      limits: dict = None) -> dict:
+    """Training steps over ``batches`` on the card from the weights
+    ``params_cpu``, each held against the CPU plain path's step from the
+    same parameters and Adam state (the card's, copied to the CPU before
+    every step: a reading holds one step's rounding, not the drift of two
+    trajectories that Adam moves apart): every step's gradients within
+    ``TRAIN_GRAD_RTOL`` of each leaf's largest value (``limits`` {step:
+    rtol} gives a batch its own limit), its loss within
+    ``TRAIN_LOSS_RTOL``, and the parameters after it finite and, element by
+    element, within ``adam_bound`` of the CPU's; the kernels' launches over
+    the card's steps (``launch_counts`` order) must be ``want_launches``.
+    Returns {"launches", "losses", "text", "params" (the card's after the
+    steps), "grads" (the card's, per step)}."""
     from dfol_vqa_tpu_torch.models.interpreter import Interpreter
     from dfol_vqa_tpu_torch.train.optim import Optimizer
     from dfol_vqa_tpu_torch.train.trainer import VQATrainer
@@ -1210,50 +1472,63 @@ def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_lau
     gpu = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
     cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
     o_gpu, o_cpu = Optimizer(cfg, p_gpu), Optimizer(cfg, p_cpu)
+    trainable = trainable_keys(cfg, params_cpu)
     before = launch_counts()
-    steps, losses, worst = [], [], (0.0, "")
+    losses, worst, card_grads, by_step, diff, used = [], (0.0, ""), [], [], 0.0, (0.0, "")
     for k, lb in enumerate(batches):
-        l_gpu = gpu.compute_grads(p_gpu, lb).item()
+        with torch.no_grad():
+            for mine, card_p in zip(p_cpu.parameters(), p_gpu.parameters()):
+                mine.copy_(card_p.cpu())
+        if o_gpu.adam is not None:
+            # a copy: load_state_dict keeps Adam's step counters as given
+            o_cpu.adam.load_state_dict(copy.deepcopy(o_gpu.adam.state_dict()))
         start = flat_params(p_cpu)
+        moments, t0 = adam_moments(o_cpu, p_cpu)
+        l_gpu = gpu.compute_grads(p_gpu, lb).item()
         l_cpu = cpu.compute_grads(p_cpu, lb).item()
-        g_gpu, g_cpu, delta = grads_of(p_gpu), grads_of(p_cpu), {}
+        g_gpu, g_cpu, delta, step_worst = grads_of(p_gpu), grads_of(p_cpu), {}, 0.0
+        rtol = (limits or {}).get(k, TRAIN_GRAD_RTOL)
         for key, (err, mag) in leaf_errors(g_gpu, g_cpu).items():
-            delta[key] = TRAIN_GRAD_RTOL * mag
+            delta[key] = rtol * mag
             if not err <= delta[key]:
                 raise AssertionError(f"{what} step {k} gradient {key}: card vs CPU "
-                                     f"{err!r} > {TRAIN_GRAD_RTOL} x {mag!r}")
+                                     f"{err!r} > {rtol} x {mag!r}")
             worst = max(worst, (err / max(mag, 1e-30), f"{key} at step {k}"))
-        steps.append((g_cpu, g_gpu, start, delta))
+            step_worst = max(step_worst, err / max(mag, 1e-30))
+        by_step.append(step_worst)
+        card_grads.append(g_gpu)
         if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu)):
             raise AssertionError(f"{what} step {k}: loss {l_gpu!r} on the card, {l_cpu!r} "
                                  "on the CPU")
         losses.append((l_gpu, l_cpu))
         o_gpu.step()
         o_cpu.step()
+        bound = adam_bound(cfg, trainable, [(g_cpu, g_gpu, start, delta)], moments, t0)
+        got, want_p = flat_params(p_gpu), flat_params(p_cpu)
+        if not all(np.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"{what}: non-finite parameters after step {k} on the card")
+        for key, b in bound.items():
+            gap = np.abs(got[key].astype(np.float64) - want_p[key])
+            if not np.all(gap <= b):
+                at = np.unravel_index(np.argmax(gap - b), gap.shape)
+                raise AssertionError(f"{what}: parameter {key}{list(at)} after step {k} is "
+                                     f"{gap[at]!r} from the CPU's, beyond the Adam bound "
+                                     f"{b[at]!r}")
+            diff = max(diff, float(gap.max()))
+            if np.any(b > 0):
+                used = max(used, (float(np.max(gap / np.where(b > 0, b, np.inf))), key))
     d = [a - b for a, b in zip(launch_counts(), before)]
     if d != list(want_launches):
         raise AssertionError(f"{what}: {len(batches)} steps launched (fwd, bwd, pair_mlp, "
                              f"contract) {d} times, not {list(want_launches)}")
-    n = len(batches)
-    bound = adam_bound(cfg, trainable_keys(cfg, params_cpu), steps)
-    got, want_p = flat_params(p_gpu), flat_params(p_cpu)
-    if not all(torch.isfinite(p).all() for p in p_gpu.parameters()):
-        raise AssertionError(f"{what}: non-finite parameters after {n} steps on the card")
-    diff, used = 0.0, (0.0, "")
-    for key, b in bound.items():
-        gap = np.abs(got[key].astype(np.float64) - want_p[key])
-        if not np.all(gap <= b):
-            at = np.unravel_index(np.argmax(gap - b), gap.shape)
-            raise AssertionError(f"{what}: parameter {key}{list(at)} after {n} steps is "
-                                 f"{gap[at]!r} from the CPU's, beyond the Adam bound {b[at]!r}")
-        diff = max(diff, float(gap.max()))
-        if np.any(b > 0):
-            used = max(used, (float(np.max(gap / np.where(b > 0, b, np.inf))), key))
-    text = (f"gradients of every step within {TRAIN_GRAD_RTOL} of each leaf's largest (worst "
-            f"{worst[1]} {worst[0]!r}); losses (card, CPU) {losses}; parameters apart by at most "
-            f"{diff / cfg.learning_rate!r} lr, within the Adam bound of those gradient gates "
-            f"element by element (largest share of its bound {used[0]!r}, {used[1]})")
-    return {"launches": d, "losses": losses, "text": text}
+    own = f" (step: own limit {limits})" if limits else ""
+    text = (f"every step from the card's parameters and Adam state: gradients within "
+            f"{TRAIN_GRAD_RTOL} of each leaf's largest{own} (worst {worst[1]} {worst[0]!r}; worst "
+            f"by step {by_step!r}); losses (card, CPU) {losses}; parameters after a step apart "
+            f"by at most {diff / cfg.learning_rate!r} lr, within the Adam bound of those "
+            f"gradient gates element by element (largest share of its bound {used[0]!r}, "
+            f"{used[1]})")
+    return {"launches": d, "losses": losses, "text": text, "params": p_gpu, "grads": card_grads}
 
 
 def phase_train(device, stamp: str) -> dict:
@@ -1391,6 +1666,29 @@ def lp_error(got, want) -> tuple:
             (float(got[at]), float(want[at])))
 
 
+# a probability that the reference computes as 1 - y, y rounded to float32
+# just below 1 (``logic.log_not``'s 1 - exp(x)), is a multiple of 2^-24 and
+# moves by 2^-24 when y moves by one ULP: at p ~ 6e-7 one such step is 0.1 in
+# log space
+SATURATED_ULPS = TIE_ULPS
+
+
+def saturated_lp_check(got, want, atol) -> tuple:
+    """Per entry of two log-probability arrays: within ``atol`` x max(1,
+    |want|) in log space, or, where float32 rounding rules log space (a
+    probability near 2^-24 resolves to few steps of 2^-24), within
+    ``SATURATED_ULPS`` x 2^-24 in probability. Returns (the entries that
+    agree, (how many agree only by the probability branch, their largest
+    gap in steps of 2^-24), ``lp_error``)."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    in_log = np.abs(g - w) <= atol * np.maximum(1.0, np.abs(w))
+    gap = np.abs(np.exp(g) - np.exp(w)) / 2.0 ** -24
+    by_ulp = ~in_log & (gap <= SATURATED_ULPS)
+    largest = float(gap[by_ulp].max()) if by_ulp.any() else 0.0
+    err = lp_error(np.where(by_ulp, w, g), w)  # the log-space reading of the rest
+    return in_log | by_ulp, (int(by_ulp.sum()), largest), err
+
+
 def forward_lp(interp, params, lb, device):
     """``log_probability`` of one batch as numpy (a dict for ``scene``)."""
     from dfol_vqa_tpu_torch.data.transfer import to_device_batch
@@ -1403,11 +1701,26 @@ def forward_lp(interp, params, lb, device):
     return lp.cpu().numpy()
 
 
-def phase_terminals_eval(device, stamp: str) -> dict:
+def terminal_eval_batches(cfg, ont) -> dict:
+    """{terminal: [its one LoadedBatch]}: 80 questions per terminal of
+    ``evalset.TERMINAL_HOPS`` on 8 images of their own, phase 8's set."""
+    from dfol_vqa_tpu_torch.data import evalset
+
+    world = evalset.demo_world(ont)
+    mix = tuple((t, h, evalset.PRODUCTION_BATCH) for t, h in evalset.TERMINAL_HOPS)
+    datasets = evalset.eval_datasets(world, mix, evalset.PRODUCTION_BATCH,
+                                     evalset.PRODUCTION_IMAGES_PER_BATCH, seed=TERMINALS_SEED)
+    return {t: list(evalset.eval_loader(cfg, ont, world, [qs]))
+            for (t, _), qs in zip(evalset.TERMINAL_HOPS, datasets)}
+
+
+def phase_terminals_eval(device, stamp: str, cfg=None, params_cpu=None,
+                         modes=("soft", "hard"), tag: str = "8") -> dict:
     """Offline evaluation of every question terminal at production dims on
     the card through ``VQATrainer``: one batch of 80 questions per terminal
     of ``evalset.TERMINAL_HOPS`` on 8 images of its own (O=100, the float32
-    h2 stream, random weights from seed 0), soft and hard. Against the same
+    h2 stream; by default ``evalset.demo_eval_config`` and random weights
+    from seed 0, or ``cfg`` and ``params_cpu``), in each of ``modes``. Against the same
     trainer on the CPU: probabilities exp(log_probability) within
     ``EVAL_P_ATOL``, ``predict``'s answers and ``test_epoch``'s error vector equal
     up to the near-tie rule (``near_ties``); the pair-MLP and
@@ -1423,22 +1736,18 @@ def phase_terminals_eval(device, stamp: str) -> dict:
 
     t0 = time.perf_counter()
     ont = GQAOntology()
-    cfg = evalset.demo_eval_config(stream_dtype="float32")
-    world = evalset.demo_world(ont)
-    mix = tuple((t, h, evalset.PRODUCTION_BATCH) for t, h in evalset.TERMINAL_HOPS)
-    datasets = evalset.eval_datasets(world, mix, evalset.PRODUCTION_BATCH,
-                                     evalset.PRODUCTION_IMAGES_PER_BATCH, seed=TERMINALS_SEED)
-    batches = {t: list(evalset.eval_loader(cfg, ont, world, [qs]))
-               for (t, _), qs in zip(evalset.TERMINAL_HOPS, datasets)}
-    log(f"[8] eval set: {len(batches)} terminals x 1 batch of {evalset.PRODUCTION_BATCH} "
+    cfg = cfg or evalset.demo_eval_config(stream_dtype="float32")
+    batches = terminal_eval_batches(cfg, ont)
+    log(f"[{tag}] eval set: {len(batches)} terminals x 1 batch of {evalset.PRODUCTION_BATCH} "
         f"(terminal, U_pad, relating): "
         f"{[(t, b[0].objects.shape[0], spec_needs_relations(b[0].spec)) for t, b in batches.items()]}"
         f", built in {time.perf_counter() - t0!r} s")
-    params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    if params_cpu is None:
+        params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
     params = copy.deepcopy(params_cpu).to(device)
     launches = {"pair_mlp_fwd": 0, "shared_contract_fwd": 0}
     rates, errs, n_ties, n_flipped, cpu_s = {}, {}, 0, 0, 0.0
-    for mode in ("soft", "hard"):
+    for mode in modes:
         c = dataclasses.replace(cfg, hard_mode=mode == "hard")
         gpu = VQATrainer(c, Interpreter(c, ont), device=device)
         cpu = VQATrainer(c, Interpreter(c, ont), device="cpu")
@@ -1473,22 +1782,22 @@ def phase_terminals_eval(device, stamp: str) -> dict:
             check_error_up_to_ties(error, gpu.last_test_counts, error_cpu,
                                    cpu.last_test_counts, ties)
             n_ties += len(ties)
-    log("[8] log_probability card vs CPU per terminal, soft / hard: largest |exp(card) - "
-        "exp(CPU)|, largest |card - CPU| / max(1, |CPU|) at (card, CPU): " + "; ".join(
-            f"{t} {errs[(t, 'soft')]!r} / {errs[(t, 'hard')]!r}" for t in batches))
+    log(f"[{tag}] log_probability card vs CPU per terminal, {' / '.join(modes)}: largest "
+        "|exp(card) - exp(CPU)|, largest |card - CPU| / max(1, |CPU|) at (card, CPU): "
+        + "; ".join(f"{t} " + " / ".join(repr(errs[(t, m)]) for m in modes) for t in batches))
     worst = max(errs, key=lambda k: errs[k][0])
     if errs[worst][0] > EVAL_P_ATOL:
         raise AssertionError(f"{worst}: probability card vs CPU {errs[worst]!r} > "
                              f"{EVAL_P_ATOL}")
-    log(f"[8] eval of {len(batches)} terminals x (soft, hard) on the card vs the CPU plain path "
+    log(f"[{tag}] eval of {len(batches)} terminals x {modes} on the card vs the CPU plain path "
         f"(CPU {cpu_s!r} s): exp(log_probability) within {EVAL_P_ATOL} (worst "
         f"{errs[worst][0]!r}, {worst}); predict and test_epoch equal except {n_flipped} of the "
         f"{n_ties} answers that a float32 near-tie decides (within {TIE_ULPS} ULPs; reported, "
         f"not gated); launches {launches}: pair_mlp and shared_contract once per relating batch "
         f"({stamp})")
-    log(f"[8] test_epoch questions/s per terminal on the card, one loaded batch of "
-        f"{evalset.PRODUCTION_BATCH} (loader outside), soft / hard: " + "; ".join(
-            f"{t} {rates[(t, 'soft')]!r} / {rates[(t, 'hard')]!r}" for t in batches))
+    log(f"[{tag}] test_epoch questions/s per terminal on the card, one loaded batch of "
+        f"{evalset.PRODUCTION_BATCH} (loader outside), {' / '.join(modes)}: " + "; ".join(
+            f"{t} " + " / ".join(repr(rates[(t, m)]) for m in modes) for t in batches))
     return launches
 
 
@@ -1556,6 +1865,317 @@ def phase_terminals_train(device, stamp: str) -> dict:
     names = ("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd", "shared_contract_fwd")
     return dict(zip(names, total))
 
+# phase 9: the last curriculum stage (calibrator on a frozen oracle), loaded
+# as a user loads it, and the JAX package's own trainable-interpreter case
+CALIBRATOR_CONFIG = os.path.join(ROOT, "configs", "curriculum_training",
+                                 "cur7_classifier-direct-ll.yaml")
+TRAINABLE = {"oracle_output_dim": 4, "operator_layers_config": [8]}
+
+
+def calibrator_config(objects: int = 100):
+    """``cur7`` through the port's ``Config.from_yaml`` at its own widths
+    (2048-d boxes, oracle 512, GloVe 300, state 50, batch 80), at
+    ``objects`` slots, with ``dropout=0.0`` (as every training script of the
+    repository sets it; with dropout on, both packages send training to the
+    plain tail) and the float32 h2 stream (card and CPU compared)."""
+    from dfol_vqa_tpu_torch.config import Config
+
+    cfg = Config.from_yaml(CALIBRATOR_CONFIG)
+    cfg.dropout, cfg.verbose = 0.0, False
+    cfg.tpu.max_object_num = objects
+    cfg.tpu.rel_stream_dtype = "float32"
+    cfg.tpu.train_chunk = 1
+    return cfg
+
+
+def model_params(cfg, ont):
+    """Random weights from seed 0 (on the CPU), with the heads that start
+    as identities drawn at random, normal x 0.4 from seed 1: the
+    calibrator's output weights and the operator modules' final layers. At
+    init these make the calibrator and the extra channels vanish, and a
+    comparison there would test nothing."""
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+
+    params = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    heads = [] if params.calibrator is None else [params.calibrator.out.w]
+    if params.op_modules is not None:
+        heads += [t for m in params.op_modules.values() for t in (m.layers[-1].w, m.layers[-1].b)]
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for h in heads:
+            h.copy_(torch.randn(h.shape, generator=g) * 0.4)
+    return params
+
+
+def phase_calibrator_serve(world, device, stamp: str) -> int:
+    """Phase 4's 64 requests through a ``ServingEngine`` with the calibrator
+    configuration at O=24 on the card, answers equal to the same engine on
+    the CPU, kernel 1 once per relating group (``phase_serve``); the
+    calibrator must run for ``exist`` and ``verify_rel`` and not for
+    ``query_attr`` (an open question at eval). Returns kernel 1's launches."""
+    from dfol_vqa_tpu_torch.models import calibrator as cal
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.serve import ServingEngine
+
+    ont = GQAOntology()
+    cfg = calibrator_config(objects=24)
+    params = model_params(cfg, ont)
+    runs: dict = {}
+    real = cal.compute_modulations
+
+    def counted(calib, interp, w, arrays, spec):
+        runs[spec.terminal_op] = runs.get(spec.terminal_op, 0) + 1
+        return real(calib, interp, w, arrays, spec)
+
+    engines = [ServingEngine(cfg, ont, params, features=world, device=d, max_batch=32,
+                             transfer_dtype="bfloat16") for d in (device, "cpu")]
+    cal.compute_modulations = counted
+    try:
+        launches = phase_serve(engines[0], engines[1], world, stamp, tag="9")
+    finally:
+        cal.compute_modulations = real
+        for eng in engines:
+            eng.stop()
+    if not (runs.get("exist", 0) > 0 and runs.get("verify_rel", 0) > 0
+            and runs.get("query_attr", 0) == 0):
+        raise AssertionError(f"calibrator runs by terminal {runs}: want exist and verify_rel, "
+                             "not query_attr")
+    log(f"[9] served with the calibrator: calibrator runs by terminal {runs} (none for "
+        "query_attr, an open question at eval)")
+    return launches
+
+
+def bare_step_ms(trainer, params, batches) -> float:
+    """ms per ``train_step`` over ``batches`` (host clock, ending in a
+    synchronize), after one warm pass."""
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+
+    opt = Optimizer(trainer.cfg, params)
+    for lb in batches:
+        trainer.train_step(params, opt, lb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lb in batches:
+        trainer.train_step(params, opt, lb)
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / len(batches)
+
+
+def phase_calibrator_train(device, stamp: str) -> list:
+    """The calibrator configuration (batch 80, O=100) trained on phase 7's
+    sets, ``TRAIN_COMPARE_STEPS`` steps per route on the card and the CPU
+    (``card_vs_cpu_steps``: kernels 1 and 2 per per-question relating step,
+    3 and 4 per shared one; the shared route's second step within
+    ``CALIB_SATURATED_STEP_RTOL``); the first step gives every calibrator leaf a
+    nonzero gradient, only the calibrator trains, and the frozen oracle
+    does not move by a bit. Then the bare ms/step of the shuffled set on the
+    card against phase 7's F = 1 configuration on the same batches, timed in
+    turns. Returns the steps' launches (``launch_counts`` order)."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    ont = GQAOntology()
+    cfg = calibrator_config()
+    world = evalset.demo_world(ont)
+    routes = {
+        "per_question": list(trainset.train_loader(
+            cfg, ont, world, trainset.train_datasets(world, trainset.PRODUCTION_MIX))),
+        "shared": list(trainset.train_loader(
+            cfg, ont, world, evalset.eval_datasets(world, trainset.PRODUCTION_MIX,
+                                                   trainset.PRODUCTION_BATCH,
+                                                   evalset.PRODUCTION_IMAGES_PER_BATCH),
+            shuffle=False))}
+    params_cpu = model_params(cfg, ont)
+    start = flat_params(params_cpu)
+    calib_keys = {k for k in start if k.startswith("calibrator/")}
+    if trainable_keys(cfg, params_cpu) != calib_keys:
+        raise AssertionError("the last curriculum stage must train the calibrator only")
+    total = [0, 0, 0, 0]
+    for route, batches in routes.items():
+        batches = batches[:TRAIN_COMPARE_STEPS]
+        relating = sum(spec_needs_relations(lb.spec) for lb in batches)
+        for lb in batches:
+            U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+            if spec_needs_relations(lb.spec) and (U * 2 <= B) != (route == "shared"):
+                raise AssertionError(f"a relating batch with U={U}, B={B} is off the {route} route")
+        want = [relating, relating, 0, 0] if route == "per_question" else [0, 0, relating, relating]
+        t0 = time.perf_counter()
+        limits = None
+        if route == "shared":
+            if batches[1].spec.terminal_op != "exist":
+                raise AssertionError("CALIB_SATURATED_STEP_RTOL was read on an exist batch")
+            limits = {1: CALIB_SATURATED_STEP_RTOL}
+        rec = card_vs_cpu_steps(cfg, ont, params_cpu, batches, device,
+                                f"calibrator, {route} route", want, limits)
+        zero = sorted(k for k in calib_keys if not np.any(rec["grads"][0][k]))
+        after = flat_params(rec["params"])
+        moved = sorted(k for k in start if k not in calib_keys
+                       and not np.array_equal(after[k], start[k]))
+        if zero or moved:
+            raise AssertionError(f"calibrator {route}: zero gradients {zero}, frozen leaves "
+                                 f"moved {moved}")
+        total = [a + b for a, b in zip(total, rec["launches"])]
+        log(f"[9] calibrator, {route} route, {len(batches)} steps of batch "
+            f"{cfg.train_batch_size} card vs CPU plain "
+            f"path in {time.perf_counter() - t0!r} s: {rec['text']}; every one of the "
+            f"{len(calib_keys)} calibrator leaves has a nonzero gradient, the "
+            f"{len(start) - len(calib_keys)} frozen oracle leaves are bitwise unchanged; launches "
+            f"(fwd, bwd, pair_mlp, contract) {rec['launches']} for {relating} relating steps")
+
+    cfg1 = trainset.demo_train_config()  # phase 7's F = 1 configuration
+    p_cal = copy.deepcopy(params_cpu).to(device)
+    p_one = copy.deepcopy(params_cpu)
+    p_one.calibrator = None
+    p_one = p_one.to(device)
+    runs = {"F=1": (VQATrainer(cfg1, Interpreter(cfg1, ont), device=device), p_one),
+            "calibrator": (VQATrainer(cfg, Interpreter(cfg, ont), device=device), p_cal)}
+    ms = {name: [] for name in runs}
+    for name in ("F=1", "calibrator", "calibrator", "F=1"):
+        ms[name].append(bare_step_ms(*runs[name], routes["per_question"]))
+    log(f"[9] bare train_step on the card, the shuffled set's {len(routes['per_question'])} "
+        f"batches of {cfg.train_batch_size} (loader outside), ms/step in turns: F=1 (phase 7's configuration) "
+        f"{ms['F=1']!r}, calibrator (cur7: oracle frozen) {ms['calibrator']!r} ({stamp})")
+    return total
+
+
+def phase_trainable(device, stamp: str) -> list:
+    """The trainable interpreter (``TRAINABLE``: F = 4, operator modules
+    [8]) at ``Config()`` widths, batch 80, O=100: one eval batch on the
+    shared route (phase 8's ``exist`` set) and one training step on the
+    per-question route (a shuffled ``exist`` batch), card against the CPU
+    plain path: probabilities within ``EVAL_P_ATOL`` and answer flags equal
+    up to the near-tie rule, the step under phase 7's gates. F > 1 runs the
+    plain tails, as the JAX package does: kernels 1-4 must launch zero
+    times. Returns the launches (all 0)."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+
+    ont = GQAOntology()
+    cfg = dataclasses.replace(trainset.demo_train_config(), **TRAINABLE)
+    world = evalset.demo_world(ont)
+    params_cpu = model_params(cfg, ont)
+    hops = dict(evalset.TERMINAL_HOPS)["exist"]
+    files = evalset.eval_datasets(world, (("exist", hops, evalset.PRODUCTION_BATCH),),
+                                  evalset.PRODUCTION_BATCH, evalset.PRODUCTION_IMAGES_PER_BATCH,
+                                  seed=TERMINALS_SEED)
+    (lb,) = list(evalset.eval_loader(cfg, ont, world, files))
+    if lb.objects.shape[0] * 2 > len(lb.arrays["img_index"]):
+        raise AssertionError("the F = 4 eval batch would not take the shared route")
+    interp = Interpreter(cfg, ont)
+    out = {}
+    before = launch_counts()
+    for dev, p in ((device, copy.deepcopy(params_cpu).to(device)), ("cpu", params_cpu)):
+        _, o, m, arrays = to_device_batch(lb, dev)
+        with torch.inference_mode():
+            res = interp.forward(p, o, m, arrays, lb.spec)
+        out[str(dev)] = {k: res[k].cpu().numpy() for k in ("log_probability", "answer_flags")}
+    d = [a - b for a, b in zip(launch_counts(), before)]
+    card, cpu = out[str(device)], out["cpu"]
+    err = lp_error(card["log_probability"], cpu["log_probability"])
+    tie = near_ties("exist", cpu["log_probability"], lb.arrays["opt_mask"]).any(axis=1)
+    differ = (card["answer_flags"] != cpu["answer_flags"]).reshape(len(tie), -1).any(axis=1)
+    if err[0] > EVAL_P_ATOL or (differ & ~tie).any() or d != [0, 0, 0, 0]:
+        raise AssertionError(f"F=4 eval batch: probability card vs CPU {err!r}, flags differ "
+                             f"outside a near-tie on {int((differ & ~tie).sum())} rows, "
+                             f"launches {d}")
+    log(f"[9] F=4 eval batch (exist, shared route, plain tails): exp(log_probability) card vs "
+        f"CPU within {err[0]!r} (log space {err[1]!r} x max(1, |CPU's|)); answer flags equal "
+        f"({int(differ.sum())} inside a near-tie); launches (fwd, bwd, pair_mlp, contract) {d}")
+    files = trainset.train_datasets(world, (("exist", hops, trainset.PRODUCTION_BATCH),),
+                                    seed=TERMINALS_SEED)
+    (lb,) = list(trainset.train_loader(cfg, ont, world, files, seed=TERMINALS_SEED))
+    if lb.objects.shape[0] * 2 <= len(lb.arrays["img_index"]) or not spec_needs_relations(lb.spec):
+        raise AssertionError("the F = 4 training batch would not relate on the per-question route")
+    t0 = time.perf_counter()
+    rec = card_vs_cpu_steps(cfg, ont, params_cpu, [lb], device, "F=4 (per-question route)",
+                            [0, 0, 0, 0])
+    log(f"[9] F=4 step (exist, per-question route, plain tails), batch {cfg.train_batch_size} "
+        f"card vs CPU in "
+        f"{time.perf_counter() - t0!r} s: {rec['text']}; launches (fwd, bwd, pair_mlp, "
+        f"contract) {rec['launches']} ({stamp})")
+    return [a + b for a, b in zip(d, rec["launches"])]
+
+
+def phase_calibrator_profile(device, stamp: str) -> None:
+    """One profiled eval pass of the calibrator configuration over phase 9's
+    14 terminal batches (loaded, loader outside): device busy and idle share
+    and the device events per batch; and the host's enqueue ms per batch
+    (``forward`` returning, before a synchronize) with the calibrator and,
+    on the same batches, with ``modulator_switch=False``."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    ont = GQAOntology()
+    cfg = calibrator_config()
+    batches = [lbs[0] for lbs in terminal_eval_batches(cfg, ont).values()]
+    params = model_params(cfg, ont).to(device)
+    trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    trainer.test_epoch(batches, params)  # warm-up
+    wall, busy, by_name = None, None, {}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.test_epoch(batches, params)
+        torch.cuda.synchronize()
+        wall = 1000 * (time.perf_counter() - t0)
+    busy, by_name = device_time(prof)
+    events = sum(n for _, n in by_name.values())
+    share = ("not measured (the profiler saw no device event)" if busy is None else
+             f"device busy {busy!r} ms, idle share {1 - busy / wall!r}")
+    enqueue = {}
+    for switch in (True, False, False, True):
+        times = []
+        for lb in batches:
+            _, o, m, arrays = to_device_batch(lb, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                trainer.interp.forward(params, o, m, arrays, lb.spec, modulator_switch=switch)
+            times.append(1000 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        enqueue.setdefault(switch, []).append(statistics.mean(times))
+    log(f"[9] profiled calibrator eval pass over {len(batches)} terminal batches of "
+        f"{cfg.test_batch_size} (loader outside): wall {wall!r} ms, {share}, {events} device events = "
+        f"{events / len(batches)!r} per batch ({stamp})")
+    log(f"[9]   host enqueue ms per batch (forward returning), in turns: calibrator on "
+        f"{enqueue[True]!r}, modulator_switch=False {enqueue[False]!r} ({stamp})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log("[9]   device ms by event (count): " + "; ".join(
+        f"{name[:60]} {ms!r} ({n})" for name, (ms, n) in top))
+
+
+def phase_calibrator(world, device, stamp: str) -> dict:
+    """Phase 9: the calibrator and the trainable interpreter on the card.
+    Returns the kernels' launches over its main runs (the served burst, the
+    eval, the training steps, F = 4)."""
+    t0 = time.perf_counter()
+    n = check_calibrator_golden(device, GOLDEN_ATOL, GOLDEN_GRAD_RTOL)
+    log(f"[9] JAX calibrator golden: {n} batches (calibrator model: every terminal and a shuffled "
+        f"batch; F=4: six), eval and training-mode log_probability within {GOLDEN_ATOL} (or, "
+        f"where float32 saturates, {SATURATED_ULPS} x 2^-24 in probability), answer "
+        f"flags and matches equal up to near-ties, one step each (calibrator: per-question and "
+        f"shared; F=4: per-question) within {GOLDEN_GRAD_RTOL} relative and the Adam bound")
+    serve = phase_calibrator_serve(world, device, stamp)
+    cfg = calibrator_config()
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    ev = phase_terminals_eval(device, stamp, cfg, model_params(cfg, GQAOntology()), ("soft",),
+                              tag="9")
+    steps = phase_calibrator_train(device, stamp)
+    f4 = phase_trainable(device, stamp)
+    phase_calibrator_profile(device, stamp)
+    log(f"[9] phase 9 took {time.perf_counter() - t0!r} s, CPU references included")
+    runs = [[serve, 0, 0, 0], [0, 0, ev["pair_mlp_fwd"], ev["shared_contract_fwd"]], steps, f4]
+    names = ("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd", "shared_contract_fwd")
+    return dict(zip(names, (sum(r[i] for r in runs) for i in range(4))))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1613,6 +2233,7 @@ def main() -> int:
     paths["terminals_eval"] = phase_terminals_eval(device, stamp)
     paths["terminals_train"] = phase_terminals_train(device, stamp)
     log(f"[8] phase 8 took {t8 + time.perf_counter() - t0!r} s, CPU references included")
+    paths["calibrator"] = phase_calibrator(world, device, stamp)
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

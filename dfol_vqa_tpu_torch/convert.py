@@ -16,6 +16,7 @@ import torch
 from torch import nn as tnn
 
 from dfol_vqa_tpu_torch import nn
+from dfol_vqa_tpu_torch.models.calibrator import CalibratorParams
 from dfol_vqa_tpu_torch.models.oracle import LOGIC_GATES, Embedding, OracleParams
 
 
@@ -62,36 +63,48 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def _pair(flat: Dict[str, np.ndarray], key: str, used: set, names=("w", "b")):
+    used.update(f"{key}/{n}" for n in names)
+    return [_tensor(flat[f"{key}/{n}"]) for n in names]
+
+
 def _mlp(flat: Dict[str, np.ndarray], name: str, used: set) -> Optional[nn.MLP]:
     layers = []
     while f"{name}/layers/{len(layers)}/w" in flat:
-        key = f"{name}/layers/{len(layers)}"
-        layers.append(nn.Linear(_tensor(flat[f"{key}/w"]), _tensor(flat[f"{key}/b"])))
-        used.update((f"{key}/w", f"{key}/b"))
+        layers.append(nn.Linear(*_pair(flat, f"{name}/layers/{len(layers)}", used)))
     return nn.MLP(layers) if layers else None
 
 
+def _has(flat: Dict[str, np.ndarray], top: str) -> bool:
+    return any(k.startswith(top + "/") for k in flat)
+
+
 def params_from_numpy(tree) -> OracleParams:
-    """JAX parameter pytree (or its flattened dict) as numpy -> OracleParams."""
+    """JAX parameter pytree (or its flattened dict) as numpy -> OracleParams.
+    Raises ValueError for keys of no module of the port."""
     flat = flatten(tree)
     used: set = set()
-    featurizer = _mlp(flat, "featurizer", used)
-    attribute = _mlp(flat, "attribute_network", used)
-    relation = _mlp(flat, "relation_network", used)
-    embedding = Embedding(_tensor(flat["embedding/w"]), _tensor(flat["embedding/b"]))
-    used.update(("embedding/w", "embedding/b"))
-    gates = None
-    if any(k.startswith("logic_gates/") for k in flat):
-        gates = tnn.ModuleDict()
-        for name in LOGIC_GATES:
-            key = f"logic_gates/{name}"
-            gates[name] = nn.Linear(_tensor(flat[f"{key}/w"]), _tensor(flat[f"{key}/b"]))
-            used.update((f"{key}/w", f"{key}/b"))
+    params = OracleParams(_mlp(flat, "featurizer", used), _mlp(flat, "attribute_network", used),
+                          _mlp(flat, "relation_network", used),
+                          Embedding(*_pair(flat, "embedding", used)))
+    if _has(flat, "logic_gates"):
+        params.logic_gates = tnn.ModuleDict(
+            {name: nn.Linear(*_pair(flat, f"logic_gates/{name}", used)) for name in LOGIC_GATES})
+    if _has(flat, "embedding_extra"):
+        params.embedding_extra = Embedding(*_pair(flat, "embedding_extra", used))
+    if _has(flat, "op_modules"):
+        params.op_modules = tnn.ModuleDict(
+            {name: _mlp(flat, f"op_modules/{name}", used) for name in ("arity1", "arity2")})
+    if _has(flat, "calibrator"):
+        lstm = ("w_ih", "w_hh", "b_ih", "b_hh")
+        params.calibrator = CalibratorParams(
+            nn.LSTMCell(*_pair(flat, "calibrator/fwd", used, lstm)),
+            nn.LSTMCell(*_pair(flat, "calibrator/bwd", used, lstm)),
+            nn.Linear(*_pair(flat, "calibrator/out", used)))
     extra = sorted(set(flat) - used)
     if extra:
-        raise NotImplementedError(
-            f"parameters of modules not ported yet (calibrator, F>1 heads): {extra[:4]}")
-    return OracleParams(featurizer, attribute, relation, embedding, gates)
+        raise ValueError(f"parameters of no module of the port: {extra[:4]}")
+    return params
 
 
 def params_to_numpy(params: OracleParams) -> Dict[str, Any]:

@@ -18,9 +18,12 @@ runs the ``pair_mlp`` and ``shared_contract`` kernels; otherwise, per
 question, the relation-oracle kernels (``ops/relation_oracle.py``, forward
 and, under autograd, backward) when the tensors are on a CUDA device,
 ``tpu.use_pallas`` is set and ``oracle_output_dim == 1``, and the plain
-``oracle.rel_cache`` otherwise. The loss covers every question type:
-STATEMENT, BINARY, QUERY, OBJECT_STATEMENT and SCENE_GRAPH. The calibrator
-(``activate_attention_transfer``) is not ported (ROADMAP queue 4).
+``oracle.rel_cache`` otherwise (so the trainable interpreter, F > 1, always
+takes a plain tail, as in JAX). The loss covers every question type:
+STATEMENT, BINARY, QUERY, OBJECT_STATEMENT and SCENE_GRAPH. With
+``activate_attention_transfer`` the calibrator (``models/calibrator.py``)
+computes per-slot and terminal modulations, which ``_modulate`` applies to
+the attentions the executor carries.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from dfol_vqa_tpu_torch.compiler.program_compiler import (
 )
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.ontology import GQAOntology
+from dfol_vqa_tpu_torch.models import calibrator as cal
 from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.featurizer import featurize_objects
 from dfol_vqa_tpu_torch.ops.cells import filter_update, normalize_over_options, relate_update
@@ -145,7 +149,23 @@ def _bce_terms(lp: torch.Tensor):
     return lg, lg1
 
 
+def _modulate(att: torch.Tensor, mods: Optional[torch.Tensor]) -> torch.Tensor:
+    """The attention calibration transform on a log-attention tensor; mods
+    (..., 4) in sigmoid space, (alpha, beta, c) scaled by
+    ``MAX_ACTIVATION``, broadcast over the last (object) axis."""
+    if mods is None:
+        return att
+    alpha = mods[..., 0:1] * cal.MAX_ACTIVATION
+    beta = mods[..., 1:2] * cal.MAX_ACTIVATION
+    c = mods[..., 2:3] * cal.MAX_ACTIVATION
+    d = mods[..., 3:4]
+    temp = alpha * att + logic.safe_log(c) + logic.safe_log(d)
+    return temp - logic.safe_log(torch.exp(beta * logic.log_not(att) + logic.safe_log(1.0 - d))
+                                 + torch.exp(temp))
+
+
 Gates = Optional[Dict[str, Linear]]
+Mods = Optional[Dict[str, torch.Tensor]]
 
 
 def _filter_gate(gates: Gates) -> Optional[Linear]:
@@ -162,18 +182,27 @@ def _relate_core(subj, obj, ll, obj_mask, gates: Gates = None):
     return relate_update(subj, obj, ll, ones, ones, obj_mask, gates=_relate_gates(gates))
 
 
-def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None):
+def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None, mods: Mods = None):
     """Select the new set (token ``aux``, 0 = everything), relate it with the
     running set ``att`` through ``ll_rel``, and keep the new side: the
     subject when ``s == 1``, else the object. ``ll_rel (B, K, O, O)`` fans
-    both sets out over K options (``choose_rel``)."""
-    x = torch.where((aux != 0)[:, None], _gather_attr(world, aux), 0.0)
+    both sets out over K options (``choose_rel``). The calibrator's
+    ``select`` mods apply to the selected set where ``aux != 0``, its
+    ``subject`` and ``object`` mods ((B, 4), or (B, K, 4) on a fan-out) to
+    the related sets before the side is kept."""
+    picked = (aux != 0)[:, None]
+    x = torch.where(picked, _gather_attr(world, aux), 0.0)
+    if mods is not None and mods.get("select") is not None:
+        x = torch.where(picked, _modulate(x, mods["select"]), x)
     subj = s * x + (1.0 - s) * att
     obj = s * att + (1.0 - s) * x
     if ll_rel.ndim == 4:
         K = ll_rel.shape[1]
         subj, obj, s = subj[:, None].expand(-1, K, -1), obj[:, None].expand(-1, K, -1), s[:, None]
     subj2, obj2 = _relate_core(subj, obj, ll_rel, world.obj_mask, gates)
+    if mods is not None:
+        subj2 = _modulate(subj2, mods.get("subject"))
+        obj2 = _modulate(obj2, mods.get("object"))
     return s * subj2 + (1.0 - s) * obj2
 
 
@@ -186,21 +215,41 @@ class Interpreter:
 
     def __init__(self, cfg: Config, ontology: GQAOntology):
         om.check_supported(cfg)
-        if cfg.activate_attention_transfer:
-            raise _not_ported("the attention-transfer calibrator", "queue 4, the calibrator")
         self.cfg = cfg
         self.ont = ontology
         self._rel_gather_cache = None
+        self._emb_matrix: Optional[np.ndarray] = None
         self._index_cache: Dict[tuple, torch.Tensor] = {}
 
     def init_params(self, generator: torch.Generator, device="cpu") -> om.OracleParams:
-        """The oracle's parameters, then, with ``trainable_gate``, the logic
-        gates, all drawn from ``generator`` on the CPU and moved to
+        """The oracle's parameters (with the trainable interpreter's heads
+        when ``oracle_output_dim > 1``), then, with ``trainable_gate``, the
+        logic gates and, with ``activate_attention_transfer``, the
+        calibrator, all drawn from ``generator`` on the CPU and moved to
         ``device``."""
         params = om.init_oracle_params(self.cfg, self.ont, generator)
         if self.cfg.trainable_gate:
             params.logic_gates = om.init_logic_gates(generator)
+        if self.cfg.activate_attention_transfer:
+            params.calibrator = cal.init_calibrator_params(self.cfg, generator)
         return params.to(device)
+
+    @property
+    def embedding_matrix(self) -> np.ndarray:
+        """The whole vocabulary's GloVe matrix (V+1, D), cut to
+        ``word_embedding_dim``: the calibrator's token features. Host numpy;
+        not a parameter."""
+        if self._emb_matrix is None:
+            m = self.ont.embedding_matrix()
+            self._emb_matrix = np.asarray(m[:, :self.cfg.word_embedding_dim], np.float32)
+        return self._emb_matrix
+
+    def embedding_on(self, device) -> torch.Tensor:
+        """``embedding_matrix`` on ``device``, moved there once."""
+        key = ("embedding", str(device))
+        if key not in self._index_cache:
+            self._index_cache[key] = torch.as_tensor(self.embedding_matrix, device=device)
+        return self._index_cache[key]
 
     def _index(self, name: str, device) -> torch.Tensor:
         """The ontology's 0-based attribute (``name="attribute"``) or
@@ -289,23 +338,29 @@ class Interpreter:
     # -------------------------------------------------------- branch executor
 
     def _run_branch(self, world: World, arrays: Dict[str, torch.Tensor], branch: int,
-                    grid: Sequence[int], gates: Gates = None) -> torch.Tensor:
+                    grid: Sequence[int], gates: Gates = None,
+                    slot_mods: Optional[Sequence[Mods]] = None) -> torch.Tensor:
         """Execute one branch's slot sequence; returns the final (B, O)
         attention. Every slot is gated by ``(tok != 0) * op_mask``, so padded
-        slots are exact no-ops."""
+        slots are exact no-ops. ``slot_mods`` holds the calibrator's role
+        dict per slot."""
         B, O = world.obj_mask.shape
         att = torch.zeros((B, O), dtype=torch.float32, device=world.obj_mask.device)
         for si, opc in enumerate(grid):
             if opc == OP_PAD:
                 continue
+            mods = slot_mods[si] if slot_mods is not None else None
             m = arrays["op_mask"][:, branch, si]
             tok = arrays["arg_tok"][:, branch, si]
             if opc in (OP_SELECT, OP_FILTER):
                 new = filter_update(att, _gather_attr(world, tok), _filter_gate(gates))
+                if mods is not None:
+                    new = _modulate(new, mods.get("filter"))
             else:  # OP_RELATE
                 ll_rel = _gather_rel(world.rel_ll, arrays["rel_idx"][:, branch, si], tok)
                 new = _relate_step(world, att, arrays["arg_aux"][:, branch, si],
-                                   arrays["arg_flag"][:, branch, si][:, None], ll_rel, gates)
+                                   arrays["arg_flag"][:, branch, si][:, None], ll_rel, gates,
+                                   mods)
             upd = ((tok != 0).float() * m)[:, None]
             att = upd * new + (1.0 - upd) * att
         return att
@@ -313,28 +368,32 @@ class Interpreter:
     # ------------------------------------------------------------- terminals
 
     def _filter_fanout(self, world, att, options, opt_mask, normalize: bool,
-                       gates: Gates = None):
-        """Fan-out filter over a (B, K) option axis."""
+                       gates: Gates = None, mods: Optional[torch.Tensor] = None):
+        """Fan-out filter over a (B, K) option axis; ``mods`` (B, K, 4)."""
         ll = _gather_attr_options(world, options)
         ll = normalize_over_options(ll, opt_mask, enabled=normalize and self.cfg.normalize_oracle)
         ll = _apply_option_negation(ll, options)
-        return filter_update(att[:, None, :], ll, _filter_gate(gates))
+        return _modulate(filter_update(att[:, None, :], ll, _filter_gate(gates)), mods)
 
     def _terminal(self, world: World, arrays, spec: BucketSpec, atts, hard: bool,
-                  gates: Gates = None, params: Optional[om.OracleParams] = None):
+                  gates: Gates = None, params: Optional[om.OracleParams] = None,
+                  tmods: Mods = None):
         """(B,) log probability for BINARY/STATEMENT terminals, (B, K) for
         QUERY and OBJECT_STATEMENT ones, and for ``scene`` a dict of the
-        attribute (B, O, A) and listed-pair relation (B, P, V_rel) ones."""
+        attribute (B, O, A) and listed-pair relation (B, P, V_rel) ones.
+        ``tmods`` holds the calibrator's terminal modulations."""
         cfg = self.cfg
         term = spec.terminal_op
         mask = world.obj_mask
         options, opt_mask = arrays["options"], arrays["opt_mask"]
+        tmods_get = (lambda _: None) if tmods is None else tmods.get
 
         def ones(x):
             return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
 
-        def fanout(att, normalize=True):
-            return self._filter_fanout(world, att, options, opt_mask, normalize, gates)
+        def fanout(att, normalize=True, key="fanout"):
+            return self._filter_fanout(world, att, options, opt_mask, normalize, gates,
+                                       tmods_get(key))
 
         def any_option(lp_k):  # OR over the option fan-out
             return logic.log_not(torch.sum(logic.log_not(lp_k) * opt_mask, dim=1))
@@ -362,13 +421,13 @@ class Interpreter:
             ll = normalize_over_options(ll, opt_mask, enabled=cfg.normalize_oracle)
             ll = _apply_option_negation(ll, options)
             chosen = _relate_step(world, atts[0], arrays["last_aux"],
-                                  arrays["last_flag"][:, None], ll, gates)
+                                  arrays["last_flag"][:, None], ll, gates, tmods)
             return _log_probability(chosen, ones(chosen), mask, hard)
 
         if term == "verify_rel":
             ll = _gather_rel(world.rel_ll, arrays["last_rel_idx"], arrays["last_tok"])
             final = _relate_step(world, atts[0], arrays["last_aux"],
-                                 arrays["last_flag"][:, None], ll, gates)
+                                 arrays["last_flag"][:, None], ll, gates, tmods)
             return _log_probability(final, ones(final), mask, hard)
 
         if term in ("and", "or"):
@@ -386,7 +445,7 @@ class Interpreter:
             return logic.log_not(lp) if term == "all_different" else lp
 
         if term in ("two_same", "two_different"):
-            att_k1, att_k2 = fanout(atts[0]), fanout(atts[1])
+            att_k1, att_k2 = fanout(atts[0], key="fanout0"), fanout(atts[1], key="fanout1")
             lp_k = logic.log_and(_log_probability(att_k1, ones(att_k1), mask, hard),
                                  _log_probability(att_k2, ones(att_k2), mask, hard))
             lp = any_option(lp_k)
@@ -396,8 +455,8 @@ class Interpreter:
             # both branches filtered by the attribute, a log-softmax over the
             # two, and the is_less flip
             ll = _gather_attr(world, arrays["last_tok"])
-            a1 = filter_update(atts[0], ll, _filter_gate(gates))
-            a2 = filter_update(atts[1], ll, _filter_gate(gates))
+            a1 = _modulate(filter_update(atts[0], ll, _filter_gate(gates)), tmods_get("branch0"))
+            a2 = _modulate(filter_update(atts[1], ll, _filter_gate(gates)), tmods_get("branch1"))
             lp = torch.log_softmax(torch.stack([_log_probability(a1, ones(a1), mask, hard),
                                                 _log_probability(a2, ones(a2), mask, hard)],
                                                dim=1), dim=1)
@@ -567,9 +626,12 @@ class Interpreter:
         spec: BucketSpec,
         is_training: bool = False,
         generator: Optional[torch.Generator] = None,
+        modulator_switch: bool = True,
     ) -> Dict[str, torch.Tensor]:
         """Execute one compiled batch. ``objects`` may arrive as bf16 (the
-        serving transfer dtype); it is upcast to float32 on the device."""
+        serving transfer dtype); it is upcast to float32 on the device.
+        ``modulator_switch=False`` turns the calibrator off (see
+        ``execute``)."""
         if objects.dtype == torch.int8:
             raise _not_ported("int8 object transfer", "queue 5, the int8 object transfer")
         world = self.build_world(
@@ -577,24 +639,39 @@ class Interpreter:
             generator=generator, deterministic=not is_training,
             needs_rel=spec_needs_relations(spec), img_index=arrays.get("img_index"),
         )
-        return self.execute(params, world, arrays, spec, is_training)
+        return self.execute(params, world, arrays, spec, is_training, modulator_switch)
 
     def execute(self, params: om.OracleParams, world: World, arrays: Dict[str, torch.Tensor],
-                spec: BucketSpec, is_training: bool = False) -> Dict[str, torch.Tensor]:
+                spec: BucketSpec, is_training: bool = False,
+                modulator_switch: bool = True) -> Dict[str, torch.Tensor]:
         """Run a compiled batch against a prebuilt World. Returns
         ``log_probability``, ``answer_flags``, ``match`` and ``type``, and
         with ``is_training`` the ``loss`` (summed over the real questions,
         not yet normalised). JAX's jit drops the loss where nothing reads it;
-        eager PyTorch would launch its ops on every serving and eval batch."""
+        eager PyTorch would launch its ops on every serving and eval batch.
+
+        The calibrator runs when ``activate_attention_transfer`` is set, the
+        params hold one and ``modulator_switch`` is on, except at eval for
+        the open terminals ``query_attr``, ``choose_attr`` and
+        ``choose_rel`` (``compare`` keeps it), as in JAX."""
+        cfg = self.cfg
         qtype = question_type_of(spec.terminal_op)
+        open_terminal = spec.terminal_op in ("query_attr", "choose_attr", "choose_rel")
+        modulations = None
+        if (cfg.activate_attention_transfer and params is not None
+                and params.calibrator is not None
+                and modulator_switch and (is_training or not open_terminal)):
+            modulations = cal.compute_modulations(params.calibrator, self, world, arrays, spec)
         gates = None
-        if self.cfg.trainable_gate and params is not None and params.logic_gates is not None:
+        if cfg.trainable_gate and params is not None and params.logic_gates is not None:
             gates = params.logic_gates
-        atts = [self._run_branch(world, arrays, b, grid, gates)
+        atts = [self._run_branch(world, arrays, b, grid, gates,
+                                 modulations["slots"][b] if modulations else None)
                 for b, grid in enumerate(spec.grid)]
-        hard = (not is_training) and self.cfg.hard_mode
+        hard = (not is_training) and cfg.hard_mode
         arrays = {**arrays, "__obj_mask__": world.obj_mask}  # scene-graph masking
-        lp = self._terminal(world, arrays, spec, atts, hard, gates, params)
+        lp = self._terminal(world, arrays, spec, atts, hard, gates, params,
+                            modulations["terminal"] if modulations else None)
         out = self._answers_and_metrics(lp, arrays, spec, qtype)
         if is_training:
             out["loss"] = self._loss(lp, arrays, qtype, params)

@@ -1,17 +1,27 @@
 """Visual oracle: learned attribute/relation log-likelihood scorer.
 
-Port of ``dfol_vqa_tpu/models/oracle.py`` for ``oracle_output_dim == 1``:
-the parameter tree (``OracleParams``, with the executor's optional logic
-gates), ``attr_cache`` (vocab-major ``(B, V+1, O)``),
-``_first_layer_split``, the plain per-question ``rel_cache`` and the
-shared-image ``rel_cache_shared`` (both R-major ``(B, R, O, O)``), and
-``rel_scores_for_pairs`` (listed pairs, for the supervision terminals). The
-first relation layer is split into subject/object/geometry parts, so the
-O^2 term is a broadcast add of two (B, O, H) products and a 4-wide geometry
-contraction.
+Port of ``dfol_vqa_tpu/models/oracle.py``: the parameter tree
+(``OracleParams``, with the executor's optional logic gates and calibrator),
+``attr_cache`` (vocab-major ``(B, V+1, O)``), ``_first_layer_split``, the
+plain per-question ``rel_cache`` and the shared-image ``rel_cache_shared``
+(both R-major ``(B, R, O, O)``), and ``rel_scores_for_pairs`` (listed
+pairs, for the supervision terminals). The first relation layer is split
+into subject/object/geometry parts, so the O^2 term is a broadcast add of
+two (B, O, H) products and a 4-wide geometry contraction.
 
-Still to port (ROADMAP queues): ``full_caches``, ``static_attr_cache`` and
-``oracle_output_dim > 1``.
+The trainable interpreter (``oracle_output_dim`` F > 1): the concept heads
+emit F logit channels per cell, channel 0 from ``embedding`` and channels
+1..F-1 from ``embedding_extra`` (``w (E, V_pad, F-1)``), and a per-arity
+operator module (``op_modules``: ``arity1`` for attribute cells, ``arity2``
+for relation cells, each an MLP F -> ``operator_layers_config`` -> 1)
+reduces them to a scalar log-likelihood, ``logsigmoid(logits0 +
+mlp(sigmoid([logits0 ‖ logits_x])))``. The module is elementwise over the
+cells, so it is applied while the caches are built and the executor reads
+scalar caches as for F = 1. Its final layer starts at zero, so F > 1 starts
+out equal to F = 1. F > 1 runs the plain tails only: the kernel routes and
+the contract-then-gather tail require F == 1, as in JAX.
+
+Still to port (ROADMAP queues): ``full_caches`` and ``static_attr_cache``.
 """
 
 from __future__ import annotations
@@ -44,10 +54,14 @@ LOGIC_GATES = ("filter", "relate0", "relate1")
 
 
 class OracleParams(tnn.Module):
-    """The oracle's parameters; ``featurizer`` is None for the identity
-    network (``featurizer_layers_config=None``). ``logic_gates`` holds the
-    executor's neural logic gates (``trainable_gate``): one ``Linear(2, 6)``
-    per combine site, keyed by ``LOGIC_GATES``, or None."""
+    """The model's parameters; ``featurizer`` is None for the identity
+    network (``featurizer_layers_config=None``). The optional parts are None
+    when their configuration is off: ``logic_gates``, the executor's neural
+    logic gates (``trainable_gate``: one ``Linear(2, 6)`` per combine site,
+    keyed by ``LOGIC_GATES``); ``embedding_extra`` and ``op_modules``, the
+    trainable interpreter's heads (``oracle_output_dim > 1``);
+    ``calibrator``, the attention-transfer calibrator
+    (``activate_attention_transfer``, ``models/calibrator.CalibratorParams``)."""
 
     def __init__(self, featurizer: Optional[nn.MLP], attribute_network: nn.MLP,
                  relation_network: nn.MLP, embedding: Embedding,
@@ -58,6 +72,9 @@ class OracleParams(tnn.Module):
         self.relation_network = relation_network
         self.embedding = embedding
         self.logic_gates = logic_gates
+        self.embedding_extra: Optional[Embedding] = None
+        self.op_modules: Optional[tnn.ModuleDict] = None
+        self.calibrator: Optional[tnn.Module] = None
 
 
 def init_logic_gates(generator: torch.Generator) -> tnn.ModuleDict:
@@ -67,11 +84,7 @@ def init_logic_gates(generator: torch.Generator) -> tnn.ModuleDict:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for configurations this slice of the port does not run."""
-    if cfg.oracle_output_dim != 1:
-        raise NotImplementedError(
-            "oracle_output_dim > 1 (trainable interpreter) is not ported yet "
-            "(ROADMAP queue 4: the calibrator and the trainable interpreter)")
+    """Raise for configurations the port does not run."""
     if cfg.tpu.compute_dtype != "float32":
         raise NotImplementedError(
             f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: the port computes in float32")
@@ -118,7 +131,54 @@ def init_oracle_params(cfg: Config, ontology, generator: torch.Generator,
     w[:concept_num, :d] = glove[:, :d]
     w[concept_num:, :] = 0.0
     embedding = Embedding(w.t().contiguous(), torch.zeros((concept_pad,)))
-    return OracleParams(featurizer, attribute, relation, embedding).to(device)
+    params = OracleParams(featurizer, attribute, relation, embedding)
+    channels = cfg.oracle_output_dim
+    if channels > 1:
+        if cfg.operator_layers_config is None:
+            raise ValueError(
+                "oracle_output_dim > 1 requires operator_layers_config to be a list (e.g. [] "
+                "for a single Linear(F -> 1)); None cannot reduce the feature axis.")
+        extra_w = (torch.randn((emb_in, concept_pad, channels - 1), generator=generator)
+                   / np.sqrt(emb_in))
+        params.embedding_extra = Embedding(extra_w, torch.zeros((concept_pad, channels - 1)))
+        params.op_modules = tnn.ModuleDict(
+            {name: _zero_final(nn.MLP.init(channels, cfg.operator_layers_config, 1, generator))
+             for name in ("arity1", "arity2")})
+    return params.to(device)
+
+
+def _zero_final(mlp: nn.MLP) -> nn.MLP:
+    """Zero the last layer: the operator module's output is a residual on
+    the channel-0 logit, so F > 1 starts out equal to F = 1."""
+    with torch.no_grad():
+        mlp.layers[-1].w.zero_()
+        mlp.layers[-1].b.zero_()
+    return mlp
+
+
+def trainable_interpreter(params: OracleParams, cfg: Config) -> bool:
+    """Whether the caches go through the operator modules (F > 1)."""
+    return cfg.oracle_output_dim > 1 and params.op_modules is not None
+
+
+def _op_module_ll(params: OracleParams, cfg: Config, logits0: torch.Tensor,
+                  logits_x: torch.Tensor, arity: int,
+                  generator: Optional[torch.Generator] = None,
+                  deterministic: bool = True) -> torch.Tensor:
+    """Channel-0 logits (...) and the extra channels' (..., F-1) -> scalar
+    log-likelihoods (...): logsigmoid(logits0 + mlp(sigmoid(all channels)))."""
+    feats = torch.sigmoid(torch.cat([logits0[..., None], logits_x], dim=-1))
+    delta = params.op_modules[f"arity{arity}"](
+        feats, final="none", dropout_rate=cfg.dropout, generator=generator,
+        deterministic=deterministic)[..., 0]
+    return F.logsigmoid(logits0 + delta)
+
+
+def _extra_emb_select(params: OracleParams, tok0: torch.Tensor):
+    """(B, R) 0-based token columns -> the extra heads' rows: (e_sel_x
+    (B, R, E, F-1), b_sel_x (B, R, F-1))."""
+    w_x, b_x = params.embedding_extra.w, params.embedding_extra.b  # (E, V_pad, F-1), (V_pad, F-1)
+    return w_x.movedim(1, 0)[tok0], b_x[tok0]
 
 
 def attr_cache(
@@ -137,7 +197,13 @@ def attr_cache(
                      dropout_rate=cfg.dropout, generator=generator,
                      deterministic=deterministic)
     logits = torch.matmul(h, params.embedding.w) + params.embedding.b
-    ll = F.logsigmoid(logits).movedim(-1, 1)  # (B, V, O)
+    if trainable_interpreter(params, cfg):
+        logits_x = (torch.einsum("boe,evk->bovk", h, params.embedding_extra.w)
+                    + params.embedding_extra.b)
+        ll = _op_module_ll(params, cfg, logits, logits_x, 1, generator, deterministic)
+    else:
+        ll = F.logsigmoid(logits)
+    ll = ll.movedim(-1, 1)  # (B, V, O)
     B, _, O = ll.shape
     pad = torch.full((B, 1, O), default_ll, dtype=ll.dtype, device=ll.device)
     return torch.cat([pad, ll], dim=1)
@@ -194,9 +260,24 @@ def rel_cache(
         h = nn.dropout(h, cfg.dropout, generator, deterministic)
         h = torch.matmul(h, layer.w) + layer.b
     h = torch.sigmoid(h)
-    logits = torch.einsum("bije,bre->brij", h, e_sel) + b_sel[:, :, None, None]
-    ll = F.logsigmoid(logits)
+    ll = _contract_ll(params, cfg, h, rel_tokens, e_sel, b_sel, generator, deterministic)
     return ll.masked_fill((rel_tokens == 0)[:, :, None, None], default_ll)
+
+
+def _contract_ll(params: OracleParams, cfg: Config, h2: torch.Tensor, rel_tokens: torch.Tensor,
+                 e_sel: torch.Tensor, b_sel: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = True) -> torch.Tensor:
+    """Per-question pair codes h2 (B, O, O, E) against each question's
+    relation rows -> (B, R, O, O) log-likelihoods, through the arity-2
+    operator module for F > 1."""
+    logits = torch.einsum("bije,bre->brij", h2, e_sel) + b_sel[:, :, None, None]
+    if not trainable_interpreter(params, cfg):
+        return F.logsigmoid(logits)
+    e_sel_x, b_sel_x = _extra_emb_select(params, torch.clamp(rel_tokens.long() - 1, min=0))
+    logits_x = (torch.einsum("bije,bref->brijf", h2, e_sel_x)
+                + b_sel_x[:, :, None, None, :])
+    return _op_module_ll(params, cfg, logits, logits_x, 2, generator, deterministic)
 
 
 REL_ROUTES = ("auto", "pallas", "xla")
@@ -239,9 +320,10 @@ def rel_cache_shared(
       dtype;
     * contract-then-gather when ``rel_gather`` (the interpreter's
       ``_rel_gather_map``) is given, ``tpu.rel_contract_then_gather`` is on
-      and U < B: h2 projected once per image onto the relation
-      sub-vocabulary, then a per-question row gather;
-    * otherwise the per-question einsum over the gathered h2.
+      and U < B (F == 1 only): h2 projected once per image onto the
+      relation sub-vocabulary, then a per-question row gather;
+    * otherwise the per-question einsum over the gathered h2 (with the
+      arity-2 operator module for F > 1).
 
     The plain tails use the expm1 ELU (``jax.nn.elu``), the kernel route
     the TPU kernels' exp(x)-1 form."""
@@ -280,7 +362,8 @@ def rel_cache_shared(
         h = torch.matmul(h, layer.w) + layer.b
     h2 = torch.sigmoid(h)  # (U, O, O, E) shared pair code
 
-    if rel_gather is not None and cfg.tpu.rel_contract_then_gather and U < B:
+    if (rel_gather is not None and cfg.tpu.rel_contract_then_gather and U < B
+            and not trainable_interpreter(params, cfg)):
         # the relation sub-vocabulary's embedding columns plus a zero column
         # for tokens outside it (the compiler never routes one into a slot)
         cols, inv = rel_gather
@@ -301,9 +384,9 @@ def rel_cache_shared(
             ll = ll.masked_fill(bad, float("nan"))
         return ll.masked_fill(pad_slot, default_ll)
 
-    h2_q = h2[img_index.long()]  # (B, O, O, E)
-    logits = torch.einsum("bije,bre->brij", h2_q, e_sel) + b_sel[:, :, None, None]
-    return F.logsigmoid(logits).masked_fill(pad_slot, default_ll)
+    ll = _contract_ll(params, cfg, h2[img_index.long()], rel_tokens, e_sel, b_sel, generator,
+                      deterministic)
+    return ll.masked_fill(pad_slot, default_ll)
 
 
 def rel_scores_for_pairs(
@@ -344,4 +427,11 @@ def rel_scores_for_pairs(
                         generator=generator, deterministic=deterministic)
     if rel_cols is not None:
         emb_w, emb_b = emb_w[:, rel_cols], emb_b[rel_cols]
-    return F.logsigmoid(torch.matmul(hmid, emb_w) + emb_b)
+    logits = torch.matmul(hmid, emb_w) + emb_b
+    if not trainable_interpreter(params, cfg):
+        return F.logsigmoid(logits)
+    w_x, b_x = params.embedding_extra.w, params.embedding_extra.b
+    if rel_cols is not None:
+        w_x, b_x = w_x[:, rel_cols], b_x[rel_cols]
+    logits_x = torch.einsum("bpe,evk->bpvk", hmid, w_x) + b_x
+    return _op_module_ll(params, cfg, logits, logits_x, 2, None, deterministic)

@@ -1,4 +1,5 @@
-"""Minimal NN layers for the port: ``Linear`` and ``MLP`` modules, dropout.
+"""Minimal NN layers for the port: ``Linear``, ``MLP`` and ``LSTMCell``
+modules, dropout.
 
 Port of ``dfol_vqa_tpu/nn.py``. Weights keep the JAX layout — ``w`` is
 ``(in, out)`` and a layer computes ``x @ w + b`` — so the parameter names
@@ -12,7 +13,7 @@ drawn from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn as tnn
@@ -105,3 +106,44 @@ def mlp_apply(p: Optional[MLP], x: torch.Tensor, final: str = "sigmoid",
     if p is None:
         return x
     return p(x, final, dropout_rate, generator, deterministic)
+
+
+State = Tuple[torch.Tensor, torch.Tensor]
+
+
+def lstm_cell(p: "LSTMCell", x: torch.Tensor, state: State) -> State:
+    """One torch.nn.LSTMCell step in the JAX layout: ``state = (h, c)``,
+    gates in the order i, f, g, o; returns ``(h', c')``. Leading dims
+    broadcast, so a (B, K, in) input steps K states per row at once."""
+    h, c = state
+    gates = torch.matmul(x, p.w_ih) + p.b_ih + torch.matmul(h, p.w_hh) + p.b_hh
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c2), c2
+
+
+class LSTMCell(tnn.Module):
+    """LSTM cell parameters: ``w_ih (in, 4S)``, ``w_hh (S, 4S)``, ``b_ih``,
+    ``b_hh (4S,)``, the JAX package's names and layout."""
+
+    def __init__(self, w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+                 b_hh: torch.Tensor):
+        super().__init__()
+        self.w_ih = tnn.Parameter(w_ih)
+        self.w_hh = tnn.Parameter(w_hh)
+        self.b_ih = tnn.Parameter(b_ih)
+        self.b_hh = tnn.Parameter(b_hh)
+
+    @classmethod
+    def init(cls, in_dim: int, hidden_dim: int, generator: torch.Generator) -> "LSTMCell":
+        """torch.nn.LSTMCell's default, U(-k, k) with k = 1/sqrt(hidden)."""
+        k = 1.0 / math.sqrt(hidden_dim)
+
+        def uniform(shape):
+            return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * k
+
+        return cls(uniform((in_dim, 4 * hidden_dim)), uniform((hidden_dim, 4 * hidden_dim)),
+                   uniform((4 * hidden_dim,)), uniform((4 * hidden_dim,)))
+
+    def forward(self, x: torch.Tensor, state: State) -> State:
+        return lstm_cell(self, x, state)

@@ -35,13 +35,19 @@ from dfol_vqa_tpu_torch.models.oracle import OracleParams
 
 def trainable_labels(params: OracleParams, cfg: Config) -> Dict[str, bool]:
     """Parameter name -> trainable, from the freeze flags: one per module
-    (featurizer, attribute network, relation network, embedding) and one
-    for the embedding bias (``trainable_labels`` in the JAX package). The
-    logic gates have no flag and always train."""
+    (featurizer, attribute network, relation network, embedding, and the
+    calibrator's ``freeze_attention_network``) and one for the embedding
+    bias (``trainable_labels`` in the JAX package). The trainable
+    interpreter's extra channels follow the embedding's flag, with no bias
+    exception; its operator modules and the logic gates have no flag and
+    always train."""
     frozen = {"featurizer": cfg.freeze_featurizer,
               "attribute_network": cfg.freeze_attribute_network,
               "relation_network": cfg.freeze_relation_network,
               "embedding": cfg.freeze_embedding_network,
+              "embedding_extra": cfg.freeze_embedding_network,
+              "calibrator": cfg.freeze_attention_network,
+              "op_modules": False,
               "logic_gates": False}
     labels = {}
     for name, _ in params.named_parameters():

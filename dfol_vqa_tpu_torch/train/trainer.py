@@ -382,7 +382,7 @@ class VQATrainer:
     def _load_into(self, import_path_base: str, params: OracleParams) -> None:
         """``load``, copied into ``params`` in place (the optimizer holds
         references to its tensors)."""
-        loaded = self.load(import_path_base, params)
+        loaded = dict(self.load(import_path_base, params).named_parameters())
         with torch.no_grad():
-            for p, q in zip(params.parameters(), loaded.parameters()):
-                p.copy_(q)
+            for name, p in params.named_parameters():
+                p.copy_(loaded[name])

@@ -1,6 +1,6 @@
 """Write the JAX reference answers that the PyTorch port meets on the GPU.
 
-Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes two npz files.
+Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes five npz files.
 
 ``tests/data/torch_port_golden.npz`` (serving), from the tiny demo engine
 (``build_demo_engine(tiny=True, seed=0)``):
@@ -61,7 +61,25 @@ terminals as 2 ``trainset.supervision_loader`` questions:
 * for the supervision terminals the normalised training ``loss`` and its
   gradients ``grads/<key>``.
 
-``chip_smoke.py`` runs the port on the card against the four files;
+``tests/data/torch_port_golden_calibrator.npz`` (the calibrator and the
+trainable interpreter), with the eval golden's weights plus the new leaves
+that ``chip_smoke.calibrator_golden_weights`` draws with numpy (output head
+and operator modules' final layers at random; not stored), for two models,
+``calibrator`` (the last curriculum stage's flags: the oracle frozen) and
+``f4`` (``oracle_output_dim=4``, ``operator_layers_config=[8]``), on the
+terminals golden's question files and an 8-question shuffled ``exist``
+file (``per_question``):
+
+* ``datasets/<batch>``, ``batch/<batch>/...``: the question file and the
+  packed ``LoadedBatch``, as in the terminals golden;
+* ``<model>/<batch>/{eval,train}/...``: JAX's ``log_probability``,
+  ``answer_flags`` and ``match`` with ``is_training`` false and true (the
+  calibrator model on every batch, ``f4`` on six);
+* ``<model>/<batch>/loss``, ``grads/<key>`` (the trained leaves) and
+  ``update/<key>`` (one ``build_optimizer`` step) for the calibrator's
+  ``per_question`` and ``choose_rel`` batches and ``f4``'s ``per_question``.
+
+``chip_smoke.py`` runs the port on the card against the five files;
 ``tests/test_torch_golden.py`` regenerates them and requires them to match
 the checked-in copies.
 
@@ -69,6 +87,7 @@ the checked-in copies.
         [--eval-out tests/data/torch_port_golden_eval.npz]
         [--train-out tests/data/torch_port_golden_train.npz]
         [--terminals-out tests/data/torch_port_golden_terminals.npz]
+        [--calibrator-out tests/data/torch_port_golden_calibrator.npz]
 """
 
 from __future__ import annotations
@@ -88,6 +107,7 @@ GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 EVAL_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
 TRAIN_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
 TERMINALS_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
+CALIBRATOR_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -297,18 +317,86 @@ def build_terminals_golden() -> Dict[str, np.ndarray]:
     return out
 
 
+# the calibrator golden's batches per model: every terminal with the
+# calibrator (its modulations differ per terminal class), a relating and a
+# fan-out sample of terminals with F = 4, and the shuffled per-question batch
+CALIBRATOR_GOLDEN_F4_BATCHES = ("exist", "verify_rel", "query_attr", "choose_rel", "compare",
+                                "per_question")
+
+
+def build_calibrator_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
+    import jax.numpy as jnp
+    import optax
+
+    from chip_smoke import (CALIBRATOR_GOLDEN_STEPS, calibrator_golden_batches,
+                            calibrator_golden_setup, calibrator_golden_weights, pack_arrays)
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.ontology import GQAOntology
+    from dfol_vqa_tpu.train.checkpoint import _flatten
+    from dfol_vqa_tpu.train.optim import build_optimizer
+    from dfol_vqa_tpu_torch.convert import unflatten
+
+    ont = GQAOntology()
+    calib, f4, world, files = calibrator_golden_setup(ont)
+    with np.load(EVAL_GOLDEN_PATH) as eval_golden:
+        start = {k[len("params/"):]: eval_golden[k] for k in eval_golden.files
+                 if k.startswith("params/")}
+    weights = dict(zip(("calibrator", "f4"), calibrator_golden_weights(start, calib, f4)))
+    batches = calibrator_golden_batches(ont, world, files, calib)
+    out: Dict[str, np.ndarray] = {}
+    for name, lb in batches.items():
+        out[f"datasets/{name}"] = np.array(json.dumps(files[name], sort_keys=True))
+        out[f"batch/{name}/objects"] = lb.objects
+        out[f"batch/{name}/obj_mask"] = lb.obj_mask
+        out[f"batch/{name}/arrays"], out[f"batch/{name}/array_layout"] = pack_arrays(lb.arrays)
+    for model, cfg in (("calibrator", calib), ("f4", f4)):
+        interp = Interpreter(cfg, ont)
+        params = jax.tree.map(jnp.asarray, unflatten(weights[model]))
+        names = list(files) if model == "calibrator" else list(CALIBRATOR_GOLDEN_F4_BATCHES)
+        for name in names:
+            lb, p = batches[name], f"{model}/{name}/"
+            arrays = {a: jnp.asarray(v) for a, v in lb.arrays.items()}
+            for mode in ("eval", "train"):
+                res = interp.forward(params, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask),
+                                     arrays, lb.spec, mode == "train", None)
+                for key in ("log_probability", "answer_flags", "match"):
+                    out[f"{p}{mode}/{key}"] = np.asarray(res[key])
+            if name not in CALIBRATOR_GOLDEN_STEPS or (model == "f4" and name != "per_question"):
+                continue
+
+            def loss_fn(q):
+                res = interp.forward(q, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask),
+                                     arrays, lb.spec, True, None)
+                return res["loss"] / jnp.maximum(jnp.sum(arrays["question_mask"]), 1.0)
+
+            loss, grads = jax.value_and_grad(loss_fn)(params)
+            tx = build_optimizer(cfg, params)
+            updates, _ = tx.update(grads, tx.init(params), params)
+            after = _flatten(jax.tree.map(np.asarray, optax.apply_updates(params, updates)))
+            out[p + "loss"] = np.asarray(loss)
+            for k, g in _flatten(jax.tree.map(np.asarray, grads)).items():
+                if model == "f4" or k.startswith("calibrator/"):  # the trained leaves
+                    out[p + "grads/" + k] = g
+                out[p + "update/" + k] = after[k] - weights[model][k]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN_PATH)
     ap.add_argument("--eval-out", default=EVAL_GOLDEN_PATH)
     ap.add_argument("--train-out", default=TRAIN_GOLDEN_PATH)
     ap.add_argument("--terminals-out", default=TERMINALS_GOLDEN_PATH)
+    ap.add_argument("--calibrator-out", default=CALIBRATOR_GOLDEN_PATH)
     args = ap.parse_args(argv)
     for path, golden, unit, what in (
             (args.out, build_golden(), "/question", "requests"),
             (args.eval_out, build_eval_golden(), "/log_probability", "batches"),
             (args.train_out, build_train_golden(), "/loss", "training batches"),
-            (args.terminals_out, build_terminals_golden(), "/objects", "terminal batches")):
+            (args.terminals_out, build_terminals_golden(), "/objects", "terminal batches"),
+            (args.calibrator_out, build_calibrator_golden(), "/eval/log_probability",
+             "model batches")):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **golden)
         n = sum(1 for k in golden if k.endswith(unit))

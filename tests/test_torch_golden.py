@@ -1,4 +1,4 @@
-"""The JAX goldens that the port meets on the GPU (``chip_smoke.py`` phase 5).
+"""The JAX goldens that the port meets on the GPU (``chip_smoke.py`` phases 5, 7-9).
 
 ``tests/data/torch_port_golden.npz`` holds the tiny demo engine's weights,
 a dozen compiled requests and the JAX package's log-probabilities and
@@ -12,9 +12,13 @@ parameter) on a per-question-route and a shared-route batch;
 (the 14 question terminals on the shared route and the 3 supervision
 terminals, with the eval golden's weights), JAX's log-probabilities,
 answer flags and matches in soft and hard mode, and the supervision
-terminals' loss and gradients. All four are regenerated here and must
-match the checked-in copies, so they cannot go stale; and the port, on the
-CPU, must meet them with the checks ``chip_smoke.py`` runs on the card
+terminals' loss and gradients; ``tests/data/torch_port_golden_calibrator.npz``
+holds the calibrator model (output head at random, oracle frozen) on every
+terminal's batch and the F = 4 model (operator modules' final layers at
+random) on six, eval and training-mode log-probabilities, answer flags and
+matches, and one training step of each. All five are regenerated here and
+must match the checked-in copies, so they cannot go stale; and the port, on
+the CPU, must meet them with the checks ``chip_smoke.py`` runs on the card
 (atol 1e-5 here, float32 on the same host type; 1e-4 on the card).
 """
 
@@ -145,3 +149,51 @@ def test_terminals_golden_is_current():
 
 def test_port_meets_terminals_golden_on_cpu():
     assert chip_smoke.check_terminals_golden("cpu", atol=1e-5, grad_rtol=1e-5) == (17, 0)
+
+
+def test_calibrator_golden_is_current():
+    """Log-probabilities within 1e-6, losses and gradients within 1e-6 of
+    max(1, their largest value), each optimizer step's change within
+    ``adam_bound`` of the stored one for the trained leaves and equal for
+    the others (XLA:CPU may vectorise differently on another host type); the
+    rest equal."""
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    fresh = load_script().build_calibrator_golden()
+    stored = np.load(chip_smoke.CALIBRATOR_GOLDEN)
+    assert set(fresh) == set(stored.files)
+    assert sum(k.endswith("/eval/log_probability") for k in fresh) == 21
+    calib, f4, *_ = chip_smoke.calibrator_golden_setup(GQAOntology())
+    cfgs = {"calibrator": calib, "f4": f4}
+    with np.load(chip_smoke.EVAL_GOLDEN) as eval_golden:
+        start = {k[len("params/"):]: eval_golden[k] for k in eval_golden.files
+                 if k.startswith("params/")}
+    weights = dict(zip(cfgs, chip_smoke.calibrator_golden_weights(start, calib, f4)))
+    for k, v in fresh.items():
+        if "/update/" in k:
+            continue
+        if k.endswith("/log_probability"):
+            np.testing.assert_allclose(v, stored[k], atol=1e-6, rtol=0, err_msg=k)
+        elif k.endswith("/loss") or "/grads/" in k:
+            atol = 1e-6 * max(1.0, float(np.abs(v).max()))
+            np.testing.assert_allclose(v, stored[k], atol=atol, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, stored[k], err_msg=k)
+    for k in (k for k in fresh if k.endswith("/loss")):
+        model, p = k.split("/")[0], k[:-len("loss")]
+        grads = {g[len(p + "grads/"):]: v for g, v in fresh.items() if g.startswith(p + "grads/")}
+        delta = {g: 1e-6 * max(1.0, float(np.abs(v).max())) for g, v in grads.items()}
+        old = {g: stored[p + "grads/" + g] for g in grads}
+        bound = chip_smoke.adam_bound(cfgs[model], set(grads), [(grads, old, weights[model], delta)])
+        for key in weights[model]:
+            got, want = fresh[p + "update/" + key], stored[p + "update/" + key]
+            if key in grads:
+                assert np.all(np.abs(got - want) <= bound[key]), key
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=key)
+    assert os.path.getsize(chip_smoke.CALIBRATOR_GOLDEN) < 300_000
+
+
+def test_port_meets_calibrator_golden_on_cpu():
+    assert chip_smoke.check_calibrator_golden("cpu", atol=1e-5, grad_rtol=1e-5) == {
+        "calibrator": 15, "f4": 6}

@@ -16,6 +16,7 @@ from dfol_vqa_tpu import logic as jlogic
 from dfol_vqa_tpu import nn as jnn
 from dfol_vqa_tpu import types as jtypes
 from dfol_vqa_tpu.config import Config
+from dfol_vqa_tpu.models import calibrator as jcal
 from dfol_vqa_tpu.models import featurizer as jfeat
 from dfol_vqa_tpu.models import oracle as jom
 from dfol_vqa_tpu.ops import cells as jcells
@@ -263,9 +264,20 @@ def test_init_oracle_params_layout(ontology, jax_params):
 
 
 def test_unsupported_configs_raise(ontology):
-    with pytest.raises(NotImplementedError):
-        oracle.init_oracle_params(tiny_cfg(oracle_output_dim=3), ontology,
-                                  torch.Generator())
+    """A compute dtype other than float32 raises, as does the trainable
+    interpreter (F > 1) without an operator module (``ValueError``, as the
+    JAX init raises)."""
+    cfg = tiny_cfg()
+    cfg.tpu.compute_dtype = "bfloat16"
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        oracle.init_oracle_params(cfg, ontology, torch.Generator())
+    with pytest.raises(ValueError, match="operator_layers_config"):
+        oracle.init_oracle_params(tiny_cfg(oracle_output_dim=3, operator_layers_config=None),
+                                  ontology, torch.Generator())
+    with pytest.raises(ValueError, match="operator_layers_config"):
+        jom.init_oracle_params(jax.random.PRNGKey(0),
+                               tiny_cfg(oracle_output_dim=3, operator_layers_config=None),
+                               ontology)
 
 
 # --------------------------------------------------------------------- bridge
@@ -284,8 +296,14 @@ def test_bridge_round_trip(jax_params, port_params):
 
 
 def test_bridge_rejects_unported_modules(jax_params):
-    """The calibrator is not ported (ROADMAP queue 4): its keys raise."""
+    """A key of no module of the port raises and is named: a top-level
+    module the port does not hold, and a leaf the calibrator has not."""
     tree = dict(jax.tree.map(np.asarray, jax_params))
-    tree["calibrator"] = {"lstm": {"w": np.zeros((2, 6)), "b": np.zeros(6)}}
-    with pytest.raises(NotImplementedError, match="calibrator/lstm"):
+    tree["viz_head"] = {"w": np.zeros((2, 6)), "b": np.zeros(6)}
+    with pytest.raises(ValueError, match="viz_head/b"):
+        convert.params_from_numpy(tree)
+    calib = jcal.init_calibrator_params(jax.random.PRNGKey(0), tiny_cfg(), None)
+    tree = dict(jax.tree.map(np.asarray, jax_params),
+                calibrator=dict(jax.tree.map(np.asarray, calib), lstm={"w": np.zeros(3)}))
+    with pytest.raises(ValueError, match="calibrator/lstm/w"):
         convert.params_from_numpy(tree)

@@ -219,10 +219,10 @@ def test_engine_rejects_bad_requests(monkeypatch):
         # a group whose execution raises fails its futures, not the dispatcher
         real = interp.Interpreter.execute
 
-        def execute(self, params, world_, arrays, spec, is_training=False):
+        def execute(self, params, world_, arrays, spec, *args, **kw):
             if spec.terminal_op == "choose_attr":
                 raise RuntimeError("execution failed")
-            return real(self, params, world_, arrays, spec, is_training)
+            return real(self, params, world_, arrays, spec, *args, **kw)
 
         monkeypatch.setattr(interp.Interpreter, "execute", execute)
         q = world.generate_family("choose_attr", 1, length=0, seed=9)[0]

@@ -322,3 +322,48 @@ def test_adam_bound_holds_and_is_tight(ontology, kw):
            for k in trainable}
     large = np.concatenate([bound[k][far[k] > 0.02] for k in trainable])
     assert large.size > 100 and large.max() < 0.1 * cfg.learning_rate
+
+
+@pytest.mark.parametrize("kw", [{"clip_norm": 1e6}, {"clip_norm": 0.05},
+                                {"weight_decay": 0.1, "freeze_relation_network": True}],
+                         ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_adam_bound_from_shared_moments(ontology, kw):
+    """``adam_bound`` from Adam moments both sides share (``adam_moments``,
+    as ``chip_smoke.card_vs_cpu_steps`` holds each step from the card's
+    state): two optimizers take two equal steps, then one whose gradients
+    differ by up to delta; the parameters after it lie within the bound
+    from the shared moments, frozen leaves get 0, and the bound stays far
+    below lr wherever the gradient is not near zero."""
+    from chip_smoke import adam_bound, adam_moments, clip_scale, flat_params, trainable_keys
+
+    cfg = opt_cfg(learning_rate=1e-2, **kw)
+    ref = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0))
+    other = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0))
+    o_ref, o_other = Optimizer(cfg, ref), Optimizer(cfg, other)
+    trainable = trainable_keys(cfg, ref)
+    rng = np.random.default_rng(6)
+    for k in range(3):
+        start = flat_params(ref)
+        moments, t0 = adam_moments(o_ref, ref)
+        g_ref = {key: rng.standard_normal(v.shape) * 0.1 for key, v in start.items()}
+        delta = {key: 1e-4 * max(1.0, float(np.abs(v).max())) for key, v in g_ref.items()}
+        g_other = {key: v + (k == 2) * rng.uniform(-1, 1, v.shape) * delta[key]
+                   for key, v in g_ref.items()}
+        for params, grads in ((ref, g_ref), (other, g_other)):
+            for name, p in params.named_parameters():
+                p.grad = torch.from_numpy(grads[name.replace(".", "/")].astype(np.float32))
+        o_ref.step()
+        o_other.step()
+    assert t0 == 2 and set(moments) == trainable
+    g_other = {key: v.astype(np.float32) for key, v in g_other.items()}
+    bound = adam_bound(cfg, trainable, [(g_ref, g_other, start, delta)], moments, t0)
+    got, want = flat_params(other), flat_params(ref)
+    for key, b in bound.items():
+        assert np.all(np.abs(got[key].astype(np.float64) - want[key]) <= b), key
+        if key not in trainable:
+            assert not np.any(b), key
+    s = clip_scale(cfg, g_ref, trainable)
+    far = {key: np.abs(s * g_ref[key] + cfg.weight_decay * start[key]) / s > 0.02
+           for key in trainable}
+    large = np.concatenate([bound[key][far[key]] for key in trainable])
+    assert large.size > 100 and large.max() < 0.1 * cfg.learning_rate

@@ -94,9 +94,10 @@ def jax_step(cfg, jinterp, jparams, lb):
         jax.tree.map(np.asarray, new))
 
 
-def check_step(cfg, jinterp, jparams, tinterp, lb):
+def check_step(cfg, jinterp, jparams, tinterp, lb, rtol=GRAD_RTOL, floor=1.0):
     """One training step of the port on ``lb`` against ``jax_step``: the
-    loss, every gradient leaf and the parameters after the optimizer step."""
+    loss, every gradient leaf within ``rtol`` x max(``floor``, its largest
+    value) and the parameters after the optimizer step."""
     want_loss, want_grads, want_params = jax_step(cfg, jinterp, jparams, lb)
 
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
@@ -109,7 +110,7 @@ def check_step(cfg, jinterp, jparams, tinterp, lb):
     assert abs(loss.item() - want_loss) <= 1e-5 * abs(want_loss)
     got_grads, delta = grads_of(tparams), {}
     for key, got in got_grads.items():
-        delta[key] = GRAD_RTOL * max(1.0, float(np.abs(want_grads[key]).max()))
+        delta[key] = rtol * max(floor, float(np.abs(want_grads[key]).max()))
         np.testing.assert_allclose(got, want_grads[key], atol=delta[key], rtol=0, err_msg=key)
     opt.step()
     bound = adam_bound(cfg, trainable_keys(cfg, tparams),
