@@ -26,12 +26,20 @@ Phases, each reported on its own line(s):
    its last bits). Each timed shape also reports its FLOP and bytes, its
    bound (``kernel_bound``: the least time the card could take, matrix
    products on the tensor cores, in 3xTF32 for float32 operands and at the
-   bf16 rate for bf16 ones) and the share of it reached;
+   bf16 rate for bf16 ones) and the share of it reached; then the
+   measurement behind ``tpu.cache_dtype="auto"`` (``phase_cache_dtype``):
+   the profiler's device time of one eval forward with float32 and with
+   bfloat16 caches at B in (32, 80, 256) and O in (24, 100), median and
+   spread of five runs in turns, and the dtype the rule of
+   ``models/oracle.py`` picks from it;
 4. the serving engine (``build_demo_engine`` at production dims: 2048-d
    boxes, 512-d oracle, E=300, H=256, O=24, bf16 transfer) answers 64
    planted-world requests (exist with 0-2 hops, verify_rel, query_attr) on
    the card; the answers must equal the same engine and weights on the CPU
-   (plain path), and the relation-oracle kernel must have launched;
+   (plain path), and the relation-oracle kernel must have launched; the same
+   64 requests with the int8 object transfer (``phase_serve_int8``),
+   answers equal to the CPU engine's with int8, and the host ms per batch of
+   the int8 and bf16 transfers;
 5. the JAX goldens: the serving golden (``tests/data/torch_port_golden.npz``,
    answers equal, log-probabilities within 1e-4) and the offline-eval
    golden (``tests/data/torch_port_golden_eval.npz``: a tiny-dims loader
@@ -109,10 +117,22 @@ Phases, each reported on its own line(s):
    at random) on one shared-route eval batch and one per-question step,
    card vs CPU, launching no kernel (its plain tails); and one profiled
    calibrator eval pass (idle share, device events and host enqueue ms per
-   batch).
+   batch);
+10. the curriculum chain (``phase_curriculum``): the eight stage files
+   through ``experiments/curriculum.run_stage`` and the experiment runner
+   at their own widths and batch sizes (1000/100 and 80/80), dropout 0, on
+   the production planted world cut in depth (``CURRICULUM_SCALE``, two
+   epochs a stage): stage 0's first steps at batch 1000 against the CPU's
+   under phase 7's gates, the ``-l best`` hand-over loaded bitwise (stage 6
+   partially, its calibrator fresh), frozen leaves unchanged and every
+   calibrator leaf moved in stages 6-7, finite losses and each stage's
+   files, every relating batch's kernels; then the CLI
+   (``gqa_experiment -t -l best -p``) over stage 7's test set on the card
+   against ``-c`` on the CPU, up to the near-tie rule.
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4, 6, 7, 8 and 9, each counted from 0), error, times, FLOP, bound and
+of phases 4 (both transfers), 6, 7, 8, 9 and 10, each counted from 0),
+error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
 result line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -724,6 +744,56 @@ def phase_serve(eng, cpu_eng, world, stamp: str, mix=SERVE_MIX, tag: str = "4",
     return launches
 
 
+def transfer_host_ms(lb, device, transfer_dtype, reps: int = 20) -> tuple:
+    """Host ms of ``to_device_batch(lb, device, transfer_dtype)``: the median
+    of the call alone (quantization, pinning and enqueue) and of the call
+    with a synchronize after it, over ``reps`` calls each."""
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+
+    alone, synced = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device_batch(lb, device, transfer_dtype)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        alone.append(1000 * (t1 - t0))
+        synced.append(1000 * (time.perf_counter() - t0))
+    return statistics.median(alone[1:]), statistics.median(synced[1:])
+
+
+def phase_serve_int8(eng, cpu_eng, world, device, stamp: str) -> int:
+    """Phase 4's 64 requests through engines like phase 4's (same weights)
+    with the int8 object transfer (``transfer_dtype="int8"``): the card's
+    answers must equal the CPU engine's with int8 (int8 is held against int8:
+    its features differ from float32 by the quantization step), kernel 1
+    once per relating group (``phase_serve``). Then the host ms per batch of
+    the int8 and the bf16 transfer of one 32-request batch. Returns kernel
+    1's launches."""
+    from dfol_vqa_tpu_torch.data.loader import LoadedBatch
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.serve import ServingEngine
+
+    ont = GQAOntology()
+    engines = [ServingEngine(e.cfg, ont, e.params, features=world, device=d, max_batch=32,
+                             transfer_dtype="int8") for e, d in ((eng, device), (cpu_eng, "cpu"))]
+    try:
+        launches = phase_serve(engines[0], engines[1], world, stamp, tag="4 int8")
+    finally:
+        for e in engines:
+            e.stop()
+    qs = world.generate_family("exist", 32, length=2, seed=3000)
+    spec, cb = eng.compiler.compile(qs)
+    objects, obj_mask = world.batch([q["imageId"] for q in qs], eng.cfg.tpu.max_object_num)
+    lb = LoadedBatch(spec, cb, objects, obj_mask)
+    times = [(dt, transfer_host_ms(lb, device, dt))
+             for dt in ("int8", "bfloat16", "bfloat16", "int8")]  # in turns
+    log(f"[4 int8] host ms per 32-request batch (objects {tuple(objects.shape)}), median of 20 "
+        f"calls, the call alone / with a synchronize after it: " + "; ".join(
+            f"{dt} {a!r} / {b!r}" for dt, (a, b) in times) + f" ({stamp})")
+    return launches
+
+
 def check_golden(device, atol: float) -> int:
     """Run the port against the JAX golden on ``device``; returns the number
     of requests checked. Answers must be equal and log-probabilities within
@@ -1222,6 +1292,92 @@ def device_time(prof):
     return (busy + cur_e - cur_s) / 1000.0, by_name
 
 
+CACHE_DTYPE_BATCHES = (32, 80, 256)
+CACHE_DTYPE_OBJECTS = (24, 100)
+CACHE_DTYPE_ROUNDS = 5  # profiled runs per dtype and cell, in turns
+CACHE_DTYPE_REPS = 5  # forwards per profiled run
+
+
+def phase_cache_dtype(device, stamp: str) -> dict:
+    """The measurement behind ``tpu.cache_dtype="auto"``: the device time of
+    one eval ``Interpreter.forward`` (the union of its device events in
+    ``torch.profiler``, per forward) with float32 and with bfloat16 caches,
+    on one relating batch of ``exist`` questions at ~10 questions per image
+    (the shared route) at production widths, for each batch in
+    ``CACHE_DTYPE_BATCHES`` and object count in ``CACHE_DTYPE_OBJECTS``:
+    ``CACHE_DTYPE_ROUNDS`` profiled runs per dtype in turns, their median and
+    spread (max - min). Eval is host-bound, so the host clock would not show
+    the difference. Prints the table and what "auto" picks; raises if
+    bfloat16 beats float32 by more than both runs' spreads at every object
+    count of some batch, since ``models/oracle.resolve_cache_dtype`` makes
+    "auto" float32 at every batch from the table it was measured to on an
+    NVIDIA H100 80GB HBM3 at 700 W. Returns the table, (B, O) -> (float32
+    ms, spread, bfloat16 ms, spread)."""
+    import dataclasses as dc
+
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models import oracle as om
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    t0 = time.perf_counter()
+    ont = GQAOntology()
+    world = evalset.demo_world(ont)
+    base = evalset.demo_eval_config()
+    params = Interpreter(base, ont).init_params(torch.Generator().manual_seed(0), device)
+    readings = {}
+    for O in CACHE_DTYPE_OBJECTS:
+        for B in CACHE_DTYPE_BATCHES:
+            cfgs = {dt: dc.replace(base, test_batch_size=B, tpu=dc.replace(
+                base.tpu, max_object_num=O, cache_dtype=dt)) for dt in ("float32", "bfloat16")}
+            sets = evalset.eval_datasets(world, (("exist", 2, B),), B, max(1, B // 10))
+            (lb,) = list(evalset.eval_loader(cfgs["float32"], ont, world, sets))
+            U = lb.objects.shape[0]
+            if U * 2 > B:
+                raise AssertionError(f"B={B}, O={O}: U={U} would take the per-question route")
+            _, o, m, arrays = to_device_batch(lb, device)
+            interps = {dt: Interpreter(cfg, ont) for dt, cfg in cfgs.items()}
+            runs = {dt: [] for dt in cfgs}
+            with torch.inference_mode():
+                for dt, interp in interps.items():  # warm-up
+                    interp.forward(params, o, m, arrays, lb.spec)
+                for r in range(CACHE_DTYPE_ROUNDS):
+                    for dt in (("float32", "bfloat16") if r % 2 == 0 else
+                               ("bfloat16", "float32")):
+                        torch.cuda.synchronize()
+                        with torch.profiler.profile(
+                                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                            for _ in range(CACHE_DTYPE_REPS):
+                                out = interps[dt].forward(params, o, m, arrays, lb.spec)
+                            torch.cuda.synchronize()
+                        busy, _ = device_time(prof)
+                        if busy is None:
+                            raise AssertionError("the profiler saw no device event")
+                        if out["log_probability"].dtype != torch.float32:
+                            raise AssertionError("the forward's output left float32")
+                        runs[dt].append(busy / CACHE_DTYPE_REPS)
+            readings[(B, O)] = tuple(x for dt in ("float32", "bfloat16") for x in (
+                statistics.median(runs[dt]), max(runs[dt]) - min(runs[dt])))
+            f32, f32_s, bf16, bf16_s = readings[(B, O)]
+            log(f"[3] cache dtype, B={B}, O={O} (U_pad={U}): device ms per eval forward, median "
+                f"(spread) of {CACHE_DTYPE_ROUNDS} runs of {CACHE_DTYPE_REPS}: float32 {f32!r} "
+                f"({f32_s!r}), bfloat16 {bf16!r} ({bf16_s!r}); bf16 wins here: "
+                f"{f32 - bf16 > f32_s + bf16_s} ({stamp})")
+    log(f"[3] cache dtype table (B, O) -> (f32 ms, spread, bf16 ms, spread): {readings!r}")
+    auto = dc.replace(base, tpu=dc.replace(base.tpu, cache_dtype="auto"))
+    picks = {B: str(om.resolve_cache_dtype(auto, B)) for B in CACHE_DTYPE_BATCHES}
+    wins = [B for B in CACHE_DTYPE_BATCHES
+            if all(f32 - bf16 > f32_s + bf16_s
+                   for (b, _), (f32, f32_s, bf16, bf16_s) in readings.items() if b == B)]
+    if wins:
+        raise AssertionError(f'bfloat16 caches beat float32 beyond both spreads at batches '
+                             f'{wins} on {stamp}, but "auto" picks {picks}')
+    log(f'[3] "auto" picks {picks}; bfloat16 wins beyond both spreads at no batch '
+        f"({time.perf_counter() - t0!r} s, {stamp})")
+    return readings
+
+
 def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray) -> np.ndarray:
     """(B, options) mask of the answers that a float32 near-tie decides,
     from one batch's log-probabilities: a query's options whose scores
@@ -1247,22 +1403,27 @@ def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray) -> np.ndarray:
 
 def float_ties(interp, loader, params) -> dict:
     """Questions whose answer the CPU decides by a float32 near-tie
-    (``near_ties``). Returns {question id: (terminal op, the answers inside
-    the tie: option strings, or "yes" and "no")}."""
+    (``near_ties``). Returns {position of the question among the loader's
+    real questions, the order of ``predict``'s output: (terminal op, the
+    answers inside the tie: option strings, or "yes" and "no")}. Positions,
+    not question ids: programs read back from h5 files carry none."""
     from dfol_vqa_tpu_torch.data.transfer import to_device_batch
     from dfol_vqa_tpu_torch.models.interpreter import QUERY_OPS
 
-    ties = {}
+    ties, seen = {}, 0
     for lb in loader:
         _, o, m, arrays = to_device_batch(lb, "cpu")
         with torch.inference_mode():
             lp = interp.forward(params, o, m, arrays, lb.spec)["log_probability"].numpy()
         term, cb = lb.spec.terminal_op, lb.compiled
         near = near_ties(term, lp, lb.arrays["opt_mask"])
-        for qi in np.flatnonzero(near.any(axis=1) & (cb.question_mask > 0)):
-            inside = ([cb.option_strings[qi][k] for k in np.flatnonzero(near[qi])]
-                      if term in QUERY_OPS else ["yes", "no"])
-            ties[cb.question_ids[qi]] = (term, inside)
+        real = np.flatnonzero(cb.question_mask > 0)
+        for pos, qi in enumerate(real):
+            if near[qi].any():
+                inside = ([cb.option_strings[qi][k] for k in np.flatnonzero(near[qi])]
+                          if term in QUERY_OPS else ["yes", "no"])
+                ties[seen + pos] = (term, inside)
+        seen += len(real)
     return ties
 
 
@@ -1271,10 +1432,10 @@ def same_up_to_ties(preds, preds_cpu, ties) -> int:
     the CPU's answer is a near-tie (``float_ties``), where the card's must
     lie inside the tie. Returns the count of such answers that differ."""
     flipped = 0
-    for got, want in zip(preds, preds_cpu):
+    for pos, (got, want) in enumerate(zip(preds, preds_cpu)):
         if got == want:
             continue
-        tie = ties.get(want["questionId"])
+        tie = ties.get(pos)
         pred = got["prediction"] if isinstance(got["prediction"], list) else [got["prediction"]]
         if (got["questionId"] != want["questionId"] or tie is None or not pred
                 or not set(pred) <= set(tie[1])):
@@ -1400,13 +1561,15 @@ TRAIN_COMPARE_STEPS = 3  # card vs CPU steps per route (a CPU step at O=100 take
 
 
 class RouteCounter:
-    """A loader that counts its passes and the relating batches it yields,
-    and raises when a relating batch would take another relation route than
-    ``route`` ("per_question": U * 2 > B, "shared": U * 2 <= B)."""
+    """A loader that counts its passes, its batches and the relating batches
+    it yields by relation route (``by_route``), and raises when a relating
+    batch would take another route than ``route`` ("per_question": U * 2 >
+    B, "shared": U * 2 <= B; "either" takes both)."""
 
     def __init__(self, loader, route: str):
         self.loader, self.route = loader, route
-        self.passes = self.relating = 0
+        self.passes = self.relating = self.batches = 0
+        self.by_route = {"per_question": 0, "shared": 0}
 
     def __len__(self):
         return len(self.loader)
@@ -1416,11 +1579,14 @@ class RouteCounter:
 
         self.passes += 1
         for lb in self.loader:
+            self.batches += 1
             if spec_needs_relations(lb.spec):
                 U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
-                if (U * 2 <= B) != (self.route == "shared"):
+                route = "shared" if U * 2 <= B else "per_question"
+                if self.route not in ("either", route):
                     raise AssertionError(f"a relating {lb.spec.terminal_op} batch with U={U}, "
                                          f"B={B} would not take the {self.route} route")
+                self.by_route[route] += 1
                 self.relating += 1
             yield lb
 
@@ -2177,6 +2343,322 @@ def phase_calibrator(world, device, stamp: str) -> dict:
     return dict(zip(names, (sum(r[i] for r in runs) for i in range(4))))
 
 
+# phase 10: the curriculum chain through the experiment runner, at the
+# stage files' own widths and batch sizes on the production planted world
+CURRICULUM_SCALE = 0.25  # 125 Train-All, 80 Train-Balanced, 24 val, 32 test questions a file
+CURRICULUM_STAGE0_BATCH = 1000  # stage 0's Train-All files hold one full batch each
+CURRICULUM_WRITERS = 8  # processes that write the program files
+CURRICULUM_EPOCH_SCALE = 0.01  # every stage at the JAX script's floor of 2 epochs
+CURRICULUM_COMPARE_STEPS = 2  # stage 0's first steps (batch 1000) held against the CPU's
+
+
+def stage_steps_check(ont, cfg, params_cpu, loader, device) -> str:
+    """Stage 0's first ``CURRICULUM_COMPARE_STEPS`` training steps at batch
+    1000, card vs CPU under phase 7's gates (``card_vs_cpu_steps``), with
+    the float32 h2 stream as phase 7 compares (the bf16 stream, the stage
+    files' default, rounds h2 on the card only: on an NVIDIA H100 80GB
+    HBM3 at 700 W the relation network's first-layer gradient then read
+    3.1e-3 of its largest)."""
+    from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
+
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, rel_stream_dtype="float32"))
+
+    batches = list(loader)[:CURRICULUM_COMPARE_STEPS]
+    relating = 0
+    for lb in batches:
+        U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+        if (B != CURRICULUM_STAGE0_BATCH or lb.batch_size != B
+                or (spec_needs_relations(lb.spec) and U * 2 > B)):
+            raise AssertionError(f"stage 0 batch of B={B} rows, {lb.batch_size} real questions, "
+                                 f"U={U}: not {CURRICULUM_STAGE0_BATCH} real questions on the "
+                                 "shared route")
+        relating += spec_needs_relations(lb.spec)
+    rec = card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, "stage 0 at batch 1000",
+                            [0, 0, relating, relating])
+    shapes = [(lb.spec.terminal_op, lb.objects.shape[0], len(lb.arrays["img_index"]),
+               lb.batch_size) for lb in batches]
+    return (f"stage 0's first {len(batches)} steps (terminal, U_pad, B, real questions) "
+            f"{shapes}, {relating} relating, card vs CPU plain path: {rec['text']}")
+
+
+def phase_curriculum(device, stamp: str) -> dict:
+    """Phase 10: the eight curriculum stages
+    (``configs/curriculum_training/cur{0..7}_classifier-direct-ll.yaml``)
+    through ``experiments/curriculum.run_stage`` and
+    ``GQAObjectBoxExperiment.run`` on the card, at the stage files' own
+    widths (2048-d boxes, oracle 512, relation hidden 256, E=300, R=8, O=100,
+    calibrator state 50) and batch sizes (1000/100 for stages 0, 1, 2, 4, 6;
+    80/80 for 3, 5, 7), dropout 0, on the production planted world
+    (``evalset.demo_world``, its scenes' features made once in bulk), cut
+    in depth only (``CURRICULUM_SCALE``, ``CURRICULUM_EPOCH_SCALE``), but
+    stage 0's two Train-All files, which hold ``CURRICULUM_STAGE0_BATCH``
+    questions each (later stages read them too): every batch of stage 0 is
+    1000 real questions, where the other files fill 12.5% (Train-All), 100%
+    (Train-Balanced), 24-32% (val, test at 100) or 30-40% (val, test at 80)
+    of a batch.
+    Gates: stage 0's first steps at batch 1000 against the CPU
+    (``stage_steps_check``); each stage i > 0 loads every
+    leaf of stage i-1's ``best/`` bitwise (stage 6 partially: its calibrator
+    fresh); in stages 6 and 7 every frozen leaf is bitwise unchanged and
+    every calibrator leaf moved; finite losses and the stage's files; every
+    relating batch on its route (``RouteCounter``: per-question in the
+    batch-80 stages' training, shared in the rest) and the kernels launched
+    once per relating batch of it. The program files are JSON lines
+    (``h5py``, which the h5 codec needs, is missing on the H100 host this
+    was built on), written by ``CURRICULUM_WRITERS`` forked processes.
+    Then the CLI's test-only mode with predictions (``gqa_experiment -t -l
+    best -p``) over stage 7's test set on the card against the same CLI with
+    ``-c``, both at the float32 h2 stream (phase 6's rule for a card vs
+    CPU comparison): error vector and predictions equal up to the near-tie
+    rule. The
+    CLI cannot take the planted world: with no GQA feature files it scores
+    ``SyntheticFeatures`` scenes, as the JAX CLI does. Returns the kernel
+    launches of the chain and the card's CLI run."""
+    import logging
+    import tempfile
+
+    import yaml
+
+    from dfol_vqa_tpu_torch.config import Config
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.data.features import FeatureSource
+    from dfol_vqa_tpu_torch.experiments import curriculum as cur
+    from dfol_vqa_tpu_torch.experiments import gqa_experiment
+    from dfol_vqa_tpu_torch.experiments.experiment import GQAObjectBoxExperiment
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    logging.basicConfig(level=logging.WARNING)  # the stage files' verbose logs stay quiet
+    t_phase = time.perf_counter()
+    ont = GQAOntology()
+    world = evalset.demo_world(ont)  # phase 7's training world
+    seed = 0
+
+    class BulkFeatures(FeatureSource):
+        """A feature source's scenes made once, in bulk: the planted world
+        draws an image's features anew on every read, where a GQA feature
+        file is read as stored."""
+
+        def __init__(self, source):
+            self.box_dim = source.box_dim
+            self._rows = {im: source.image(im) for im in source.image_ids}
+
+        def image(self, image_id: str):
+            return self._rows[image_id]
+
+    class CountedExperiment(cur.PlantedCurriculumExperiment):
+        """Every loader wrapped in a ``RouteCounter``: training batches of 80
+        on either route (a shuffled batch holds more than 40 of the 54
+        training images, the per-question route, unless its family's
+        questions gather on fewer), everything else on the shared route;
+        ``counters`` lists them as ("train" | "eval", counter)."""
+
+        def __init__(self, world):
+            super().__init__(world)
+            self.counters = []
+
+        def build_loader(self, cfg, path, ontology, features, batch_size, shuffle,
+                         keep_original=False):
+            loader = super().build_loader(cfg, path, ontology, features, batch_size, shuffle,
+                                          keep_original)
+            if loader is None:
+                return None
+            route = "either" if shuffle and batch_size <= 80 else "shared"
+            counter = RouteCounter(loader, route)
+            self.counters.append(("train" if shuffle else "eval", counter))
+            return counter
+
+    loaded: dict = {}
+    real_load_into = VQATrainer._load_into
+
+    def spy(self, path, params):
+        real_load_into(self, path, params)
+        loaded[self.cfg.version] = flat_params(params)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        st0 = cur.STAGES[0]
+        full = {("all", fam, L): CURRICULUM_STAGE0_BATCH for fam in st0["fams"]
+                for L in st0["lens"]}
+        made = cur.prepare_datasets(world, ont, root, CURRICULUM_SCALE,
+                                    f"scale={CURRICULUM_SCALE} world=demo", fmt="json",
+                                    sizes=full, workers=CURRICULUM_WRITERS)
+        features = BulkFeatures(world)
+        log(f"[10] planted datasets (4 splits x 13 families x 3 lengths, scale "
+            f"{CURRICULUM_SCALE}, stage 0's files {sorted(full)} at "
+            f"{CURRICULUM_STAGE0_BATCH} questions, JSON-lines program files, "
+            f"{CURRICULUM_WRITERS} writer processes) and the {len(world.image_ids)} scenes' "
+            f"features written in {time.perf_counter() - t0!r} s")
+
+        t0 = time.perf_counter()
+        cfg0 = Config.from_yaml(cur.stage_config(st0, root, made, CURRICULUM_EPOCH_SCALE,
+                                                 st0["lr"], {}))
+        if cfg0.train_batch_size != CURRICULUM_STAGE0_BATCH:
+            raise AssertionError(f"stage 0 trains at batch {cfg0.train_batch_size}")
+        loader0 = cur.PlantedCurriculumExperiment(features).build_loader(
+            cfg0, cfg0.train_path, ont, features, cfg0.train_batch_size, shuffle=True)
+        params0 = Interpreter(cfg0, ont).init_params(torch.Generator().manual_seed(seed))
+        log(f"[10] {stage_steps_check(ont, cfg0, params0, loader0, device)} "
+            f"({time.perf_counter() - t0!r} s)")
+
+        experiment = CountedExperiment(features)
+        rows, total = [], [0, 0, 0, 0]
+        VQATrainer._load_into = spy
+        ro.LAUNCHES = ro.BWD_LAUNCHES = pm.LAUNCHES = sc.LAUNCHES = 0
+        try:
+            t_chain = time.perf_counter()
+            for st in cur.STAGES:
+                i = st["i"]
+                experiment.counters = []
+                before = launch_counts()
+                row, res = cur.run_stage(experiment, st, root, made, CURRICULUM_EPOCH_SCALE,
+                                         st["lr"], seed, device, {})
+                d = [a - b for a, b in zip(launch_counts(), before)]
+                total = [a + b for a, b in zip(total, d)]
+                rows.append(row)
+                cfg = Config.from_yaml(cur.stage_config(st, root, made, CURRICULUM_EPOCH_SCALE,
+                                                        st["lr"], {}))
+                check_stage(cfg, st, root, res, loaded, d, experiment.counters, row)
+        finally:
+            VQATrainer._load_into = real_load_into
+        chain_s = time.perf_counter() - t_chain
+        log(f"[10] the chain: {len(rows)} stages in {chain_s!r} s; test accuracy by stage "
+            f"{[r['test_acc_overall'] for r in rows]} (reported, not gated); launches "
+            f"(fwd, bwd, pair_mlp, contract) {total} ({stamp})")
+
+        # the CLI over stage 7's test set: card, then -c on the CPU
+        t0 = time.perf_counter()
+        st7 = cur.STAGES[7]
+        cfg7 = cur.stage_config(st7, root, made, CURRICULUM_EPOCH_SCALE, st7["lr"], {})
+        cfg7["tpu"]["rel_stream_dtype"] = "float32"  # card and CPU compared, as in phase 6
+        cfg_path = os.path.join(root, "cli_cur7.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg7, f)
+        pred_path = os.path.join(os.path.relpath(cfg7["model_path"]), "predictions",
+                                 cur.MODEL_NAME, cfg7["version"], "prediction_test_full.json")
+        runs, cli_launches = {}, None
+        for where, flags in (("card", []), ("cpu", ["-c"])):
+            before = launch_counts()
+            t1 = time.perf_counter()
+            res = gqa_experiment.main([cfg_path, "-t", "-l", "best", "-p", "-s", "0"] + flags)
+            seconds = time.perf_counter() - t1
+            with open(pred_path) as f:
+                runs[where] = (res, json.load(f), seconds)
+            if where == "card":  # the end of phase 10's main path: read the counts
+                cli_launches = [a - b for a, b in zip(launch_counts(), before)]
+                total = [a + b for a, b in zip(total, cli_launches)]
+                if launch_counts() != total:
+                    raise AssertionError(f"launches {launch_counts()} != the stages' and the "
+                                         f"CLI's {total}")
+        (res_card, preds, card_s), (res_cpu, preds_cpu, cpu_s) = runs["card"], runs["cpu"]
+        flipped = 0
+        if preds != preds_cpu or not np.array_equal(res_card["test_error"],
+                                                     res_cpu["test_error"]):
+            cli_cfg = Config.from_yaml(cfg_path)
+            exp = GQAObjectBoxExperiment()
+            features = exp.build_features(cli_cfg, logging.getLogger("phase10"))
+            test_ld = exp.build_loader(cli_cfg, cli_cfg.test_path, ont, features,
+                                       cli_cfg.test_batch_size, shuffle=False)
+            cpu_tr = VQATrainer(cli_cfg, Interpreter(cli_cfg, ont), device="cpu")
+            params_cpu = cpu_tr.load(os.path.join(cfg7["model_path"], cur.MODEL_NAME,
+                                                  cfg7["version"], "best"),
+                                     Interpreter(cli_cfg, ont).init_params(
+                                         torch.Generator().manual_seed(0)))
+            ties = float_ties(cpu_tr.interp, test_ld, params_cpu)
+            flipped = same_up_to_ties(preds, preds_cpu, ties)
+            check_error_up_to_ties(res_card["test_error"], res_card["test_counts"],
+                                   res_cpu["test_error"], res_cpu["test_counts"], ties)
+        if len(preds) != int(res_card["test_counts"][0]) or not preds:
+            raise AssertionError(f"{len(preds)} predictions for {res_card['test_counts'][0]} "
+                                 "test questions")
+        if cli_launches[2] <= 0 or cli_launches[2] != cli_launches[3] or any(cli_launches[:2]):
+            raise AssertionError(f"the card's CLI test launched (fwd, bwd, pair_mlp, contract) "
+                                 f"{cli_launches}: want kernels 3 and 4 per relating batch only")
+        log(f"[10] CLI -t -l best -p over stage 7's test set ({len(preds)} questions, the "
+            f"CLI's SyntheticFeatures scenes, f32 h2 stream): card {card_s!r} s, CPU (-c) "
+            f"{cpu_s!r} s; predictions and test error equal up to the near-tie rule "
+            f"({flipped} answers inside a CPU near-tie differ); over_all test error "
+            f"{float(res_card['test_error'][0])!r}; launches {cli_launches} "
+            f"({time.perf_counter() - t0!r} s, {stamp})")
+    log(f"[10] phase 10 took {time.perf_counter() - t_phase!r} s, CPU references included")
+    names = ("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd", "shared_contract_fwd")
+    return dict(zip(names, total))
+
+
+def check_stage(cfg, st, root, res, loaded, launches, counters, row) -> None:
+    """Phase 10's gates on one finished stage (``phase_curriculum``) and its
+    printed line."""
+    from dfol_vqa_tpu_torch.experiments import curriculum as cur
+    from dfol_vqa_tpu_torch.train.optim import trainable_labels
+
+    i = st["i"]
+    ver = os.path.join(root, "runs", cur.MODEL_NAME)
+    best, last = os.path.join(ver, cfg.version, "best"), os.path.join(ver, cfg.version, "last")
+    need = [os.path.join(best, f) for f in (f"{cur.MODEL_NAME}.npz", "losses.npy",
+                                            "errors.npy")]
+    need += [os.path.join(last, f"{cur.MODEL_NAME}.npz"), os.path.join(root, f"stage_{i}.json")]
+    missing = [f for f in need if not os.path.exists(f)]
+    if missing or not np.isfinite(res["train_loss"]).all():
+        raise AssertionError(f"stage {i}: missing {missing} or losses {res['train_loss']}")
+    final = flat_params(res["params"])
+    moved = frozen = 0
+    if i > 0:
+        got = loaded.pop(cfg.version, None)
+        if got is None:
+            raise AssertionError(f"stage {i} loaded no checkpoint")
+        with np.load(os.path.join(ver, f"curriculum_{i - 1}", "best",
+                                  f"{cur.MODEL_NAME}.npz")) as prev:
+            keys = [k for k in prev.files if not k.startswith("__")]
+            for k in keys:
+                if not np.array_equal(got[k], prev[k]):
+                    raise AssertionError(f"stage {i}: {k} after the load differs from stage "
+                                         f"{i - 1}'s best")
+        fresh = sorted(set(got) - set(keys))
+        if fresh != (sorted(k for k in got if k.startswith("calibrator/")) if i == 6 else []):
+            raise AssertionError(f"stage {i}: leaves not in stage {i - 1}'s best: {fresh}")
+        if cfg.activate_attention_transfer:
+            on = {n.replace(".", "/") for n, t in trainable_labels(res["params"], cfg).items()
+                  if t}
+            for k in got:
+                same = np.array_equal(final[k], got[k])
+                if k not in on and not same:
+                    raise AssertionError(f"stage {i}: frozen {k} changed")
+                if k.startswith("calibrator/") and same:
+                    raise AssertionError(f"stage {i}: calibrator leaf {k} never moved")
+                frozen += k not in on
+                moved += k.startswith("calibrator/")
+    elif loaded.pop(cfg.version, None) is not None:
+        raise AssertionError("stage 0 loaded a checkpoint")
+    train = [c for kind, c in counters if kind == "train"]
+    evals = [c for kind, c in counters if kind == "eval"]
+    if len(train) != 1:
+        raise AssertionError(f"stage {i}: {len(train)} training loaders")
+    (train,) = train
+    pq = train.by_route["per_question"]
+    shared = sum(c.relating for c in evals) + train.by_route["shared"]
+    want = [pq, pq, shared, shared]
+    if launches != want or (st["split"] == "bal") != (pq > 0) or shared <= 0:
+        raise AssertionError(f"stage {i}: launches (fwd, bwd, pair_mlp, contract) {launches}, "
+                             f"want {want} (training steps relating by route "
+                             f"{train.by_route}; {shared} shared-route relating batches)")
+    steps = train.batches
+    extra = (f"; frozen leaves unchanged {frozen}, calibrator leaves moved {moved}"
+             if cfg.activate_attention_transfer else "")
+    log(f"[10] stage {i} ({', '.join(st['fams'][:2])}{'...' if len(st['fams']) > 2 else ''}; "
+        f"lengths {list(st['lens'])}, {st['split']}, batch {cfg.train_batch_size}/"
+        f"{cfg.test_batch_size}, {cfg.epoch_num} epochs): {row['seconds']!r} s, {steps} steps "
+        f"= {steps / max(row['seconds'], 1e-9)!r} steps/s (validation and test included); "
+        f"training: {train.relating} of {steps} steps relate, by route {train.by_route}; eval "
+        f"batches "
+        f"{sum(c.batches for c in evals)}, {sum(c.relating for c in evals)} relating (shared); "
+        f"launches {launches}; epoch losses {np.asarray(res['train_loss'])[:, 0].tolist()}; "
+        f"test accuracy {row['test_acc_overall']!r}{extra}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -2210,7 +2692,10 @@ def main() -> int:
     try:
         records = [phase_kernels(eng, stamp), phase_bwd_kernel(eng, stamp)]
         records += phase_shared_kernels(eng.params, eng.cfg, device, stamp)
+        phase_cache_dtype(device, stamp)
         serve = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp)}
+        serve_int8 = {"relation_oracle_fwd": phase_serve_int8(eng, cpu_eng, world, device,
+                                                              stamp)}
         t8 = time.perf_counter()
         serve8 = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp,
                                                      SERVE_TERMINALS_MIX, tag="8", seed=2000)}
@@ -2234,6 +2719,8 @@ def main() -> int:
     paths["terminals_train"] = phase_terminals_train(device, stamp)
     log(f"[8] phase 8 took {t8 + time.perf_counter() - t0!r} s, CPU references included")
     paths["calibrator"] = phase_calibrator(world, device, stamp)
+    paths["serve_int8"] = serve_int8
+    paths["curriculum"] = phase_curriculum(device, stamp)
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

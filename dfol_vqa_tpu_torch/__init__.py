@@ -21,7 +21,10 @@ the backward kernel of ``ops.relation_oracle`` (+
 ``csrc/relation_oracle_bwd.cu``), autograd for ``ops.pair_mlp`` and
 ``ops.shared_contract``, ``train.optim``, ``VQATrainer.train``,
 asynchronous checkpoints and ``data.trainset``; then the host modules'
-copies, and kernels 1 and 2 on the tensor cores (``csrc/pair_tail_tile.cuh``).
+copies, and kernels 1 and 2 on the tensor cores (``csrc/pair_tail_tile.cuh``);
+every terminal, the calibrator and F > 1; and the user entry points:
+``experiments`` (the experiment CLI and the curriculum chain) and the
+preprocessing CLI ``compiler.preprocess_cli``.
 """
 
 __version__ = "0.1.0"

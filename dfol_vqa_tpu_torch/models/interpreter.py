@@ -206,10 +206,6 @@ def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None, mods: M
     return s * subj2 + (1.0 - s) * obj2
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP: {item})")
-
-
 class Interpreter:
     """Builds worlds and executes compiled program batches."""
 
@@ -233,6 +229,12 @@ class Interpreter:
         if self.cfg.activate_attention_transfer:
             params.calibrator = cal.init_calibrator_params(self.cfg, generator)
         return params.to(device)
+
+    def parameter_count(self, params: om.OracleParams) -> int:
+        """The number of parameter elements, every subtree included (the
+        calibrator, the logic gates and the F > 1 heads): what
+        ``dfol_vqa_tpu.nn.param_count`` counts for the same parameters."""
+        return int(sum(p.numel() for p in params.parameters()))
 
     @property
     def embedding_matrix(self) -> np.ndarray:
@@ -324,7 +326,7 @@ class Interpreter:
             rel_ll = torch.zeros((B, R, 1, 1), dtype=torch.float32, device=obj_mask.device)
             if rel_tokens is None:
                 rel_tokens = torch.zeros((B, R), dtype=torch.int32, device=obj_mask.device)
-        cache_dtype = om.resolve_cache_dtype(cfg)
+        cache_dtype = om.resolve_cache_dtype(cfg, B)
         return World(
             obj_mask=obj_mask,
             attr_ll=attr_ll.to(cache_dtype),
@@ -629,11 +631,16 @@ class Interpreter:
         modulator_switch: bool = True,
     ) -> Dict[str, torch.Tensor]:
         """Execute one compiled batch. ``objects`` may arrive as bf16 (the
-        serving transfer dtype); it is upcast to float32 on the device.
-        ``modulator_switch=False`` turns the calibrator off (see
-        ``execute``)."""
+        serving transfer dtype), upcast to float32 on the device, or as int8
+        (``data/transfer.quantize_objects``): the feature columns are
+        dequantized with the per-object scale ``arrays["obj_scale"]`` and
+        the geometry columns spliced back in from their unquantized copy
+        ``arrays["obj_geom"]``, as in JAX. ``modulator_switch=False`` turns
+        the calibrator off (see ``execute``)."""
         if objects.dtype == torch.int8:
-            raise _not_ported("int8 object transfer", "queue 5, the int8 object transfer")
+            deq = objects.float() * arrays["obj_scale"][..., None]
+            geom = arrays["obj_geom"]
+            objects = torch.cat([deq[..., :-geom.shape[-1]], geom], dim=-1)
         world = self.build_world(
             params, objects.float(), obj_mask, arrays.get("rel_tokens"),
             generator=generator, deterministic=not is_training,

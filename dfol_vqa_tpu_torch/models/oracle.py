@@ -90,16 +90,32 @@ def check_supported(cfg: Config) -> None:
             f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: the port computes in float32")
 
 
-def resolve_cache_dtype(cfg: Config) -> torch.dtype:
-    """Storage dtype of the likelihood caches, ``tpu.cache_dtype``. The JAX
-    package's "auto" is a TPU v5e table (bf16 from batch 256 up); the port
-    takes its dtype choices from measurements on the card, and none exists
-    for the caches yet, so "auto" raises."""
+def resolve_cache_dtype(cfg: Config, batch: int) -> torch.dtype:
+    """Storage dtype of the likelihood caches of a batch of ``batch``
+    questions, ``tpu.cache_dtype``. The JAX package's "auto" is a TPU v5e
+    table (bf16 from batch 256 up); the port's "auto" is float32 at every
+    batch, from a table measured on the card: the device time of one eval
+    ``Interpreter.forward`` (ms, the union of its device events in
+    ``torch.profiler``), median of five runs of five forwards in turns and
+    the runs' spread (max - min), on one relating shared-route batch of
+    ``exist`` questions at production widths, NVIDIA H100 80GB HBM3,
+    700.00 W (``chip_smoke.phase_cache_dtype``, which measures it again on
+    the card it runs on and raises if bfloat16 ever beats float32 by more
+    than both spreads at every object count of a batch). bfloat16 caches
+    were slower at every cell:
+
+        B, O      float32 ms (spread)   bfloat16 ms (spread)
+        32, 24    0.4782 (0.0008)       0.4900 (0.0008)
+        80, 24    0.5097 (0.0102)       0.5209 (0.0021)
+        256, 24   0.7212 (0.0181)       0.7364 (0.0038)
+        32, 100   0.7346 (0.0014)       0.7544 (0.0014)
+        80, 100   1.0351 (0.0119)       1.0583 (0.0009)
+        256, 100  2.8209 (0.1304)       2.8616 (0.2339)
+    """
+    del batch  # "auto" takes the batch, as the JAX rule does; on the H100 it never matters
     name = cfg.tpu.cache_dtype
     if name == "auto":
-        raise NotImplementedError(
-            'tpu.cache_dtype="auto" follows a TPU table; the port has no H100 measurement '
-            'for it yet (ROADMAP queue 5). Set "float32" or "bfloat16".')
+        return torch.float32
     if name not in ("float32", "bfloat16"):
         raise ValueError(f"tpu.cache_dtype must be float32, bfloat16 or auto, got {name!r}")
     return getattr(torch, name)
@@ -351,7 +367,7 @@ def rel_cache_shared(
         h2 = trunk(pos_u, h_s, h_o, w_g, b0, layers[1:], stream)
         return shared_contract.shared_contract_kernel(
             h2, img_index, e_sel.to(stream), b_sel, rel_tokens, default_ll,
-            out_dtype=resolve_cache_dtype(cfg))
+            out_dtype=resolve_cache_dtype(cfg, img_index.shape[0]))
 
     geom = pair_geometry(pos_u)
     h = (h_s[:, :, None, :] + h_o[:, None, :, :]

@@ -49,7 +49,7 @@ def float64_plain_path():
 
     real = torch.Tensor.float, om.resolve_cache_dtype, torch.get_default_dtype()
     torch.Tensor.float = lambda self, *args, **kw: self.to(torch.float64)
-    om.resolve_cache_dtype = lambda cfg: torch.float64
+    om.resolve_cache_dtype = lambda cfg, batch: torch.float64
     torch.set_default_dtype(torch.float64)
     try:
         yield

@@ -10,7 +10,10 @@ modules, and nothing of the JAX package in the port.
   and its metadata asset, the program compiler's batches, the planted
   world's features and questions, the synthetic question and supervision
   generators, and the loader's batches in the shuffled (training) and the
-  deduplicated (evaluation) layout;
+  deduplicated (evaluation) layout; the preprocessing modules
+  (``compiler/normalize``, ``preprocess``, ``preprocess_cli``, ``verifier``)
+  by source text, imports renamed (their behaviour against JAX is
+  ``tests/test_torch_preprocess.py``);
 * the CUDA build hash covers the headers in ``csrc/``.
 """
 
@@ -18,6 +21,7 @@ import ast
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -69,7 +73,10 @@ def test_port_file_imports_nothing_of_jax(path):
 
 @pytest.mark.parametrize("module", ["dfol_vqa_tpu_torch.serve", "dfol_vqa_tpu_torch.train.trainer",
                                     "dfol_vqa_tpu_torch.data.evalset",
-                                    "dfol_vqa_tpu_torch.data.trainset"])
+                                    "dfol_vqa_tpu_torch.data.trainset",
+                                    "dfol_vqa_tpu_torch.experiments.gqa_experiment",
+                                    "dfol_vqa_tpu_torch.experiments.curriculum",
+                                    "dfol_vqa_tpu_torch.compiler.preprocess_cli"])
 def test_port_module_loads_no_jax(module):
     code = ("import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
@@ -78,6 +85,26 @@ def test_port_module_loads_no_jax(module):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_experiment_modules_are_scanned():
+    for name in ("__init__", "experiment", "gqa_experiment", "curriculum"):
+        assert os.path.join("dfol_vqa_tpu_torch", "experiments", name + ".py") in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["normalize", "preprocess", "preprocess_cli", "verifier"])
+def test_compiler_copy_source_equals_jax(module):
+    """The copy is the JAX module's text with ``dfol_vqa_tpu`` renamed to
+    ``dfol_vqa_tpu_torch`` and a note after the docstring's first line."""
+    rel = os.path.join("compiler", module + ".py")
+    with open(os.path.join(ROOT, "dfol_vqa_tpu", rel)) as f:
+        lines = re.sub(r"\bdfol_vqa_tpu\b", "dfol_vqa_tpu_torch", f.read()).split("\n")
+    note = [f"The PyTorch port's own copy of ``dfol_vqa_tpu/compiler/{module}.py``, which it "
+            "must not import",
+            "(the port imports nothing of the JAX package); it behaves exactly as",
+            "that module, and tests/test_torch_host.py holds the two equal.", ""]
+    with open(os.path.join(PORT, rel)) as f:
+        assert f.read() == "\n".join(lines[:2] + note + lines[2:])
 
 
 @pytest.mark.parametrize("yaml_path", [None, "configs/sample_config.yaml"])

@@ -26,7 +26,7 @@ from dfol_vqa_tpu.data.loader import LoadedBatch
 from dfol_vqa_tpu.models import interpreter as jinterp
 from dfol_vqa_tpu_torch import serve
 from dfol_vqa_tpu_torch.convert import params_from_numpy
-from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+from dfol_vqa_tpu_torch.data.transfer import quantize_objects, to_device_batch
 from dfol_vqa_tpu_torch.models import interpreter as interp
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -154,8 +154,11 @@ def test_transfer_dtypes(engines):
     assert objs.dtype == torch.bfloat16 and mask.dtype == torch.float32
     assert set(arrays) == set(lb.arrays)
     assert arrays["arg_tok"].dtype == torch.int32
-    with pytest.raises(NotImplementedError):
-        to_device_batch(lb, "cpu", "int8")
+    _, objs, _, arrays = to_device_batch(lb, "cpu", "int8")
+    assert objs.dtype == torch.int8 and arrays["obj_scale"].dtype == torch.float32
+    np.testing.assert_array_equal(objs.numpy(), quantize_objects(lb.objects, lb.obj_scale))
+    with pytest.raises(ValueError):
+        to_device_batch(lb, "cpu", "float16")
 
 
 # ------------------------------------------------------------ engine policy
