@@ -8,7 +8,8 @@ Phases, each reported on its own line(s):
 2. the build of every CUDA kernel of the serving, offline-eval and training
    paths from ``csrc/`` (nvcc, sm_90a, all four started together), with its
    seconds and the ptxas register, shared-memory and spill lines;
-3. each kernel against its plain PyTorch version at the paths' shapes, with
+3. each kernel against its plain PyTorch version at the paths' shapes
+   (kernel 1 called through its registered operator), with
    median CUDA-event times of the wrapper and the plain version, timed in
    turns, and the kernel's own device time from ``torch.profiler``: the
    relation-oracle pair tail (kernel 1) and its backward (kernel 2) at a
@@ -128,10 +129,22 @@ Phases, each reported on its own line(s):
    calibrator leaf moved in stages 6-7, finite losses and each stage's
    files, every relating batch's kernels; then the CLI
    (``gqa_experiment -t -l best -p``) over stage 7's test set on the card
-   against ``-c`` on the CPU, up to the near-tie rule.
+   against ``-c`` on the CPU, up to the near-tie rule;
+11. the serving deployment (``phase_daemon``) at the demo engine's
+   production widths on phase 4's 64 requests: ``ServingEngine.trace`` of
+   each relating spec on the card against the CPU and the sixth JAX golden
+   (``tests/data/torch_port_golden_trace.npz``); the weight-free artifact
+   exported on the card at rungs 1-32 with traces (``EXPORT_WORKERS``
+   processes), served by a fresh engine with ``Interpreter.forward``
+   forbidden (answers equal to the live card engine's and the CPU's, no
+   live step, kernel 1 through its operator once per relating group), a
+   CPU artifact refused; requests/s of the live and the artifact engine in
+   turns; the HTTP daemon in a subprocess (``--ckpt`` of the phase's
+   weights, ``--artifact``) answering the requests from ``DAEMON_CLIENTS``
+   threads (``/healthz``, ``/v1/trace``, ``/stats`` gated).
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4 (both transfers), 6, 7, 8, 9 and 10, each counted from 0),
+of phases 4 (both transfers), 6, 7, 8, 9, 10 and 11, each counted from 0),
 error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
@@ -161,6 +174,7 @@ EVAL_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
 TERMINALS_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
 CALIBRATOR_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
+TRACE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_trace.npz")
 SUPERVISION_GOLDEN = {"n": 2, "seed": 3}  # the terminals golden's supervision batches
 KERNEL_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4
@@ -377,10 +391,14 @@ def pair_tail_cases(eng, gen):
         yield (B, O, *random_width_inputs(gen, B, O, H, E, device=eng.device))
 
 
+DEFAULT_LL = -30.0  # the pad slots' log-likelihood (oracle.DEFAULT_LOG_LIKELIHOOD)
+
+
 def phase_kernels(eng, stamp: str) -> dict:
     """Kernel 1 vs plain at the ragged, serving and training shapes, with
     the serving engine's weights, and at a wide (two slices of H and E) and
-    an odd (not multiples of 4) pair of widths; returns the kernel's record,
+    an odd (not multiples of 4) pair of widths, called and timed through its
+    registered operator (``relation_oracle_fwd``); returns the kernel's record,
     timed at B=80, O=100 (the training shape), with every shape under
     ``shapes``."""
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
@@ -390,7 +408,7 @@ def phase_kernels(eng, stamp: str) -> dict:
     for B, O, ins, tok in pair_tail_cases(eng, gen):
         H, E, R = ins[0].shape[-1], ins[5].shape[1], tok.shape[1]
         with torch.inference_mode():
-            got = ro.pair_tail_kernel(*ins, tok)
+            got = ro.relation_oracle_fwd(*ins, tok, DEFAULT_LL)
             want = ro.pair_tail_reference(*ins, tok)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
@@ -398,9 +416,9 @@ def phase_kernels(eng, stamp: str) -> dict:
                 raise AssertionError(f"relation_oracle kernel disagrees at B={B} O={O} H={H} "
                                      f"E={E}: max abs {err} > {KERNEL_ATOL}")
             worst = max(worst, err)
-            t = cuda_ms({"kernel": lambda: ro.pair_tail_kernel(*ins, tok),
+            t = cuda_ms({"kernel": lambda: ro.relation_oracle_fwd(*ins, tok, DEFAULT_LL),
                          "plain": lambda: ro.pair_tail_reference(*ins, tok)})
-            dev = kernel_device_ms(lambda: ro.pair_tail_kernel(*ins, tok),
+            dev = kernel_device_ms(lambda: ro.relation_oracle_fwd(*ins, tok, DEFAULT_LL),
                                    "relation_oracle_fwd_kernel", lambda: ro.LAUNCHES)
         rec = shape_record(t, pair_tail_work(B, O, H, E, R, backward=False), dev, B=B, O=O, H=H,
                            E=E, max_abs_err=err)
@@ -705,6 +723,14 @@ def serve_questions(world, mix=SERVE_MIX, seed=1000):
     return qs
 
 
+def check_launches(launches: int, keys, relating) -> None:
+    """Kernel 1 launches once per relating group of a served run: at least
+    once per relating canonical spec, at most once per relating request."""
+    if not len(keys) <= launches <= sum(relating) or launches <= 0:
+        raise AssertionError(f"the relation_oracle kernel launched {launches} times for "
+                             f"{sum(relating)} relating requests of {len(keys)} specs")
+
+
 def phase_serve(eng, cpu_eng, world, stamp: str, mix=SERVE_MIX, tag: str = "4",
                 seed: int = 1000) -> int:
     """Serve ``mix`` (default: phase 4's 64 requests) on the card; the
@@ -732,9 +758,7 @@ def phase_serve(eng, cpu_eng, world, stamp: str, mix=SERVE_MIX, tag: str = "4",
     if got != want:
         bad = sum(a != b for a, b in zip(got, want))
         raise AssertionError(f"{bad}/{len(qs)} GPU answers differ from the CPU plain engine")
-    if not len(keys) <= launches <= sum(relating) or launches <= 0:
-        raise AssertionError(f"the relation_oracle kernel launched {launches} times for "
-                             f"{sum(relating)} relating requests of {len(keys)} specs")
+    check_launches(launches, keys, relating)
     p50 = statistics.median(r.latency_ms for r in results)
     families = sorted({q["program"]["last_op"]["operator"] for q in qs})
     log(f"[{tag}] served {len(qs)} requests ({', '.join(families)}) in {seconds!r} s: "
@@ -836,6 +860,41 @@ def check_golden(device, atol: float) -> int:
     want = [json.loads(str(golden[f"req/{i}/answers"])) for i in range(n)]
     if got != want:
         raise AssertionError(f"served answers {got} != golden {want}")
+    return n
+
+
+def check_trace_golden(device, atol: float) -> int:
+    """``ServingEngine.trace`` on ``device`` against the JAX trace golden
+    (the tiny demo engine with the serving golden's weights); returns the
+    number of requests checked. Hops (branch, op, token) and answers must
+    be equal, the attentions (probabilities) and log-probabilities within
+    ``atol``."""
+    from dfol_vqa_tpu_torch.convert import params_from_numpy
+    from dfol_vqa_tpu_torch.serve import build_demo_engine
+
+    weights = np.load(GOLDEN)
+    params = params_from_numpy({k[len("params/"):]: weights[k]
+                                for k in weights.files if k.startswith("params/")})
+    golden = np.load(TRACE_GOLDEN)
+    n = sum(1 for k in golden.files if k.endswith("/hops"))
+    _, _, _, eng = build_demo_engine(tiny=True, device=device, params=params, start=False)
+    try:
+        for i in range(n):
+            p = f"trace/{i}/"
+            entry = eng.trace(json.loads(str(golden[p + "question"])), golden[p + "objects"],
+                              golden[p + "obj_mask"])
+            hops = [[h["branch"], h["op"], h["token"]] for h in entry["hops"]]
+            if hops != json.loads(str(golden[p + "hops"])):
+                raise AssertionError(f"trace {i}: hops {hops} differ from the golden")
+            if entry["answers"] != json.loads(str(golden[p + "answers"])):
+                raise AssertionError(f"trace {i}: answers {entry['answers']} differ")
+            for what, got in (("attention", [h["attention"] for h in entry["hops"]]),
+                              ("log_probability", entry["log_probability"])):
+                err = np.abs(np.asarray(got, np.float32) - golden[p + what]).max()
+                if not err <= atol:
+                    raise AssertionError(f"trace {i}: {what} off by {err} > {atol}")
+    finally:
+        eng.stop()
     return n
 
 
@@ -2659,6 +2718,289 @@ def check_stage(cfg, st, root, res, loaded, launches, counters, row) -> None:
         f"test accuracy {row['test_acc_overall']!r}{extra}")
 
 
+DAEMON_CLIENTS = 8  # phase 11's HTTP client threads
+DAEMON_PASSES = 3  # phase 11's passes of the 64 requests over HTTP
+EXPORT_WORKERS = 6  # phase 11's export processes (export is host work, one core each)
+# phase 11's weights: not the daemon's own random ones (seed 0), so its
+# answers show that it loaded them from the checkpoint
+DAEMON_WEIGHTS_SEED = 11
+
+
+def trace_diff(got: dict, want: dict) -> float:
+    """Raise unless two ``ServingEngine.trace`` entries have the same hops
+    (branch, op, token) and answers; returns the largest difference of their
+    attentions and probabilities (exp of the log-probabilities)."""
+    hops = [[(h["branch"], h["op"], h["token"]) for h in e["hops"]] for e in (got, want)]
+    if hops[0] != hops[1] or got["answers"] != want["answers"]:
+        raise AssertionError(f"trace {got['question_id']}: hops or answers differ: "
+                             f"{hops[0]} {got['answers']} vs {hops[1]} {want['answers']}")
+    att = max((float(np.abs(np.subtract(a["attention"], b["attention"])).max())
+               for a, b in zip(got["hops"], want["hops"])), default=0.0)
+    p = float(np.abs(np.exp(got["log_probability"]) - np.exp(want["log_probability"])).max())
+    return max(att, p)
+
+
+def served_rate(eng, groups, what: str) -> dict:
+    """``groups`` (one list of questions per canonical spec) served one
+    ``answer_many`` after another, so each spec's requests ride one batch at
+    the same rung in every run: requests/s and p50 latency."""
+    t0 = time.perf_counter()
+    results = [r for g in groups for r in eng.answer_many(g)]
+    seconds = time.perf_counter() - t0
+    return {"what": what, "requests_per_s": len(results) / seconds,
+            "p50_ms": statistics.median(r.latency_ms for r in results),
+            "answers": [r.answers for r in results]}
+
+
+def http_json(base: str, path: str, payload=None, timeout: float = 300):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+class Daemon:
+    """``python -m dfol_vqa_tpu_torch.http_frontend`` in a subprocess, its
+    output drained by a thread; ``base`` is its URL once it listens."""
+
+    def __init__(self, args):
+        import re
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dfol_vqa_tpu_torch.http_frontend", *args], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": ROOT})
+        self.lines, self.base = [], None
+        self._ready = threading.Event()
+
+        def drain():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip())
+                m = re.search(r"listening on (http://[\d.]+:\d+)", line)
+                if m:
+                    self.base = m.group(1)
+                    self._ready.set()
+            self._ready.set()
+
+        self._thread = threading.Thread(target=drain, daemon=True)
+        self._thread.start()
+
+    def wait_listening(self, timeout: float = 300) -> str:
+        self._ready.wait(timeout)
+        if self.base is None:
+            raise AssertionError("the daemon did not start listening:\n" + "\n".join(self.lines))
+        return self.base
+
+    def stop(self) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self._thread.join(timeout=60)
+        return self.proc.returncode
+
+
+def phase_daemon(device, stamp: str) -> dict:
+    """Phase 11: the serving deployment at production widths (the demo
+    engine: 2048-d boxes, oracle 512, E=300, H=256, R=8, O=24, bf16
+    transfer, max_batch 32) on phase 4's 64 requests. Returns kernel 1's
+    launches in the artifact engine's run.
+
+    1. Trace: one question per relating spec, ``ServingEngine.trace`` on the
+       card vs the CPU engine (hops and answers equal, attentions and
+       probabilities within ``EVAL_P_ATOL``), and the JAX trace golden on
+       the card (within ``GOLDEN_ATOL``).
+    2. Artifact: ``export_serving_set`` on the card at every rung 1-32 with
+       traces, loaded into a fresh engine with ``Interpreter.forward``
+       forbidden; its answers equal the live card engine's and the CPU
+       engine's, it makes no live step, and kernel 1 launches at least once
+       per relating spec and at most once per relating request. A CPU
+       artifact is refused by the card engine. Requests/s and p50 of the
+       live and the artifact engine, in turns, each spec's requests as one
+       batch (so every run meets the steps the first one read; reported).
+    3. Daemon: the weights (from ``DAEMON_WEIGHTS_SEED``) saved as an npz
+       checkpoint, the daemon started on its own random weights (seed 0)
+       with ``--ckpt``, ``--artifact`` and ``--warmup`` (every module read
+       before it listens); 64 requests
+       from ``DAEMON_CLIENTS`` threads equal the CPU engine's, ``/healthz``
+       names cuda and the card, ``/v1/trace`` equals step 1's traces,
+       ``/stats`` shows steps from the artifact only; requests/s over HTTP
+       (reported). The daemon must exit cleanly on SIGINT."""
+    import tempfile
+
+    from dfol_vqa_tpu_torch.export import export_serving_set, load_serving_set
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+    from dfol_vqa_tpu_torch.serve import build_demo_engine, demo_config
+    from dfol_vqa_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    params = Interpreter(demo_config(), GQAOntology()).init_params(
+        torch.Generator().manual_seed(DAEMON_WEIGHTS_SEED))
+    demo = dict(max_batch=32, seed=0, params=params)
+    _, _, world, eng = build_demo_engine(device=device, **demo)
+    _, _, _, cpu_eng = build_demo_engine(device="cpu", **demo)
+    tmp = tempfile.TemporaryDirectory()
+    daemon = None
+    try:
+        groups = {}
+        for q in serve_questions(world):
+            groups.setdefault(eng._prepare(q)[0], []).append(q)
+        groups = list(groups.values())
+        qs = [q for g in groups for q in g]  # in spec order, as served_rate serves them
+        specs = [eng._prepare(q)[0] for q in qs]
+        relating = [spec_needs_relations(k) for k in specs]
+        first = {}
+        for q, k, r in zip(qs, specs, relating):
+            if r:
+                first.setdefault(k, q)
+        # export and start the daemon first: it reads every module (--warmup)
+        # while this process traces and checks and serves the artifact, and
+        # idles while this process is timed
+        art, ckpt = os.path.join(tmp.name, "art"), os.path.join(tmp.name, "ckpt")
+        manifest = export_serving_set(eng, qs, art, include_traces=True,
+                                      workers=EXPORT_WORKERS)
+        checkpoint.save(ckpt, "best", eng.params)
+        daemon = Daemon(["--port", "0", "--ckpt", ckpt, "--artifact", art, "--warmup"])
+        # 1. trace
+        traces = {q["question_id"]: eng.trace(q) for q in first.values()}
+        worst = max(trace_diff(traces[q["question_id"]], cpu_eng.trace(q))
+                    for q in first.values())
+        if not worst <= EVAL_P_ATOL:
+            raise AssertionError(f"card traces differ from the CPU's by {worst} > {EVAL_P_ATOL}")
+        n = check_trace_golden(device, GOLDEN_ATOL)
+        log(f"[11] trace: {len(first)} relating specs traced on the card vs the CPU, hops and "
+            f"answers equal, attentions and probabilities within {worst!r} <= {EVAL_P_ATOL}; "
+            f"JAX trace golden: {n} requests within {GOLDEN_ATOL} ({stamp})")
+
+        # 2. artifact
+        t0 = time.perf_counter()
+        loaded = load_serving_set(art, engine=eng)
+        load_s = time.perf_counter() - t0
+        log(f"[11] artifact: {manifest['n_specs']} specs x rungs {manifest['batch_sizes']} + "
+            f"traces = {len(manifest['executables'])} modules exported on the card by "
+            f"{EXPORT_WORKERS} processes in {manifest['export_seconds']!r} s, "
+            f"{manifest['artifact_mb']!r} MB; manifest checked in {load_s!r} s ({stamp})")
+        _, _, _, cpu_art_eng = build_demo_engine(device="cpu", start=False, **demo)
+        export_serving_set(cpu_art_eng, [next(iter(first.values()))],
+                           os.path.join(tmp.name, "cpu_art"), batch_sizes=[1])
+        cpu_art_eng.stop()
+        try:
+            load_serving_set(os.path.join(tmp.name, "cpu_art"), engine=eng)
+        except ValueError as e:
+            if "device_type" not in str(e):
+                raise
+            log(f"[11] a CPU artifact offered to the card engine is refused: {e}")
+        else:
+            raise AssertionError("the card engine accepted an artifact exported on the CPU")
+
+        want_cpu = [r.answers for r in cpu_eng.answer_many(qs)]
+        eng.warmup(qs)
+        forward = Interpreter.forward
+
+        def refuse(*_a, **_k):
+            raise AssertionError("Interpreter.forward called by the artifact engine")
+
+        Interpreter.forward = refuse
+        try:
+            _, _, _, art_eng = build_demo_engine(device=device, executables=loaded, **demo)
+            try:
+                ro.LAUNCHES = 0
+                cold = served_rate(art_eng, groups, "artifact, first")
+                launches = ro.LAUNCHES
+                got = cold["answers"]
+                daemon.wait_listening()
+                rates = []
+                for e, what in ((eng, "live"), (art_eng, "artifact"), (art_eng, "artifact"),
+                                (eng, "live")):
+                    Interpreter.forward = forward if e is eng else refuse
+                    rates.append(served_rate(e, groups, what))
+                stats = dict(art_eng.stats)
+            finally:
+                art_eng.stop()
+        finally:
+            Interpreter.forward = forward
+        want_live = rates[0]["answers"]
+        if got != want_live or got != want_cpu or any(r["answers"] != got for r in rates):
+            bad = sum(a != b for a, b in zip(got, want_cpu))
+            raise AssertionError(f"artifact answers differ: {bad}/{len(qs)} from the CPU engine's")
+        if stats["compiled_steps"] != 0 or stats["aot_steps"] <= 0:
+            raise AssertionError(f"the artifact engine made live steps: {stats}")
+        keys = {k for k, r in zip(specs, relating) if r}
+        check_launches(launches, keys, relating)
+        log(f"[11] artifact engine (Interpreter.forward forbidden) served {len(qs)} requests, "
+            f"a batch per spec, at {cold['requests_per_s']!r} requests/s (each module read at "
+            f"its first use): answers == live card engine == CPU "
+            f"engine, compiled_steps 0, aot_steps {stats['aot_steps']}, relation_oracle "
+            f"launches {launches} for {sum(relating)} relating requests of {len(keys)} specs "
+            f"({stamp})")
+        log("[11] in turns, a batch per spec, requests/s and p50 ms: " + "; ".join(
+            f"{r['what']} {r['requests_per_s']!r} / {r['p50_ms']!r}" for r in rates)
+            + f" ({stamp})")
+
+        # 3. daemon
+        base = daemon.wait_listening()
+        health = http_json(base, "/healthz")
+        name = torch.cuda.get_device_name(0) if eng.device.type == "cuda" else "cpu"
+        if health != {"ok": True, "device": eng.device.type, "device_name": name}:
+            raise AssertionError(f"/healthz: {health}")
+        passes = []  # (seconds, modules read in the pass): a module is read at first use
+        for _ in range(DAEMON_PASSES):
+            aot = http_json(base, "/stats")["aot_steps"]
+            results = [None] * len(qs)
+
+            def client(c):
+                for i in range(c, len(qs), DAEMON_CLIENTS):
+                    results[i] = http_json(base, "/v1/answer", {"question": qs[i]})["answers"]
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(DAEMON_CLIENTS) as pool:
+                list(pool.map(client, range(DAEMON_CLIENTS)))
+            passes.append((time.perf_counter() - t0,
+                           http_json(base, "/stats")["aot_steps"] - aot))
+            if results != want_cpu:
+                bad = sum(a != b for a, b in zip(results, want_cpu))
+                raise AssertionError(f"{bad}/{len(qs)} daemon answers differ from the CPU "
+                                     "engine's")
+        worst = max(trace_diff(http_json(base, "/v1/trace", {"question": q}),
+                               traces[q["question_id"]]) for q in first.values())
+        if not worst <= GOLDEN_ATOL:
+            raise AssertionError(f"/v1/trace differs from the in-process trace by {worst}")
+        dstats = http_json(base, "/stats")
+        if dstats["compiled_steps"] != 0 or dstats["trace_steps"] != 0 \
+                or dstats["aot_steps"] <= 0:
+            raise AssertionError(f"the daemon made live steps: {dstats}")
+        log(f"[11] daemon (--ckpt, --artifact; {' | '.join(daemon.lines[:3])}): healthz "
+            f"{health}; {len(qs)} requests from {DAEMON_CLIENTS} client threads, "
+            f"{DAEMON_PASSES} passes, requests/s over HTTP (modules read in the pass): "
+            + ", ".join(f"{len(qs) / t!r} ({n})" for t, n in passes)
+            + f"; answers == CPU engine; /v1/trace == "
+            f"in-process traces (max diff {worst!r}); /stats aot_steps {dstats['aot_steps']}, "
+            f"compiled_steps 0, trace_steps 0, batches {dstats['batches']}, p50 "
+            f"{dstats['latency'].get('p50_ms')!r} ms ({stamp})")
+        rc, daemon = daemon.stop(), None
+        if rc != 0:
+            raise AssertionError(f"the daemon exited with {rc}")
+    finally:
+        if daemon is not None:
+            daemon.stop()
+        eng.stop()
+        cpu_eng.stop()
+        tmp.cleanup()
+    log(f"[11] phase 11 took {time.perf_counter() - t_phase!r} s, CPU references included")
+    return {"relation_oracle_fwd": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -2721,6 +3063,7 @@ def main() -> int:
     paths["calibrator"] = phase_calibrator(world, device, stamp)
     paths["serve_int8"] = serve_int8
     paths["curriculum"] = phase_curriculum(device, stamp)
+    paths["daemon"] = phase_daemon(device, stamp)
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

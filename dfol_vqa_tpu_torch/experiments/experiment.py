@@ -9,9 +9,9 @@ subclasses, then train -> predict -> test, with the same return dict.
 
 It runs on one device, ``device`` (the card unless the caller asks for the
 CPU). A configuration that asks for more than one device
-(``tpu.mesh_shape``, the ``DFOL_DISTRIBUTED`` environment) raises, and so
-does ``visualize``: the mesh and the visualiser are not ported yet (ROADMAP
-queues 6 and 8).
+(``tpu.mesh_shape``, the ``DFOL_DISTRIBUTED`` environment) raises: the mesh
+is not ported yet (ROADMAP queue 6). ``visualize`` runs the visualization
+epoch (``viz.visualize_loop``) over the test set, one question a batch.
 """
 
 from __future__ import annotations
@@ -33,9 +33,9 @@ from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.train.trainer import VQATrainer
 
 
-def check_single_device(cfg: Config, visualize: bool) -> None:
+def check_single_device(cfg: Config) -> None:
     """Raise for what the port cannot run yet, rather than quietly running
-    it on one device or without its output."""
+    it on one device."""
     if os.environ.get("DFOL_DISTRIBUTED"):
         raise NotImplementedError(
             "DFOL_DISTRIBUTED (multi-host training) is not ported to PyTorch yet "
@@ -44,9 +44,6 @@ def check_single_device(cfg: Config, visualize: bool) -> None:
         raise NotImplementedError(
             f"tpu.mesh_shape={tuple(cfg.tpu.mesh_shape)} asks for a device mesh, which is not "
             "ported to PyTorch yet (ROADMAP queue 6: mesh)")
-    if visualize:
-        raise NotImplementedError(
-            "visualize (viz.py) is not ported to PyTorch yet (ROADMAP queue 8)")
 
 
 class ExperimentBase:
@@ -101,7 +98,7 @@ class ExperimentBase:
         device="cuda",
     ):
         cfg = Config.from_yaml(config_file)
-        check_single_device(cfg, visualize)
+        check_single_device(cfg)
 
         logging.basicConfig(
             level=logging.DEBUG if cfg.verbose else logging.INFO,
@@ -153,7 +150,14 @@ class ExperimentBase:
         import_path = {"best": best_path, "last": last_path}.get(load_model)
         test_error = test_time = None
 
-        if predict:
+        if visualize:
+            from dfol_vqa_tpu_torch.viz import visualize_loop
+
+            viz_loader = self.build_loader(
+                cfg, cfg.test_path, ontology, features, 1, shuffle=False, keep_original=True
+            )
+            visualize_loop(trainer, interp, viz_loader, params, cfg.image_path, import_path)
+        elif predict:
             prediction_path = os.path.join(
                 os.path.relpath(cfg.model_path), "predictions", cfg.model_name, cfg.version
             )

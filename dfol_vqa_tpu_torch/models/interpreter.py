@@ -28,7 +28,8 @@ the attentions the executor carries.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import copy
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -253,6 +254,14 @@ class Interpreter:
             self._index_cache[key] = torch.as_tensor(self.embedding_matrix, device=device)
         return self._index_cache[key]
 
+    def with_embedding(self, embedding: torch.Tensor) -> "Interpreter":
+        """A shallow copy whose ``embedding_on`` returns ``embedding`` on its
+        device (a step input in place of the cached matrix, so that an
+        exported step does not carry it)."""
+        view = copy.copy(self)
+        view._index_cache = {("embedding", str(embedding.device)): embedding}
+        return view
+
     def _index(self, name: str, device) -> torch.Tensor:
         """The ontology's 0-based attribute (``name="attribute"``) or
         relation (``"relation"``) token columns, kept on the host and moved
@@ -341,11 +350,13 @@ class Interpreter:
 
     def _run_branch(self, world: World, arrays: Dict[str, torch.Tensor], branch: int,
                     grid: Sequence[int], gates: Gates = None,
-                    slot_mods: Optional[Sequence[Mods]] = None) -> torch.Tensor:
+                    slot_mods: Optional[Sequence[Mods]] = None,
+                    trace: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """Execute one branch's slot sequence; returns the final (B, O)
         attention. Every slot is gated by ``(tok != 0) * op_mask``, so padded
         slots are exact no-ops. ``slot_mods`` holds the calibrator's role
-        dict per slot."""
+        dict per slot. With a ``trace`` list, the (B, O) attention after
+        every non-pad slot is appended to it."""
         B, O = world.obj_mask.shape
         att = torch.zeros((B, O), dtype=torch.float32, device=world.obj_mask.device)
         for si, opc in enumerate(grid):
@@ -365,6 +376,8 @@ class Interpreter:
                                    mods)
             upd = ((tok != 0).float() * m)[:, None]
             att = upd * new + (1.0 - upd) * att
+            if trace is not None:
+                trace.append(att)
         return att
 
     # ------------------------------------------------------------- terminals
@@ -629,6 +642,7 @@ class Interpreter:
         is_training: bool = False,
         generator: Optional[torch.Generator] = None,
         modulator_switch: bool = True,
+        return_trace: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """Execute one compiled batch. ``objects`` may arrive as bf16 (the
         serving transfer dtype), upcast to float32 on the device, or as int8
@@ -636,7 +650,8 @@ class Interpreter:
         dequantized with the per-object scale ``arrays["obj_scale"]`` and
         the geometry columns spliced back in from their unquantized copy
         ``arrays["obj_geom"]``, as in JAX. ``modulator_switch=False`` turns
-        the calibrator off (see ``execute``)."""
+        the calibrator off and ``return_trace=True`` adds the hop-by-hop
+        attentions (see ``execute``)."""
         if objects.dtype == torch.int8:
             deq = objects.float() * arrays["obj_scale"][..., None]
             geom = arrays["obj_geom"]
@@ -646,11 +661,13 @@ class Interpreter:
             generator=generator, deterministic=not is_training,
             needs_rel=spec_needs_relations(spec), img_index=arrays.get("img_index"),
         )
-        return self.execute(params, world, arrays, spec, is_training, modulator_switch)
+        return self.execute(params, world, arrays, spec, is_training, modulator_switch,
+                            return_trace)
 
     def execute(self, params: om.OracleParams, world: World, arrays: Dict[str, torch.Tensor],
                 spec: BucketSpec, is_training: bool = False,
-                modulator_switch: bool = True) -> Dict[str, torch.Tensor]:
+                modulator_switch: bool = True,
+                return_trace: bool = False) -> Dict[str, torch.Tensor]:
         """Run a compiled batch against a prebuilt World. Returns
         ``log_probability``, ``answer_flags``, ``match`` and ``type``, and
         with ``is_training`` the ``loss`` (summed over the real questions,
@@ -660,7 +677,11 @@ class Interpreter:
         The calibrator runs when ``activate_attention_transfer`` is set, the
         params hold one and ``modulator_switch`` is on, except at eval for
         the open terminals ``query_attr``, ``choose_attr`` and
-        ``choose_rel`` (``compare`` keeps it), as in JAX."""
+        ``choose_rel`` (``compare`` keeps it), as in JAX.
+
+        ``return_trace=True`` adds ``trace``: per branch, the list of (B, O)
+        log-attentions after each of its non-pad slots (``viz.trace_to_dict``
+        reads it)."""
         cfg = self.cfg
         qtype = question_type_of(spec.terminal_op)
         open_terminal = spec.terminal_op in ("query_attr", "choose_attr", "choose_rel")
@@ -672,8 +693,9 @@ class Interpreter:
         gates = None
         if cfg.trainable_gate and params is not None and params.logic_gates is not None:
             gates = params.logic_gates
+        traces = [[] if return_trace else None for _ in spec.grid]
         atts = [self._run_branch(world, arrays, b, grid, gates,
-                                 modulations["slots"][b] if modulations else None)
+                                 modulations["slots"][b] if modulations else None, traces[b])
                 for b, grid in enumerate(spec.grid)]
         hard = (not is_training) and cfg.hard_mode
         arrays = {**arrays, "__obj_mask__": world.obj_mask}  # scene-graph masking
@@ -683,4 +705,6 @@ class Interpreter:
         if is_training:
             out["loss"] = self._loss(lp, arrays, qtype, params)
         out["type"] = torch.tensor(int(qtype))
+        if return_trace:
+            out["trace"] = traces
         return out

@@ -21,7 +21,9 @@ scalar caches as for F = 1. Its final layer starts at zero, so F > 1 starts
 out equal to F = 1. F > 1 runs the plain tails only: the kernel routes and
 the contract-then-gather tail require F == 1, as in JAX.
 
-Still to port (ROADMAP queues): ``full_caches`` and ``static_attr_cache``.
+``full_caches`` scores every relation of the vocabulary for a scene (the
+visualiser's view of it), and ``static_attr_cache`` turns a lookup table
+into an attribute cache (the executor's test double).
 """
 
 from __future__ import annotations
@@ -451,3 +453,33 @@ def rel_scores_for_pairs(
         w_x, b_x = w_x[:, rel_cols], b_x[rel_cols]
     logits_x = torch.einsum("bpe,evk->bpvk", hmid, w_x) + b_x
     return _op_module_ll(params, cfg, logits, logits_x, 2, None, deterministic)
+
+
+# -------------------------------------------------------- full caches (scene)
+
+
+def full_caches(params: OracleParams, attr_in: torch.Tensor, pos: torch.Tensor, cfg: Config,
+                relation_index: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every concept of a scene at once: (attr (B, V+1, O) vocab-major,
+    rel (B, V_rel, O, O)), the relation head over the 0-based
+    ``relation_index`` columns, through the plain ``rel_cache``."""
+    a = attr_cache(params, attr_in, cfg)
+    rel_idx = torch.as_tensor(np.asarray(relation_index), dtype=torch.int64,
+                              device=attr_in.device)
+    B = attr_in.shape[0]
+    rel_tokens = (rel_idx[None, :] + 1).expand(B, -1)
+    return a, rel_cache(params, attr_in, pos, rel_tokens, cfg)
+
+
+# ---------------------------------------------------------------- test double
+
+
+def static_attr_cache(ll_table: np.ndarray,
+                      default_ll: float = DEFAULT_LOG_LIKELIHOOD) -> torch.Tensor:
+    """A (B, O, V) log-likelihood lookup table as a (B, V+1, O) vocab-major
+    attribute cache, with the ``default_ll`` row prepended (a fixed oracle
+    for ``Interpreter.execute`` on a hand-built ``World``)."""
+    B, O, _ = ll_table.shape
+    t = np.moveaxis(np.asarray(ll_table, np.float32), 1, 2)  # (B, V, O)
+    pad = np.full((B, 1, O), default_ll, np.float32)
+    return torch.from_numpy(np.concatenate([pad, t], axis=1))

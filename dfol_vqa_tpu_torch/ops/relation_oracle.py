@@ -25,6 +25,15 @@ that joins the two: on CUDA tensors its forward launches the forward kernel
 and its backward the backward kernel; on CPU tensors it runs the two plain
 versions.
 
+The forward is a registered operator, ``relation_oracle_fwd``
+(``torch.ops.dfol_vqa_tpu_torch.relation_oracle_fwd``): its CUDA
+implementation launches the forward kernel, its CPU implementation is the
+plain version, and its fake implementation gives the (B, R, O, O) float32
+result's shape, so ``torch.export`` records the kernel as one node of a
+serving step (``export.py``) and a loaded step launches it again. The
+ctypes launch needs real pointers; the operator keeps it out of export's
+tracing.
+
 ``rel_cache_kernel`` goes through ``PairTail`` on either device.
 ``rel_cache_kernel_reference`` is the forward's plain version from the
 oracle's parameters.
@@ -320,21 +329,48 @@ def pair_tail_bwd_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_toke
          desel_part.sum(1), dbsel_part.sum(1)), true_h, true_e)
 
 
+OP_NAME = "dfol_vqa_tpu_torch::relation_oracle_fwd"
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cuda")
+def relation_oracle_fwd(h_s: torch.Tensor, h_o: torch.Tensor, geom: torch.Tensor,
+                        w_g: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor, e_sel: torch.Tensor, b_sel: torch.Tensor,
+                        rel_tokens: torch.Tensor, default_ll: float) -> torch.Tensor:
+    """Kernel 1 as an operator: ``pair_tail_kernel`` on CUDA tensors (it
+    builds the library at its first call and counts ``LAUNCHES``),
+    ``pair_tail_reference`` on CPU tensors, and no other device."""
+    return pair_tail_kernel(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
+                            default_ll)
+
+
+@relation_oracle_fwd.register_kernel("cpu")
+def _relation_oracle_fwd_cpu(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
+                             default_ll):
+    return pair_tail_reference(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
+                               default_ll)
+
+
+@relation_oracle_fwd.register_fake
+def _relation_oracle_fwd_fake(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens,
+                              default_ll):
+    B, O, _ = h_s.shape
+    return h_s.new_empty((B, e_sel.shape[1], O, O), dtype=torch.float32)
+
+
 class PairTail(torch.autograd.Function):
     """The pair tail with its fused backward (the TPU's ``_pair_tail`` custom
     VJP): ``PairTail.apply(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel,
-    rel_tokens, default_ll)`` -> (B, R, O, O). CUDA tensors run the two CUDA
-    kernels; CPU tensors run ``pair_tail_reference`` and
-    ``pair_tail_bwd_reference``. dgeom is computed only when ``geom``
-    requires a gradient."""
+    rel_tokens, default_ll)`` -> (B, R, O, O). The forward is the operator
+    ``relation_oracle_fwd``; the backward runs the backward kernel on CUDA
+    tensors and ``pair_tail_bwd_reference`` on CPU ones. dgeom is computed
+    only when ``geom`` requires a gradient."""
 
     @staticmethod
     def forward(ctx, h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, rel_tokens, default_ll):
         ins = (h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel)
         ctx.save_for_backward(*ins, rel_tokens)
-        if h_s.device.type == "cpu":
-            return pair_tail_reference(*ins, rel_tokens, default_ll)
-        return pair_tail_kernel(*ins, rel_tokens, default_ll)
+        return relation_oracle_fwd(*ins, rel_tokens, default_ll)
 
     @staticmethod
     def backward(ctx, g):

@@ -15,15 +15,22 @@ Port of ``dfol_vqa_tpu/serve.py``. The host side is the JAX package's:
   when its oldest request has waited ``max_delay_ms``. ``max_pending``
   bounds the queued requests (admission control: ``EngineOverloaded``).
 
-On the device side PyTorch runs eagerly, so there is no executable set to
-keep closed; the ladders still bound the shapes the device sees.
+**Steps per (spec, meta).** A batch runs through one step callable per
+canonical spec and packing descriptor: ``_make_step`` (answer flags) and
+``_make_trace_step`` (plus the log-probabilities and the hop-by-hop
+attentions). A step takes the parameters as an input, a dict of tensors by
+name (``param_tensors``), so one exported step serves any weights of the
+same configuration. Live, a step is the eager ``Interpreter.forward``; an
+engine built with ``executables`` (``export.load_serving_set``) runs the
+loaded ``torch.export`` programs instead and never calls the interpreter.
 ``warmup`` runs every (spec, batch rung) once, which builds the CUDA kernel
 and warms the libraries before traffic arrives. The dispatcher thread only
 enqueues device work (CUDA launches are asynchronous); a small completion
 pool reads the answer flags back — the completion barrier — and resolves
-the futures, so consecutive groups overlap on the device.
+the futures, so consecutive groups overlap on the device. ``trace``
+answers one question at batch rung 1 with its hop-by-hop attentions.
 
-Not ported yet (ROADMAP): multi-device meshes, AOT executables, ``trace``.
+Not ported yet (ROADMAP queue 6): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -57,6 +64,27 @@ from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.data.transfer import to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter, decode_answer_flags
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
+
+# ------------------------------------------------------- parameters as inputs
+
+
+def param_tensors(params: OracleParams) -> Dict[str, torch.Tensor]:
+    """The parameters by name, sorted (the step's first input)."""
+    return {k: p.detach() for k, p in sorted(params.named_parameters())}
+
+
+def bind_params(module: torch.nn.Module, tensors: Dict[str, torch.Tensor],
+                prefix: str = "") -> torch.nn.Module:
+    """A shallow copy of ``module`` whose parameters are ``tensors`` (keyed
+    as ``param_tensors`` names them); ``module`` is not changed, so threads
+    may bind the same parameters at once. Every parameter must be given."""
+    clone = copy.copy(module)
+    clone._parameters = {n: None if p is None else tensors[prefix + n]
+                         for n, p in module._parameters.items()}
+    clone._modules = {n: None if m is None else bind_params(m, tensors, f"{prefix}{n}.")
+                      for n, m in module._modules.items()}
+    return clone
+
 
 # ----------------------------------------------------------- canonical grids
 
@@ -200,7 +228,10 @@ class ServingEngine:
 
     ``submit`` returns a Future[ServeResult]; a dispatcher thread groups
     requests per canonical spec and flushes on size/deadline.
-    ``answer_many`` is the synchronous convenience wrapper."""
+    ``answer_many`` is the synchronous convenience wrapper, ``trace`` the
+    hop-by-hop diagnostics of one question. ``executables`` (from
+    ``export.load_serving_set``) serves the (spec, meta) keys it holds from
+    loaded programs."""
 
     def __init__(
         self,
@@ -219,6 +250,7 @@ class ServingEngine:
         max_inflight: int = 8,
         max_pending: Optional[int] = None,
         plan_cache_size: int = 4096,
+        executables: Optional[Dict[tuple, object]] = None,
         start: bool = True,
     ):
         if int(max_batch) > max(batch_ladder):
@@ -244,6 +276,11 @@ class ServingEngine:
         self.seg_ladder = tuple(seg_ladder)
         self.fill_ladder = tuple(fill_ladder)
         self.transfer_dtype = transfer_dtype
+        # (spec, meta[, "trace"]) -> step callable; ``executables`` holds
+        # loaded torch.export programs under the same keys
+        self._step_cache: Dict[tuple, object] = {}
+        self._exported = dict(executables or {})
+        self._step_lock = threading.Lock()
 
         # queue key = canonical BucketSpec with batch_size zeroed
         self._pending: Dict[BucketSpec, List[_Request]] = {}
@@ -263,6 +300,9 @@ class ServingEngine:
             "padded_rows": 0,
             "plan_hits": 0,
             "rejected": 0,
+            "compiled_steps": 0,  # live steps made (eager Interpreter.forward)
+            "aot_steps": 0,  # steps served from loaded torch.export programs
+            "trace_steps": 0,  # live trace steps made
             "latencies_ms": deque(maxlen=100_000),
         }
         self._stats_lock = threading.Lock()
@@ -327,10 +367,11 @@ class ServingEngine:
             self.stats["requests"] += 1
         return r.future
 
-    def warmup(self, questions: Sequence[dict], batch_sizes=None) -> dict:
+    def warmup(self, questions: Sequence[dict], batch_sizes=None, traces: bool = False) -> dict:
         """Run every distinct canonical spec in ``questions`` once at every
         batch rung the policy can produce (``<= rung(max_batch)``, or an
-        explicit ``batch_sizes``), synchronously."""
+        explicit ``batch_sizes``), synchronously; with ``traces``, also its
+        trace step. ``steps`` counts the step callables made."""
         if batch_sizes is None:
             top = _pad_ladder(self.max_batch, self.batch_ladder)
             batch_sizes = [b for b in self.batch_ladder if b <= top]
@@ -343,11 +384,19 @@ class ServingEngine:
                 objs, mask = self.features.batch([q["imageId"]], self.cfg.tpu.max_object_num)
                 reps[key] = _Request(q, objs[0], mask[0], cb)
         t0 = time.perf_counter()
+        before = self._steps_made()
         for key, r in reps.items():
             for B in batch_sizes:
                 self._execute(key, [r], pad_to=B)
+            if traces:
+                self.trace(r.question, r.objects, r.obj_mask)
         return {"specs": len(reps), "batch_sizes": list(batch_sizes),
-                "runs": len(reps) * len(batch_sizes), "seconds": time.perf_counter() - t0}
+                "runs": len(reps) * (len(batch_sizes) + int(traces)),
+                "steps": self._steps_made() - before, "seconds": time.perf_counter() - t0}
+
+    def _steps_made(self) -> int:
+        with self._stats_lock:
+            return sum(self.stats[k] for k in ("compiled_steps", "aot_steps", "trace_steps"))
 
     def flush(self):
         """Dispatch everything pending regardless of deadlines."""
@@ -413,6 +462,108 @@ class ServingEngine:
 
     # ------------------------------------------------------------ execution
 
+    def _constants(self) -> Dict[str, torch.Tensor]:
+        """The step's last input: device tensors that are not parameters,
+        passed in so that an exported step does not carry them (the
+        calibrator's (V+1, D) GloVe matrix)."""
+        if self.params.calibrator is None:
+            return {}
+        return {"embedding": self.interp.embedding_on(self.device)}
+
+    def _run_forward(self, params, objects, obj_mask, arrays, consts, spec, return_trace):
+        interp = self.interp
+        if consts:
+            interp = interp.with_embedding(consts["embedding"])
+        return interp.forward(bind_params(self.params, params), objects, obj_mask, arrays, spec,
+                              return_trace=return_trace)
+
+    def _make_step(self, spec: BucketSpec, meta):
+        """The eager eval step ``fn(params, objects, obj_mask, arrays,
+        consts) -> answer_flags``: the live step and the export surface."""
+        del meta  # the arrays' layout; it keys the step
+
+        def fn(params, objects, obj_mask, arrays, consts):
+            return self._run_forward(params, objects, obj_mask, arrays, consts, spec,
+                                     False)["answer_flags"]
+
+        return fn
+
+    def _make_trace_step(self, spec: BucketSpec, meta):
+        """The eager eval step that also returns the log-probabilities and
+        the hop-by-hop attention trace (``trace``'s step and its export
+        surface)."""
+        del meta
+
+        def fn(params, objects, obj_mask, arrays, consts):
+            out = self._run_forward(params, objects, obj_mask, arrays, consts, spec, True)
+            return {"log_probability": out["log_probability"],
+                    "answer_flags": out["answer_flags"], "trace": out["trace"]}
+
+        return fn
+
+    def _step(self, key: tuple, make, live_stat: str):
+        # one callable per key: the dispatcher, warmup and HTTP trace
+        # threads share it, and no two threads make or load the same key
+        with self._step_lock:
+            fn = self._step_cache.get(key)
+            if fn is None:
+                exp = self._exported.get(key)
+                if exp is not None:
+                    fn, stat = exp.module(), "aot_steps"
+                else:
+                    fn, stat = make(key[0], key[1]), live_stat
+                with self._stats_lock:
+                    self.stats[stat] += 1
+                self._step_cache[key] = fn
+        return fn
+
+    def read_executables(self) -> int:
+        """Make the step of every key in ``executables`` now, reading each
+        module from its file, so that no request waits for a read; returns
+        the number of steps made."""
+        before = self._steps_made()
+        for key in list(self._exported):
+            self._step(key, None, "aot_steps")
+        return self._steps_made() - before
+
+    def _eval_step(self, spec: BucketSpec, meta):
+        return self._step((spec, meta), self._make_step, "compiled_steps")
+
+    def _trace_step(self, spec: BucketSpec, meta):
+        return self._step((spec, meta, "trace"), self._make_trace_step, "trace_steps")
+
+    def _inputs(self, lb: LoadedBatch):
+        """A batch's step inputs on the engine's device."""
+        _, objects, obj_mask, arrays = to_device_batch(lb, self.device, self.transfer_dtype)
+        return (param_tensors(self.params), objects, obj_mask,
+                {k: arrays[k] for k in sorted(arrays)}, self._constants())
+
+    def trace(self, question: dict, objects=None, obj_mask=None) -> dict:
+        """Hop-by-hop reasoning trace for ONE question, synchronously, at
+        batch rung 1: ``viz.trace_to_dict``'s entry (ops, tokens and the
+        object attentions per hop, the log-probability) plus the decoded
+        ``answers``. Runs on the caller's thread, with its own steps."""
+        from dfol_vqa_tpu_torch.viz import trace_to_dict
+
+        t = question["program"]["last_op"]["operator"]
+        if t in SUPERVISION_OPS:
+            raise ValueError(f"{t} is a training-supervision terminal, not a servable question")
+        if objects is None:
+            objs, mask = self.features.batch([question["imageId"]], self.cfg.tpu.max_object_num)
+            objects, obj_mask = objs[0], mask[0]
+        key, cb = self._prepare(question)
+        r = _Request(question, np.asarray(objects), np.asarray(obj_mask), cb)
+        lb, _ = self._assemble(key, [r], pad_to=1)
+        step = self._trace_step(lb.spec, lb.meta)
+        with torch.inference_mode():
+            out = step(*self._inputs(lb))
+        out = {"log_probability": out["log_probability"].cpu().numpy(),
+               "answer_flags": out["answer_flags"].cpu().numpy(),
+               "trace": [[a.cpu().numpy() for a in br] for br in out["trace"]]}
+        entry = trace_to_dict(lb, out, out["trace"])[0]
+        entry["answers"] = decode_answer_flags(out["answer_flags"], lb.spec, lb.compiled)[0]
+        return entry
+
     def _assemble(self, key: BucketSpec, group: List[_Request], pad_to=None):
         """Concat same-spec request rows + pad to the batch ladder.
         Returns (LoadedBatch, pad)."""
@@ -429,10 +580,10 @@ class ServingEngine:
         """Assemble + enqueue one group; the flags stay on the device.
         Returns (spec, cb, device_flags, pad)."""
         lb, pad = self._assemble(key, group, pad_to)
-        _, objects, obj_mask, arrays = to_device_batch(lb, self.device, self.transfer_dtype)
+        step = self._eval_step(lb.spec, lb.meta)
         with torch.inference_mode():
-            out = self.interp.forward(self.params, objects, obj_mask, arrays, lb.spec)
-        return lb.spec, lb.compiled, out["answer_flags"], pad
+            flags = step(*self._inputs(lb))
+        return lb.spec, lb.compiled, flags, pad
 
     def _execute(self, key: BucketSpec, group: List[_Request], pad_to=None):
         """Synchronous dispatch + readback (warmup path)."""
@@ -509,13 +660,15 @@ def build_demo_engine(tiny: bool = False, objects: int = 24, max_batch: int = 32
                       max_pending: Optional[int] = None,
                       seg_ladder: Optional[Sequence[int]] = None,
                       fill_ladder: Optional[Sequence[int]] = None,
-                      device="cuda", params: Optional[OracleParams] = None):
+                      device="cuda", params: Optional[OracleParams] = None,
+                      executables=None, start: bool = True):
     """Demo engine over the planted world, as the JAX package builds it.
 
     Weights are random from ``seed`` (drawn on the CPU, so every device gets
     the same ones) unless ``params`` is given; ``tiny`` sends float32
     objects, production dims send bf16. The engine runs on ``device``
-    (default the card). Returns (cfg, ontology, world, engine)."""
+    (default the card), from the loaded ``executables`` where given.
+    Returns (cfg, ontology, world, engine)."""
     from dfol_vqa_tpu_torch.data.planted import PlantedWorld
 
     cfg = demo_config(tiny, objects)
@@ -536,7 +689,7 @@ def build_demo_engine(tiny: bool = False, objects: int = 24, max_batch: int = 32
         cfg, ont, params, features=world, device=device,
         max_batch=max_batch, max_delay_ms=max_delay_ms,
         transfer_dtype=None if tiny else "bfloat16",
-        max_pending=max_pending,
+        max_pending=max_pending, executables=executables, start=start,
         **extra,
     )
     return cfg, ont, world, eng

@@ -1,6 +1,6 @@
 """Write the JAX reference answers that the PyTorch port meets on the GPU.
 
-Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes five npz files.
+Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes six npz files.
 
 ``tests/data/torch_port_golden.npz`` (serving), from the tiny demo engine
 (``build_demo_engine(tiny=True, seed=0)``):
@@ -79,7 +79,17 @@ file (``per_question``):
   ``update/<key>`` (one ``build_optimizer`` step) for the calibrator's
   ``per_question`` and ``choose_rel`` batches and ``f4``'s ``per_question``.
 
-``chip_smoke.py`` runs the port on the card against the five files;
+``tests/data/torch_port_golden_trace.npz`` (the hop-by-hop trace), from
+the tiny demo engine with the serving golden's weights (not stored again):
+``ServingEngine.trace`` of a dozen questions (``TRACE_MIX``: exist with
+0-2 hops, verify_rel, query_attr, choose_rel, compare and ``and``):
+
+* ``trace/<i>/question``, ``objects``, ``obj_mask``: the request;
+* ``trace/<i>/hops`` (JSON: each hop's branch, op and token),
+  ``attention`` (n_hops, O) in probability, ``log_probability`` and
+  ``answers`` (JSON): JAX's trace entry.
+
+``chip_smoke.py`` runs the port on the card against the six files;
 ``tests/test_torch_golden.py`` regenerates them and requires them to match
 the checked-in copies.
 
@@ -88,6 +98,7 @@ the checked-in copies.
         [--train-out tests/data/torch_port_golden_train.npz]
         [--terminals-out tests/data/torch_port_golden_terminals.npz]
         [--calibrator-out tests/data/torch_port_golden_calibrator.npz]
+        [--trace-out tests/data/torch_port_golden_trace.npz]
 """
 
 from __future__ import annotations
@@ -108,6 +119,7 @@ EVAL_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_eval.n
 TRAIN_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz")
 TERMINALS_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
 CALIBRATOR_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
+TRACE_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_trace.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -121,6 +133,21 @@ def golden_questions(world) -> List[dict]:
         qs += world.generate_family(fam, n, length=hops, seed=100 + fi,
                                     neg_prob=0.3 if fam == "exist" else 0.0,
                                     id_prefix=f"golden-{fam}{hops}-")
+    return qs
+
+
+# (family, hops, count): 12 traced requests, every hop kind and two branches
+TRACE_MIX = (("exist", 0, 1), ("exist", 1, 1), ("exist", 2, 2), ("verify_rel", 1, 1),
+             ("verify_rel", 2, 1), ("query_attr", 1, 1), ("choose_rel", 1, 2),
+             ("compare", 1, 1), ("and", 2, 2))
+
+
+def trace_questions(world) -> List[dict]:
+    qs: List[dict] = []
+    for fi, (fam, hops, n) in enumerate(TRACE_MIX):
+        qs += world.generate_family(fam, n, length=hops, seed=300 + fi,
+                                    neg_prob=0.3 if fam == "exist" else 0.0,
+                                    id_prefix=f"trace-{fam}{hops}-")
     return qs
 
 
@@ -160,6 +187,31 @@ def build_golden() -> Dict[str, np.ndarray]:
             out[p + "log_probability"] = np.asarray(res["log_probability"])
             out[p + "answer_flags"] = flags
             out[p + "answers"] = np.array(json.dumps(decode_answer_flags(flags, lb.spec, lb.compiled)[0]))
+        return out
+    finally:
+        eng.stop()
+
+
+def build_trace_golden() -> Dict[str, np.ndarray]:
+    _jax_on_cpu()
+    from dfol_vqa_tpu.serve import build_demo_engine
+
+    cfg, _, world, eng = build_demo_engine(tiny=True, seed=0)
+    try:
+        out: Dict[str, np.ndarray] = {}
+        for i, q in enumerate(trace_questions(world)):
+            objs, mask = world.batch([q["imageId"]], cfg.tpu.max_object_num)
+            entry = eng.trace(q, objs[0], mask[0])
+            p = f"trace/{i}/"
+            out[p + "question"] = np.array(json.dumps(q, sort_keys=True))
+            out[p + "objects"] = objs[0]
+            out[p + "obj_mask"] = mask[0]
+            out[p + "hops"] = np.array(json.dumps([[h["branch"], h["op"], h["token"]]
+                                                   for h in entry["hops"]]))
+            out[p + "attention"] = np.asarray([h["attention"] for h in entry["hops"]],
+                                              np.float32)
+            out[p + "log_probability"] = np.asarray(entry["log_probability"], np.float32)
+            out[p + "answers"] = np.array(json.dumps(entry["answers"]))
         return out
     finally:
         eng.stop()
@@ -389,6 +441,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train-out", default=TRAIN_GOLDEN_PATH)
     ap.add_argument("--terminals-out", default=TERMINALS_GOLDEN_PATH)
     ap.add_argument("--calibrator-out", default=CALIBRATOR_GOLDEN_PATH)
+    ap.add_argument("--trace-out", default=TRACE_GOLDEN_PATH)
     args = ap.parse_args(argv)
     for path, golden, unit, what in (
             (args.out, build_golden(), "/question", "requests"),
@@ -396,7 +449,8 @@ def main(argv=None) -> int:
             (args.train_out, build_train_golden(), "/loss", "training batches"),
             (args.terminals_out, build_terminals_golden(), "/objects", "terminal batches"),
             (args.calibrator_out, build_calibrator_golden(), "/eval/log_probability",
-             "model batches")):
+             "model batches"),
+            (args.trace_out, build_trace_golden(), "/hops", "traced requests")):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **golden)
         n = sum(1 for k in golden if k.endswith(unit))

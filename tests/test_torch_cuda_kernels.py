@@ -346,3 +346,93 @@ def test_cuda_rel_cache_shared_trains(cuda, ontology, stream):
         if a.grad is not None:
             scale = max(1.0, a.grad.abs().max().item())
             torch.testing.assert_close(b.grad.cpu(), a.grad, atol=atol * scale, rtol=0, msg=name)
+
+
+def op_inputs(device, B=3, O=37, H=256, E=300, R=8, seed=0):
+    """Kernel 1's operator inputs at ragged O, with two pad slots."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    ins = [randn(B, O, H, scale=0.5), randn(B, O, H, scale=0.5),
+           torch.rand((B, O, O, 4), generator=g).to(device), randn(4, H), randn(H),
+           randn(H, E, scale=H ** -0.5), randn(E), randn(B, R, E), randn(B, R)]
+    tok = torch.randint(1, 2336, (B, R), generator=g, dtype=torch.int32)
+    tok[:, -2:] = 0
+    return ins, tok.to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_relation_oracle_operator_opcheck(cuda):
+    """The registered operator on CUDA tensors: schema, fake implementation
+    and dispatch checks, and one call equal to the plain version."""
+    ins, tok = op_inputs(cuda)
+    torch.library.opcheck(torch.ops.dfol_vqa_tpu_torch.relation_oracle_fwd.default,
+                          (*ins, tok, -30.0))
+    before = ro.LAUNCHES
+    got = ro.relation_oracle_fwd(*ins, tok, -30.0)
+    torch.cuda.synchronize()
+    assert ro.LAUNCHES == before + 1
+    assert_matches(got, ro.pair_tail_reference(*ins, tok))
+
+
+class _RelRoute(torch.nn.Module):
+    def forward(self, h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, tok):
+        return ro.PairTail.apply(h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel, tok, -30.0)
+
+
+@pytest.mark.cuda
+def test_cuda_exported_program_launches_the_kernel(cuda, tmp_path):
+    """``torch.export`` of the per-question route on the card records the
+    operator as one node; the saved and reloaded program launches kernel 1
+    once per call and matches the plain version."""
+    ins, tok = op_inputs(cuda, B=2, O=24)
+    with torch.no_grad():
+        ep = torch.export.export(_RelRoute(), (*ins, tok), strict=False)
+    assert sum("relation_oracle_fwd" in str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function") == 1
+    torch.export.save(ep, str(tmp_path / "route.pt2"))
+    prog = torch.export.load(str(tmp_path / "route.pt2")).module()
+    before = ro.LAUNCHES
+    with torch.inference_mode():
+        got = prog(*ins, tok)
+    torch.cuda.synchronize()
+    assert ro.LAUNCHES == before + 1
+    assert_matches(got, ro.pair_tail_reference(*ins, tok))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_artifact_serves_through_the_kernel(cuda, tmp_path, monkeypatch):
+    """The tiny demo engine's artifact exported on the card serves the live
+    card engine's answers with ``Interpreter.forward`` forbidden, launching
+    kernel 1 for its relating requests; a CPU engine refuses it."""
+    from dfol_vqa_tpu_torch import serve
+    from dfol_vqa_tpu_torch.export import export_serving_set, load_serving_set
+
+    demo = dict(tiny=True, seed=0, max_batch=2, batch_ladder=(1, 2))
+    _, _, world, live = serve.build_demo_engine(device=cuda, **demo)
+    qs = (world.generate_family("exist", 2, length=2, seed=5)
+          + world.generate_family("query_attr", 2, length=1, seed=6))
+    try:
+        export_serving_set(live, qs, str(tmp_path / "art"), include_traces=True)
+        want = [r.answers for r in live.answer_many(qs)]
+    finally:
+        live.stop()
+    _, _, _, cpu = serve.build_demo_engine(device="cpu", start=False, **demo)
+    with pytest.raises(ValueError, match="device_type"):
+        load_serving_set(str(tmp_path / "art"), engine=cpu)
+    cpu.stop()
+    loaded = load_serving_set(str(tmp_path / "art"))
+    monkeypatch.setattr(Interpreter, "forward", lambda *a, **k: (_ for _ in ()).throw(
+        AssertionError("Interpreter.forward called on the serving host")))
+    _, _, _, eng = serve.build_demo_engine(device=cuda, executables=loaded, **demo)
+    before = ro.LAUNCHES
+    try:
+        got = [r.answers for r in eng.answer_many(qs)]
+        trace = eng.trace(qs[0])
+    finally:
+        eng.stop()
+    assert got == want and trace["hops"]
+    assert ro.LAUNCHES > before
+    assert eng.stats["compiled_steps"] == 0 and eng.stats["aot_steps"] > 0

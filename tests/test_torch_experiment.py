@@ -14,8 +14,9 @@ boundaries; the port after every step):
   test errors, prediction files and hardset files equal;
 * ``parameter_count`` equal to JAX's for ``sample_config``, ``cur6`` and
   F = 4;
-* what the port cannot run yet raises: ``visualize``, a mesh, and
-  ``DFOL_DISTRIBUTED``; the CLI without ``-c`` raises where no card is.
+* ``run(visualize=True)``: the traces file equals JAX's;
+* what the port cannot run yet raises: a mesh and ``DFOL_DISTRIBUTED``;
+  the CLI without ``-c`` raises where no card is.
 """
 
 import dataclasses
@@ -187,17 +188,48 @@ def test_parameter_count_equals_jax(ontology, which):
     assert got == want > 0
 
 
+def check_visualize_matches_jax(data, tmp_path, monkeypatch):
+    """``run(visualize=True, load_model="best")`` in each package, each in a
+    directory of its own: the port's ``visualizations/traces.json`` holds
+    JAX's entries (ops, tokens, answers equal; attentions and
+    log-probabilities within 1e-5), and the test errors are equal."""
+    runs, traces = {}, {}
+    for name, pkg in (("port", texperiment), ("jax", jexperiment)):
+        cfg_path = run_dir(data, tmp_path, name)
+        (tmp_path / f"cwd_{name}").mkdir()
+        monkeypatch.chdir(tmp_path / f"cwd_{name}")
+        kw = {"device": "cpu"} if name == "port" else {}
+        runs[name] = pkg.GQAObjectBoxExperiment().run(cfg_path, is_training=False,
+                                                      load_model="best", visualize=True, **kw)
+        traces[name] = json.loads((tmp_path / f"cwd_{name}" / "visualizations"
+                                   / "traces.json").read_text())
+    assert len(traces["port"]) == len(traces["jax"]) == 24
+    for got, want in zip(traces["port"], traces["jax"]):
+        assert {k: got[k] for k in ("question_id", "image_id", "terminal_op", "answer")} == {
+            k: want[k] for k in ("question_id", "image_id", "terminal_op", "answer")}
+        np.testing.assert_allclose(got["log_probability"], want["log_probability"], atol=1e-5)
+        assert [(h["branch"], h["op"], h["token"]) for h in got["hops"]] == [
+            (h["branch"], h["op"], h["token"]) for h in want["hops"]]
+        for hg, hw in zip(got["hops"], want["hops"]):
+            np.testing.assert_allclose(hg["attention"], hw["attention"], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(runs["port"]["test_error"], runs["jax"]["test_error"])
+
+
 @pytest.mark.parametrize("case", ["visualize", "mesh", "distributed"])
 def test_unported_modes_raise(data, tmp_path, monkeypatch, case):
+    """A mesh and ``DFOL_DISTRIBUTED`` raise, naming ROADMAP queue 6, before
+    anything is written. ``visualize`` is ported now: its case holds the
+    run against JAX's (``check_visualize_matches_jax``)."""
+    if case == "visualize":
+        check_visualize_matches_jax(data, tmp_path, monkeypatch)
+        return
     over = {"tpu": {"max_object_num": 6, "mesh_shape": [2], "mesh_axes": ["data"]}} \
         if case == "mesh" else {}
     if case == "distributed":
         monkeypatch.setenv("DFOL_DISTRIBUTED", "1")
-    queue = "queue 8" if case == "visualize" else "queue 6"
-    with pytest.raises(NotImplementedError, match=queue):
+    with pytest.raises(NotImplementedError, match="queue 6"):
         texperiment.GQAObjectBoxExperiment().run(
-            run_dir(data, tmp_path, "port", **over), is_training=False,
-            visualize=case == "visualize", device="cpu")
+            run_dir(data, tmp_path, "port", **over), is_training=False, device="cpu")
     assert not (tmp_path / "port" / "tiny" / "t0" / "last").exists()
 
 

@@ -16,7 +16,9 @@ terminals' loss and gradients; ``tests/data/torch_port_golden_calibrator.npz``
 holds the calibrator model (output head at random, oracle frozen) on every
 terminal's batch and the F = 4 model (operator modules' final layers at
 random) on six, eval and training-mode log-probabilities, answer flags and
-matches, and one training step of each. All five are regenerated here and
+matches, and one training step of each; ``tests/data/torch_port_golden_trace.npz``
+holds ``ServingEngine.trace`` of a dozen requests (hops, attentions,
+log-probabilities, answers). All six are regenerated here and
 must match the checked-in copies, so they cannot go stale; and the port, on
 the CPU, must meet them with the checks ``chip_smoke.py`` runs on the card
 (atol 1e-5 here, float32 on the same host type; 1e-4 on the card).
@@ -47,7 +49,7 @@ def assert_current(fresh, path):
     stored = np.load(path)
     assert set(fresh) == set(stored.files)
     for k, v in fresh.items():
-        if k.endswith("/log_probability"):
+        if k.endswith(("/log_probability", "/attention")):
             # XLA:CPU may vectorise differently on another host type
             np.testing.assert_allclose(v, stored[k], atol=1e-6, rtol=0, err_msg=k)
         else:
@@ -63,6 +65,16 @@ def test_golden_is_current():
 
 def test_port_meets_golden_on_cpu():
     assert chip_smoke.check_golden("cpu", atol=1e-5) >= 12
+
+
+def test_trace_golden_is_current():
+    fresh = load_script().build_trace_golden()
+    assert sum(k.endswith("/hops") for k in fresh) == 12
+    assert_current(fresh, chip_smoke.TRACE_GOLDEN)
+
+
+def test_port_meets_trace_golden_on_cpu():
+    assert chip_smoke.check_trace_golden("cpu", atol=1e-5) == 12
 
 
 def test_eval_golden_is_current():

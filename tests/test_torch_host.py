@@ -76,7 +76,11 @@ def test_port_file_imports_nothing_of_jax(path):
                                     "dfol_vqa_tpu_torch.data.trainset",
                                     "dfol_vqa_tpu_torch.experiments.gqa_experiment",
                                     "dfol_vqa_tpu_torch.experiments.curriculum",
-                                    "dfol_vqa_tpu_torch.compiler.preprocess_cli"])
+                                    "dfol_vqa_tpu_torch.compiler.preprocess_cli",
+                                    "dfol_vqa_tpu_torch.export",
+                                    "dfol_vqa_tpu_torch.http_frontend",
+                                    "dfol_vqa_tpu_torch.viz",
+                                    "dfol_vqa_tpu_torch.utils.profiling"])
 def test_port_module_loads_no_jax(module):
     code = ("import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
@@ -90,6 +94,12 @@ def test_port_module_loads_no_jax(module):
 def test_experiment_modules_are_scanned():
     for name in ("__init__", "experiment", "gqa_experiment", "curriculum"):
         assert os.path.join("dfol_vqa_tpu_torch", "experiments", name + ".py") in PORT_FILES
+
+
+def test_serving_modules_are_scanned():
+    for name in ("export.py", "http_frontend.py", "viz.py", os.path.join("utils", "profiling.py"),
+                 os.path.join("utils", "__init__.py")):
+        assert os.path.join("dfol_vqa_tpu_torch", name) in PORT_FILES
 
 
 @pytest.mark.parametrize("module", ["normalize", "preprocess", "preprocess_cli", "verifier"])
