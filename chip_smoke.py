@@ -141,10 +141,28 @@ Phases, each reported on its own line(s):
    CPU artifact refused; requests/s of the live and the artifact engine in
    turns; the HTTP daemon in a subprocess (``--ckpt`` of the phase's
    weights, ``--artifact``) answering the requests from ``DAEMON_CLIENTS``
-   threads (``/healthz``, ``/v1/trace``, ``/stats`` gated).
+   threads (``/healthz``, ``/v1/trace``, ``/stats`` gated);
+12. the training mesh (``phase_mesh``) and ``compute_dtype="bfloat16"``
+   (``phase_bf16``). The mesh: ``mesh_worker`` children, one per rank
+   (the parent built the kernels; the children load them), three lockstep
+   steps per layout at ``sample_config``'s widths, O=100, global batch 80
+   (one shared-route step, two per-question ones), each held against the
+   single-process step on the union batch from the same parameters and
+   Adam state under phase 7's gates (``check_mesh_step``), answer flags by
+   question id; NCCL at ``torch.cuda.device_count()`` ranks in
+   ``('data',)``, ``('data',)`` + FSDP and ``('data', 'model')``, then two
+   ranks on the one card over gloo in the same three layouts
+   (``GLOO_LAYOUTS``: gloo has every collective the mesh uses on CUDA
+   tensors but all-to-all, which it does not use); every rank's launches
+   of kernels 1-4 counted in its steps and returned to this process; the
+   one-rank mesh step timed against the single-process step. bf16: phase
+   4's 64 requests (kernel 1 on bf16 h_s / h_o products), one eval batch
+   and one training step per route against the CPU in the card's
+   formulation (``KernelRouteOnCpu``), and the seventh JAX golden
+   (``tests/data/torch_port_golden_bf16.npz``, production widths).
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4 (both transfers), 6, 7, 8, 9, 10 and 11, each counted from 0),
+of phases 4 (both transfers), 6, 7, 8, 9, 10, 11 and 12, each counted from 0),
 error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
@@ -175,6 +193,7 @@ TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_train.npz"
 TERMINALS_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
 CALIBRATOR_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
 TRACE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_trace.npz")
+BF16_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_bf16.npz")
 SUPERVISION_GOLDEN = {"n": 2, "seed": 3}  # the terminals golden's supervision batches
 KERNEL_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4
@@ -1437,7 +1456,7 @@ def phase_cache_dtype(device, stamp: str) -> dict:
     return readings
 
 
-def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray) -> np.ndarray:
+def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray, band: float = 0.0) -> np.ndarray:
     """(B, options) mask of the answers that a float32 near-tie decides,
     from one batch's log-probabilities: a query's options whose scores
     exp(lp) lie within ``TIE_ULPS`` float32 ULPs of the best one (where two
@@ -1445,8 +1464,9 @@ def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray) -> np.ndarray:
     ``compare``'s argmax picks one of its two branches); a binary or
     statement flag, or an object statement's, whose exp(lp) lies within
     ``TIE_ULPS`` ULPs of 0.5. Such an answer hinges on the last bits of sums
-    taken in another order on another device. Binary rows come back as
-    (B, 1)."""
+    taken in another order on another device. ``band``, when larger, is
+    the tie's width in probability instead (bf16 products). Binary rows
+    come back as (B, 1)."""
     from dfol_vqa_tpu_torch.models.interpreter import QUERY_OPS
 
     score = np.exp(lp).astype(np.float32)
@@ -1454,9 +1474,9 @@ def near_ties(term: str, lp: np.ndarray, opt_mask: np.ndarray) -> np.ndarray:
         live = opt_mask[:, :score.shape[1]] > 0
         score = np.where(live, score, 0.0).astype(np.float32)
         best = score.max(axis=1, keepdims=True)
-        near = live & (np.abs(score - best) <= TIE_ULPS * np.spacing(best))
+        near = live & (np.abs(score - best) <= np.maximum(TIE_ULPS * np.spacing(best), band))
         return near & (near.sum(axis=1, keepdims=True) > 1)
-    near = np.abs(score - 0.5) <= TIE_ULPS * np.spacing(np.float32(0.5))
+    near = np.abs(score - 0.5) <= max(TIE_ULPS * np.spacing(np.float32(0.5)), band)
     return near.reshape(len(near), -1)
 
 
@@ -3001,6 +3021,705 @@ def phase_daemon(device, stamp: str) -> dict:
     return {"relation_oracle_fwd": launches}
 
 
+# ------------------------------------------------------------ phase 12: mesh
+
+MESH_CHILD_TIMEOUT = 240  # seconds a phase-12 child may take (the tests give theirs 120)
+
+
+def config_dict(cfg) -> dict:
+    """A ``Config`` as the dict ``Config.from_yaml`` takes (JSON-safe)."""
+    return json.loads(json.dumps(dataclasses.asdict(cfg)))
+
+
+def mesh_features(spec: dict):
+    """The feature source a mesh job names: SyntheticFeatures or the
+    planted world (``evalset.demo_world``)."""
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.data.features import SyntheticFeatures
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    if spec["kind"] == "planted":
+        return evalset.demo_world(GQAOntology(), tiny=spec.get("tiny", False))
+    return SyntheticFeatures(box_dim=spec["box_dim"], min_objects=spec["min_objects"],
+                             max_objects=spec["max_objects"])
+
+
+def mesh_loader(cfg, ont, features, datasets, batch: int, num_shards=1, shard_index=0):
+    """An unshuffled ``BatchLoader`` over ``datasets`` (question lists) at
+    ``batch`` rows, on the given shard."""
+    from dfol_vqa_tpu_torch.compiler.program_compiler import ProgramCompiler
+    from dfol_vqa_tpu_torch.data.dataset import ProgramDataset
+    from dfol_vqa_tpu_torch.data.loader import BatchLoader
+
+    compiler = ProgramCompiler(ont, object_num=cfg.tpu.max_object_num,
+                               rel_slots=cfg.tpu.rel_table_size)
+    return BatchLoader([ProgramDataset(qs, ont) for qs in datasets], compiler, features, batch,
+                       cfg.tpu.max_object_num, shuffle=False, prefetch=0,
+                       num_shards=num_shards, shard_index=shard_index, keep_original=True)
+
+
+def answer_rows(lb, rows) -> dict:
+    """{question id: its row of ``rows`` (numpy, one per question)} of a
+    batch's real questions."""
+    rows = np.asarray(rows)
+    return {qid: rows[qi].tolist() for qi, qid in enumerate(lb.compiled.question_ids)
+            if lb.compiled.question_mask[qi] > 0}
+
+
+def tie_rows(lb, lp) -> dict:
+    """{question id: whether a float32 near-tie decides its answer}
+    (``near_ties``) of a batch's real questions, from its log-probabilities."""
+    lp = np.asarray(lp)
+    return answer_rows(lb, near_ties(lb.spec.terminal_op, lp, lb.arrays["opt_mask"]).reshape(
+        len(lp), -1).any(axis=1))
+
+
+def check_mesh_flags(got: dict, want: dict, ties: dict, what: str) -> int:
+    """The mesh's answer flags by question id against the reference's:
+    the same questions, equal flags except where the reference's answer is
+    a near-tie. Returns the count of tie-decided answers that differ."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: questions {sorted(set(got) ^ set(want))[:4]} on one "
+                             "side only")
+    differ = [q for q in want if got[q] != want[q]]
+    if any(not ties[q] for q in differ):
+        raise AssertionError(f"{what}: answer flags differ for {differ[:4]}")
+    return len(differ)
+
+
+def reference_update(cfg, before: dict, grads: dict, moments: dict, t0: int) -> dict:
+    """The parameters after one step of the port's optimizer on the CPU from
+    ``before`` with Adam's ``moments`` after ``t0`` steps, on ``grads``
+    (flat numpy dicts by checkpoint key)."""
+    from dfol_vqa_tpu_torch.convert import params_from_numpy
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+
+    params = params_from_numpy(before)
+    opt = Optimizer(cfg, params)
+    for name, p in params.named_parameters():
+        key = name.replace(".", "/")
+        p.grad = torch.from_numpy(np.array(grads[key], np.float32))
+        if key in moments and opt.adam is not None:
+            m, v = moments[key]
+            opt.adam.state[p] = {"step": torch.tensor(float(t0)),
+                                 "exp_avg": torch.from_numpy(np.array(m)),
+                                 "exp_avg_sq": torch.from_numpy(np.array(v))}
+    opt.step()
+    return flat_params(params)
+
+
+def check_mesh_step(cfg, rec: dict, want_loss: float, want_grads: dict, rtol: float,
+                    what: str) -> dict:
+    """A mesh step's record (``loss``, ``grads``, ``before``, ``after``,
+    ``moments``, ``t0``: the whole tree, gathered) against the reference
+    step on the union batch from the same parameters and Adam state: the
+    loss within ``TRAIN_LOSS_RTOL``, every gradient leaf within ``rtol`` of
+    its largest value, the parameters after it within ``adam_bound`` of the
+    reference optimizer's on the reference gradients. Returns the worst
+    gradient error and share of the Adam bound."""
+    from dfol_vqa_tpu_torch.convert import params_from_numpy
+
+    if not abs(rec["loss"] - want_loss) <= TRAIN_LOSS_RTOL * abs(want_loss):
+        raise AssertionError(f"{what}: loss {rec['loss']!r}, reference {want_loss!r}")
+    delta, worst = {}, 0.0
+    for key, (err, mag) in leaf_errors(rec["grads"], want_grads).items():
+        delta[key] = rtol * max(1.0, mag)
+        if not err <= delta[key]:
+            raise AssertionError(f"{what}: gradient {key} off by {err!r} > {rtol} x {mag!r}")
+        worst = max(worst, err / max(mag, 1e-30))
+    trainable = trainable_keys(cfg, params_from_numpy(rec["before"]))
+    want = reference_update(cfg, rec["before"], want_grads, rec["moments"], rec["t0"])
+    bound = adam_bound(cfg, trainable, [(want_grads, rec["grads"], rec["before"], delta)],
+                       rec["moments"], rec["t0"])
+    used = 0.0
+    for key, b in bound.items():
+        gap = np.abs(rec["after"][key].astype(np.float64) - want[key])
+        if not (np.isfinite(rec["after"][key]).all() and np.all(gap <= b)):
+            raise AssertionError(f"{what}: parameter {key} {float(gap.max())!r} from the "
+                                 f"reference's, beyond the Adam bound")
+        if np.any(b > 0):
+            used = max(used, float(np.max(gap / np.where(b > 0, b, np.inf))))
+    return {"grad_err": worst, "bound_share": used}
+
+
+def mesh_worker(job_path: str) -> None:
+    """One rank of a mesh job (``run_mesh_job``): join the mesh, train
+    ``steps`` lockstep steps on this rank's shard through
+    ``VQATrainer.train_step``, recording each step whole (rank 0: the
+    parameters before and after it, the reduced gradients and Adam's
+    moments, gathered from the shards) and every rank's answer flags by
+    question id; with ``reference == "single"`` rank 0 also holds each step
+    against the single-process step on the union batch on its own device
+    (``check_mesh_step``). Then, as the job asks, ``test_epoch`` and
+    ``predict`` under the mesh, and a checkpoint (rank 0 writes it). Writes
+    ``rank<r>.json`` (and rank 0 ``records.npz``) to ``out``. Imports no
+    JAX; builds no kernel (the parent built them)."""
+    import torch.distributed as dist
+
+    from dfol_vqa_tpu_torch.config import Config
+    from dfol_vqa_tpu_torch.convert import flatten, params_from_numpy
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_params
+    from dfol_vqa_tpu_torch.train.optim import build_optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    with open(job_path) as f:
+        job = json.load(f)
+    if job["device"].startswith("cuda"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.from_yaml(job["config"])
+    mesh = make_mesh(job["mesh_shape"], job["mesh_axes"], device=job["device"],
+                     fsdp=job["fsdp"], init_method=job["init"], rank=job["rank"],
+                     world_size=job["world"], backend=job.get("backend"))
+    ont = GQAOntology()
+    features = mesh_features(job["features"])
+    with open(job["datasets"]) as f:
+        datasets = json.load(f)
+    shards, index, rows = batch_sharding(mesh, job["batch"])
+    loader = mesh_loader(cfg, ont, features, datasets, rows, shards, index)
+    interp = Interpreter(cfg, ont)
+    trainer = VQATrainer(cfg, interp, mesh=mesh)
+    with np.load(job["weights"]) as w:
+        start = {k: w[k] for k in w.files}
+    params = params_from_numpy(start).to(mesh.device)
+    state = shard_params(mesh, params)
+    opt = build_optimizer(cfg, params, state)
+    single = job.get("reference") == "single" and mesh.rank == 0
+    if single:
+        ref_trainer = VQATrainer(cfg, interp, device=mesh.device)
+        union = iter(mesh_loader(cfg, ont, features, datasets, job["batch"]))
+
+    def whole(pairs) -> dict:
+        return {name.replace(".", "/"): state.whole(name, t).cpu().numpy().copy()
+                for name, t in pairs}
+
+    step_record: dict = {}
+    real_step = opt.step
+
+    def recorded_step():
+        grads = whole((n, p.grad) for n, p in state.masters())
+        moments, t0 = {}, 0
+        adam = opt.adam.state if opt.adam is not None else {}
+        for name, p in state.masters():
+            if p in adam:
+                moments[name.replace(".", "/")] = tuple(
+                    state.whole(name, adam[p][k]).cpu().numpy().copy()
+                    for k in ("exp_avg", "exp_avg_sq"))
+                t0 = int(adam[p]["step"])
+        step_record.update(grads=grads, moments=moments, t0=t0)
+        real_step()
+
+    opt.step = recorded_step
+    records, flags, checks, losses = [], [], [], []
+    launches = [0, 0, 0, 0]
+    for t, (lb, count) in enumerate(trainer.lockstep(loader)):
+        if t >= job["steps"]:
+            break
+        before = flat_params_of(state)
+        working = state.gather()
+        step_flags = {}
+        if lb is not None:
+            _, o, m, arrays = to_device_batch(lb, mesh.device)
+            with torch.no_grad():
+                out = interp.forward(working, o, m, arrays, lb.spec)
+            step_flags = answer_rows(lb, out["answer_flags"].cpu().numpy())
+        step_flags = {q: f for part in mesh.gather_objects(step_flags) for q, f in part.items()}
+        flags.append(step_flags)
+        c0 = launch_counts() if mesh.device.type == "cuda" else [0, 0, 0, 0]
+        loss = trainer.train_step(state, opt, lb, count=count)
+        c1 = launch_counts() if mesh.device.type == "cuda" else [0, 0, 0, 0]
+        launches = [a + b - c for a, b, c in zip(launches, c1, c0)]
+        dist.all_reduce(loss, group=mesh.data_group)
+        losses.append(float(loss))
+        rec = dict(step_record, before=before, after=flat_params_of(state), loss=float(loss),
+                   count=count)
+        if mesh.rank == 0 and not single:
+            records.append(rec)
+        if single:
+            ub = next(union)
+            ref = params_from_numpy(before).to(mesh.device)
+            want_loss = ref_trainer.compute_grads(ref, ub).item()
+            with torch.no_grad():
+                _, o, m, arrays = to_device_batch(ub, mesh.device)
+                out = interp.forward(ref, o, m, arrays, ub.spec)
+            what = f"{job['name']} step {t}"
+            checks.append(check_mesh_step(cfg, rec, want_loss, grads_of(ref), job["rtol"], what))
+            lp = out["log_probability"].cpu().numpy()
+            checks[-1]["tie_flips"] = check_mesh_flags(
+                step_flags, answer_rows(ub, out["answer_flags"].cpu().numpy()),
+                tie_rows(ub, lp), what)
+    result = {"rank": mesh.rank, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
+              "flags": flags, "losses": losses, "launches": launches, "checks": checks,
+              "placement": {k: [v.data_dim, v.model_dim] for k, v in state.placement.items()},
+              "backend": str(dist.get_backend()), "world": dist.get_world_size()}
+    if job.get("time") and lb is not None:
+        # the mesh step against the single-process step on the same rows, in turns
+        # (one rank: the union's); host clock around synchronized steps
+        opt.step = real_step
+        one = params_from_numpy(flat_params_of(state)).to(mesh.device)
+        one_opt = build_optimizer(cfg, one)
+        plain = VQATrainer(cfg, interp, device=mesh.device)
+        times = {"mesh": [], "single": []}
+        for name in ["mesh", "single", "single", "mesh"] * 3:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if name == "mesh":
+                trainer.train_step(state, opt, lb, count=count)
+            else:
+                plain.train_step(one, one_opt, lb)
+            torch.cuda.synchronize()
+            times[name].append(1000 * (time.perf_counter() - t1))
+        result["step_ms"] = {k: (statistics.median(v), min(v), max(v))
+                             for k, v in times.items()}
+    if job.get("eval"):
+        ev = job["eval"]
+        with open(ev["datasets"]) as f:
+            eval_sets = json.load(f)
+        shards, index, rows = batch_sharding(mesh, ev["batch"])
+        eval_loader = mesh_loader(cfg, ont, features, eval_sets, rows, shards, index)
+        out_dir = os.path.join(job["out"], f"files{mesh.rank}")
+        os.makedirs(out_dir, exist_ok=True)
+        hard = VQATrainer(cfg, interp, mesh=mesh, hardset_path=os.path.join(out_dir, "hardset"))
+        error, _ = hard.test(eval_loader, state)
+        result["test_error"] = error.tolist()
+        result["test_counts"] = hard.last_test_counts.tolist()
+        pred_path = os.path.join(out_dir, "predictions.json")
+        if trainer.writes_files:
+            with open(pred_path, "w") as f:
+                result["predictions"] = trainer.predict(eval_loader, state, f)
+        else:
+            result["predictions"] = trainer.predict(eval_loader, state, None)
+        trainer._save(os.path.join(job["out"], f"ckpt{mesh.rank}"), state, sync=True)
+    if mesh.rank == 0 and records:
+        flat = {}
+        for t, rec in enumerate(records):
+            for part in ("before", "after", "grads"):
+                flat.update({f"{t}/{part}/{k}": v for k, v in rec[part].items()})
+            flat.update({f"{t}/moments/{k}/{i}": mv[i] for k, mv in rec["moments"].items()
+                         for i in (0, 1)})
+            flat[f"{t}/t0"] = np.asarray(rec["t0"])
+            flat[f"{t}/loss"] = np.asarray(rec["loss"])
+            flat[f"{t}/count"] = np.asarray(rec["count"])
+        np.savez(os.path.join(job["out"], "records.npz"), **flat)
+    with open(os.path.join(job["out"], f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def flat_params_of(state) -> dict:
+    """A ``ShardedParams``' whole leaves as a flat numpy dict (a collective)."""
+    return {name.replace(".", "/"): t.cpu().numpy().copy()
+            for name, t in state.full_tensors().items()}
+
+
+def read_records(path: str) -> list:
+    """``records.npz`` -> the per-step records ``check_mesh_step`` takes."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    out = []
+    for t in range(1 + max(int(k.split("/", 1)[0]) for k in data)):
+        rec = {"before": {}, "after": {}, "grads": {}, "moments": {}}
+        for k, v in data.items():
+            step, part, *rest = k.split("/")
+            if int(step) != t:
+                continue
+            if part in ("before", "after", "grads"):
+                rec[part]["/".join(rest)] = v
+            elif part == "moments":
+                key = "/".join(rest[:-1])
+                m = rec["moments"].setdefault(key, [None, None])
+                m[int(rest[-1])] = v
+            else:
+                rec[part] = v.item()
+        rec["moments"] = {k: tuple(v) for k, v in rec["moments"].items()}
+        out.append(rec)
+    return out
+
+
+def run_mesh_job(job: dict, world: int, workdir: str, timeout: float) -> list:
+    """Run ``job`` in ``world`` processes (``mesh_worker``, rendezvous
+    through a file under ``workdir``), each with ``timeout`` seconds; kill
+    them all and raise when one fails or times out. Returns each rank's
+    JSON result."""
+    os.makedirs(workdir, exist_ok=True)
+    job = dict(job, world=world, out=workdir, init="file://" + os.path.join(workdir, "rdv"))
+    procs = []
+    for rank in range(world):
+        path = os.path.join(workdir, f"job{rank}.json")
+        with open(path, "w") as f:
+            json.dump(dict(job, rank=rank), f)
+        log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.mesh_worker({path!r})"],
+            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=ROOT)), log_f))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed = (rank, f"timed out after {timeout} s")
+                break
+            if rc != 0:
+                failed = (rank, f"exit code {rc}")
+                break
+    finally:
+        for proc, log_f in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+    if failed is not None:
+        tails = []
+        for rank in range(world):
+            with open(os.path.join(workdir, f"rank{rank}.log")) as f:
+                text = f.read()
+            if "Error" in text:
+                tails.append(f"--- rank {rank}:\n{text[-2500:]}")
+        raise AssertionError(f"mesh job {job['name']}: rank {failed[0]} {failed[1]}:\n"
+                             + "\n".join(tails))
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+MESH_STEPS = 3  # lockstep steps per phase-12 layout: one shared-route, two per-question
+MESH_KERNELS = ("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd", "shared_contract_fwd")
+# (name, mesh_shape, mesh_axes, fsdp) of the two-rank layouts over gloo on one card
+GLOO_LAYOUTS = (("gloo data", [2], ["data"], False), ("gloo data+fsdp", [2], ["data"], True),
+                ("gloo model", [1, 2], ["data", "model"], False))
+
+
+def mesh_phase_job(workdir: str) -> dict:
+    """Phase 12's shared job: ``sample_config`` widths (``trainset.
+    demo_train_config``, float32 h2 stream as phase 7's compare steps), O=100,
+    global batch 80, random weights from seed 0; an ``exist`` file of 80
+    questions on 8 images (its step takes the shared route: kernels 3, 4)
+    and 160 ``verify_rel`` questions over all images (two per-question
+    steps: kernels 1, 2), on the planted world."""
+    from dfol_vqa_tpu_torch.convert import flatten, params_to_numpy
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    os.makedirs(workdir, exist_ok=True)
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config(stream_dtype="float32")
+    world = evalset.demo_world(ont)
+    sets = (evalset.eval_datasets(world, (("exist", 2, 80),), 80, 8)
+            + trainset.train_datasets(world, (("verify_rel", 1, 160),)))
+    paths = {"datasets": os.path.join(workdir, "datasets.json"),
+             "weights": os.path.join(workdir, "weights.npz")}
+    with open(paths["datasets"], "w") as f:
+        json.dump(sets, f)
+    params = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    np.savez(paths["weights"], **flatten(params_to_numpy(params)))
+    return dict(paths, config=config_dict(cfg), features={"kind": "planted"},
+                batch=cfg.train_batch_size, steps=MESH_STEPS, device="cuda:0",
+                reference="single", rtol=TRAIN_GRAD_RTOL)
+
+
+def placement_counts(placement: dict) -> dict:
+    """{(data dim, model dim): number of leaves} of a layout's placement."""
+    out: dict = {}
+    for v in placement.values():
+        out[str(tuple(v))] = out.get(str(tuple(v)), 0) + 1
+    return out
+
+
+def mesh_layout_report(name: str, res: list) -> list:
+    """Log one layout's run and check that every rank launched kernels 1-4
+    in its steps (one shared-route step, two per-question ones); returns
+    the launches summed over its ranks."""
+    want = [MESH_STEPS - 1, MESH_STEPS - 1, 1, 1]
+    for r in res:
+        if r["launches"] != want:
+            raise AssertionError(f"{name}: rank {r['rank']} launched (fwd, bwd, pair_mlp, "
+                                 f"contract) {r['launches']} times in its steps, not {want}")
+    checks = res[0]["checks"]
+    log(f"[12] {name}: world {res[0]['world']} over {res[0]['backend']}, placement "
+        f"(data dim, model dim): leaves {placement_counts(res[0]['placement'])}, steps "
+        f"{len(res[0]['losses'])} (losses {res[0]['losses']}) held against the single-process "
+        f"step on the union batch: worst gradient error by step "
+        f"{[c['grad_err'] for c in checks]} (gate {TRAIN_GRAD_RTOL}), largest share of the "
+        f"Adam bound {[c['bound_share'] for c in checks]}, tie-decided flips "
+        f"{[c['tie_flips'] for c in checks]}; launches per rank {want}")
+    return [sum(r["launches"][i] for r in res) for i in range(4)]
+
+
+def phase_mesh(device, stamp: str) -> dict:
+    """Phase 12 (a) and (b): the training mesh on the card; returns the
+    kernels' launches in the mesh steps of every rank of every layout."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dfol_mesh_")
+    base = mesh_phase_job(work)
+    n = torch.cuda.device_count()
+    model = [n // 2, 2] if n > 1 else [1, 1]
+    nccl = [(f"nccl data x{n}", [n], ["data"], False, True),
+            (f"nccl data+fsdp x{n}", [n], ["data"], True, False),
+            (f"nccl data x model {model}", model, ["data", "model"], False, False)]
+    jobs = [(name, shape, axes, fsdp, timed, n, None) for name, shape, axes, fsdp, timed in nccl]
+    jobs += [(name, shape, axes, fsdp, False, 2, "gloo") for name, shape, axes, fsdp
+             in GLOO_LAYOUTS]
+
+    def run(job):
+        name, shape, axes, fsdp, timed, world, backend = job
+        spec = dict(base, name=name, mesh_shape=shape, mesh_axes=axes, fsdp=fsdp, time=timed)
+        if backend:
+            spec["backend"] = backend
+        return run_mesh_job(spec, world, os.path.join(work, name.replace(" ", "_")),
+                            MESH_CHILD_TIMEOUT)
+
+    # the timed layout alone, then the others side by side
+    results = {jobs[0][0]: run(jobs[0])}
+    with ThreadPoolExecutor(len(jobs) - 1) as pool:
+        results.update(zip([j[0] for j in jobs[1:]], pool.map(run, jobs[1:])))
+    totals = [0, 0, 0, 0]
+    for name, res in results.items():
+        totals = [a + b for a, b in zip(totals, mesh_layout_report(name, res))]
+    ms = results[jobs[0][0]][0]["step_ms"]
+    log(f"[12] one-rank mesh step (NCCL, {n} process) {ms['mesh']!r} ms against the "
+        f"single-process step {ms['single']!r} ms (median, min, max of 6 in turns) on the "
+        f"same per-question batch of 80 ({stamp})")
+    log(f"[12] layouts run: " + "; ".join(
+        f"{name}: world {res[0]['world']}, {res[0]['backend']}" for name, res in results.items())
+        + f"; phase 12 (a, b) took {time.perf_counter() - t0!r} s")
+    return dict(zip(MESH_KERNELS, totals))
+
+
+BF16_GOLDEN_MIX = (("exist", 2, 16), ("verify_rel", 1, 16), ("query_attr", 1, 16))
+# two bfloat16 ULPs of a leaf's largest gradient (one is 2^-7 of it at
+# most): a gradient that passes a bf16 cast's backward is rounded to bf16,
+# and where the card's float32 sum and the CPU's straddle a rounding
+# boundary the two differ by a bf16 step; the embedding head takes two such
+# rounded parts (the attribute head's product and the relation rows). Phase
+# 12's readings: 2^-16 at a leaf whose largest value is 4.24e-3 (3.7e-3 of
+# it; per-question step) and 5.2e-3 (shared step), against phase 7's 3e-4
+BF16_GRAD_RTOL = 2.0 ** -6
+
+
+def bf16_config(stream_dtype: str = "bfloat16"):
+    """The bf16 cells' configuration: ``evalset.demo_eval_config`` (sample
+    widths, O=100, dropout 0 for training) at ``compute_dtype="bfloat16"``,
+    with the shared route's plain tail the per-question einsum (XLA:CPU
+    refuses the contract-then-gather product at bf16, so the golden's JAX
+    side cannot take that tail; the card takes the kernel route anyway)."""
+    from dfol_vqa_tpu_torch.data import trainset
+
+    cfg = trainset.demo_train_config(stream_dtype=stream_dtype)
+    cfg.tpu.compute_dtype = "bfloat16"
+    cfg.tpu.rel_contract_then_gather = False
+    return cfg
+
+
+def bf16_golden_setup(ont):
+    """(cfg, world, question files, the port's weights from seed 0 on the
+    CPU) of the bf16 golden: three batches of 16 questions on 2 images
+    each (the shared route) at production widths."""
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+
+    cfg = bf16_config()
+    world = evalset.demo_world(ont)
+    datasets = evalset.eval_datasets(world, BF16_GOLDEN_MIX, 16, 2, seed=7)
+    params = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    return cfg, world, datasets, params
+
+
+def objects_digest(objects: np.ndarray) -> str:
+    """sha256 of an array's float32 bytes."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(objects, np.float32).tobytes()).hexdigest()
+
+
+def check_bf16_golden(device, atol: float) -> tuple:
+    """The port at ``compute_dtype="bfloat16"`` against the JAX golden
+    ``torch_port_golden_bf16.npz`` on ``device``: the regenerated weights
+    and batches (their digests) equal the golden's,
+    log-probabilities within ``atol`` (``saturated_lp_check``), answer flags
+    equal but for float32 near-ties. Returns (batches, tie flips)."""
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    golden = np.load(BF16_GOLDEN)
+    ont = GQAOntology()
+    cfg, world, datasets, params = bf16_golden_setup(ont)
+    if datasets != json.loads(str(golden["datasets"])):
+        raise AssertionError("the bf16 golden's question files differ from the regenerated ones")
+    for name, p in params.named_parameters():
+        if objects_digest(p.detach().numpy()) != str(golden["param_sha256/"
+                                                             + name.replace(".", "/")]):
+            raise AssertionError(f"the regenerated weights' {name} differ from the golden's")
+    params = params.to(device)
+    interp = Interpreter(cfg, ont)
+    n = flips = 0
+    for k, lb in enumerate(evalset.eval_loader(cfg, ont, world, datasets)):
+        p = f"batch/{k}/"
+        if objects_digest(lb.objects) != str(golden[p + "objects_sha256"]):
+            raise AssertionError(f"bf16 golden batch {k}: the objects differ")
+        lp = forward_lp(interp, params, lb, device)
+        ok, _, err = saturated_lp_check(lp, golden[p + "log_probability"], atol)
+        if not (np.isfinite(lp).all() and ok.all()):
+            raise AssertionError(f"bf16 golden batch {k}: log_probability off by {err!r}")
+        want = answer_rows(lb, golden[p + "answer_flags"])
+        _, o, m, arrays = to_device_batch(lb, device)
+        with torch.inference_mode():
+            got = answer_rows(lb, interp.forward(params, o, m, arrays, lb.spec)[
+                "answer_flags"].cpu().numpy())
+        flips += check_mesh_flags(got, want, tie_rows(lb, golden[p + "log_probability"]),
+                                  f"bf16 golden batch {k}")
+        n += 1
+    if n != len(datasets):
+        raise AssertionError(f"{n} bf16 golden batches, the golden has {len(datasets)}")
+    return n, flips
+
+
+class KernelRouteOnCpu:
+    """Within it the CPU takes the card's per-question route: the relation-
+    oracle pair tail through its plain version, bf16 products only for
+    h_s / h_o, as on the card (``interpreter.per_question_kernel_route``
+    ignores the device). The reference the card's per-question route is held
+    against at ``compute_dtype="bfloat16"``, where the plain ``rel_cache``
+    casts every product (JAX's CPU formulation, tests/test_torch_bf16.py)."""
+
+    def __enter__(self):
+        from dfol_vqa_tpu_torch.models import interpreter
+
+        self._real = interpreter.per_question_kernel_route
+        interpreter.per_question_kernel_route = (
+            lambda cfg, device: cfg.tpu.use_pallas and cfg.oracle_output_dim == 1)
+        return self
+
+    def __exit__(self, *exc):
+        from dfol_vqa_tpu_torch.models import interpreter
+
+        interpreter.per_question_kernel_route = self._real
+
+
+def bf16_gate_control(cfg, ont, params_cpu, lb, device) -> tuple:
+    """The control of ``BF16_GRAD_RTOL``: the card's step at
+    ``compute_dtype="float32"`` held against the CPU's bfloat16 step from the
+    same weights on ``lb``. A step that skipped the bf16 casts must fail the
+    gate, so the worst leaf's gradient error over its largest value has to
+    exceed it. Returns (that leaf, the ratio). Its launches count on no
+    path."""
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.tpu.compute_dtype = "float32"
+    p_gpu, p_cpu = copy.deepcopy(params_cpu).to(device), copy.deepcopy(params_cpu)
+    VQATrainer(cfg32, Interpreter(cfg32, ont), device=device).compute_grads(p_gpu, lb)
+    VQATrainer(cfg, Interpreter(cfg, ont), device="cpu").compute_grads(p_cpu, lb)
+    ratios = {k: err / max(mag, 1e-30)
+              for k, (err, mag) in leaf_errors(grads_of(p_gpu), grads_of(p_cpu)).items()}
+    key = max(ratios, key=ratios.get)
+    if not ratios[key] > BF16_GRAD_RTOL:
+        raise AssertionError(f"the float32 step passes the bf16 gradient gate {BF16_GRAD_RTOL}: "
+                             f"worst {key} {ratios[key]!r}")
+    return key, ratios[key]
+
+
+def phase_bf16(device, stamp: str) -> dict:
+    """Phase 12 (c): ``compute_dtype="bfloat16"`` on the card. The demo
+    burst (phase 4's 64 requests, kernel 1 fed by bf16 h_s / h_o products)
+    and one eval batch per route (sample widths, O=100, 80 questions: kernel
+    1 per-question, kernel 4 shared with the plain bf16 trunk, kernel 3
+    never) against the CPU port (the per-question route in the card's
+    formulation, ``KernelRouteOnCpu``): answers equal, probabilities within
+    ``EVAL_P_ATOL``; the seventh JAX golden; one training step per route
+    (kernels 1 and 2; kernel 4) against the CPU under phase 7's gates but
+    for the gradients' limit, ``BF16_GRAD_RTOL``, whose control
+    (``bf16_gate_control``) must fail it.
+    Returns the launches of the burst, the eval batches and the steps."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
+    from dfol_vqa_tpu_torch.serve import build_demo_engine
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(MESH_KERNELS, 0)
+    with KernelRouteOnCpu():
+        _, _, world, eng = build_demo_engine(device=device, max_batch=32, seed=0)
+        _, _, _, cpu_eng = build_demo_engine(device="cpu", max_batch=32, seed=0)
+        try:
+            for e in (eng, cpu_eng):  # before any request: the engines' shared config
+                e.cfg.tpu.compute_dtype = "bfloat16"
+            pm.LAUNCHES = 0
+            launches["relation_oracle_fwd"] += phase_serve(eng, cpu_eng, world, stamp, tag="12")
+            if pm.LAUNCHES:
+                raise AssertionError("the pair-MLP kernel launched in serving")
+        finally:
+            eng.stop()
+            cpu_eng.stop()
+        n, flips = check_bf16_golden(device, GOLDEN_ATOL)
+        log(f"[12] JAX bf16 golden (production widths, {n} shared-route batches of 16): "
+            f"log_probability within {GOLDEN_ATOL}, answer flags equal ({flips} near-tie flips)")
+        ont = GQAOntology()
+        cfg = bf16_config()
+        world = evalset.demo_world(ont)
+        routes = {
+            "per_question": list(trainset.train_loader(cfg, ont, world, trainset.train_datasets(
+                world, (("verify_rel", 1, 80),), seed=12)))[:1],
+            "shared": list(trainset.train_loader(cfg, ont, world, evalset.eval_datasets(
+                world, (("exist", 2, 80),), 80, 8, seed=12), shuffle=False))[:1]}
+        params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+        params = copy.deepcopy(params_cpu).to(device)
+        interp = Interpreter(cfg, ont)
+        want_eval = {"per_question": [1, 0, 0, 0], "shared": [0, 0, 0, 1]}
+        for route, batches in routes.items():
+            (lb,) = batches
+            before = launch_counts()
+            lp = forward_lp(interp, params, lb, device)
+            got = [a - b for a, b in zip(launch_counts(), before)]
+            if got != want_eval[route]:
+                raise AssertionError(f"bf16 {route} eval batch launched {got}, not "
+                                     f"{want_eval[route]}")
+            launches = {k: launches[k] + g for k, g in zip(MESH_KERNELS, got)}
+            lp_cpu = forward_lp(interp, params_cpu, lb, "cpu")
+            err = lp_error(lp, lp_cpu)
+            if err[0] > EVAL_P_ATOL:
+                raise AssertionError(f"bf16 {route} eval: probability card vs CPU {err!r}")
+            _, o, m, arrays = to_device_batch(lb, device)
+            with torch.inference_mode():
+                flags = interp.forward(params, o, m, arrays, lb.spec)["answer_flags"].cpu().numpy()
+            _, o, m, arrays = to_device_batch(lb, "cpu")
+            with torch.inference_mode():
+                flags_cpu = interp.forward(params_cpu, o, m, arrays, lb.spec)["answer_flags"].numpy()
+            flips = check_mesh_flags(answer_rows(lb, flags), answer_rows(lb, flags_cpu),
+                                     tie_rows(lb, lp_cpu), f"bf16 {route} eval")
+            log(f"[12] bf16 eval, {route} route ({lb.spec.terminal_op}, U_pad "
+                f"{lb.objects.shape[0]}, B {len(lb.arrays['img_index'])}): card vs CPU "
+                f"{err!r}, answers equal ({flips} near-tie flips), launches {got} ({stamp})")
+            want_steps = [1, 1, 0, 0] if route == "per_question" else [0, 0, 0, 1]
+            res = card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, f"bf16 {route}",
+                                    want_steps, limits={0: BF16_GRAD_RTOL})
+            launches = {k: launches[k] + g for k, g in zip(MESH_KERNELS, res["launches"])}
+            log(f"[12] bf16 training step, {route} route: {res['text']}; launches "
+                f"{res['launches']} ({stamp})")
+            key, ratio = bf16_gate_control(cfg, ont, params_cpu, lb, device)
+            log(f"[12] bf16 gate control, {route} route: the card's float32 step against the "
+                f"CPU's bf16 step, worst {key} {ratio!r} of its largest gradient > "
+                f"{BF16_GRAD_RTOL} ({stamp})")
+    log(f"[12] phase 12 (c) took {time.perf_counter() - t0!r} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -3064,6 +3783,8 @@ def main() -> int:
     paths["serve_int8"] = serve_int8
     paths["curriculum"] = phase_curriculum(device, stamp)
     paths["daemon"] = phase_daemon(device, stamp)
+    paths["mesh"] = phase_mesh(device, stamp)
+    paths["bf16"] = phase_bf16(device, stamp)
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

@@ -107,8 +107,13 @@ def params_from_numpy(tree) -> OracleParams:
     return params
 
 
-def params_to_numpy(params: OracleParams) -> Dict[str, Any]:
-    """OracleParams -> the JAX parameter pytree as numpy arrays."""
-    flat = {name.replace(".", "/"): p.detach().cpu().numpy()
-            for name, p in params.named_parameters()}
+def params_to_numpy(params) -> Dict[str, Any]:
+    """OracleParams -> the JAX parameter pytree as numpy arrays. A mesh's
+    ``ShardedParams`` (``parallel/mesh.py``) converts whole: its leaves are
+    gathered first, a collective that every rank calls."""
+    from dfol_vqa_tpu_torch.parallel.mesh import ShardedParams
+
+    named = (params.full_tensors().items() if isinstance(params, ShardedParams)
+             else params.named_parameters())
+    flat = {name.replace(".", "/"): p.detach().cpu().numpy() for name, p in named}
     return unflatten(flat)

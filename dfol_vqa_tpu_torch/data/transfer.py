@@ -14,6 +14,10 @@ such round trip, so the port does not pack.
 ``transfer_dtype`` shrinks the object features, the largest tensor of a
 batch: "bfloat16" halves their bytes, "int8" (``quantize_objects``)
 quarters them; ``Interpreter.forward`` restores float32 on the device.
+
+Under a device mesh each rank copies its own rows to its own device
+(``parallel/mesh.Mesh.device``, ``cuda:LOCAL_RANK``, made the current
+device when the rank joins, so the pinned staging is that card's too).
 """
 
 from __future__ import annotations

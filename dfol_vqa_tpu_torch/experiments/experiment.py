@@ -7,17 +7,21 @@ best/last checkpoint directories under
 ``model_path/model_name/version/{best,last}``, build steps overridable by
 subclasses, then train -> predict -> test, with the same return dict.
 
-It runs on one device, ``device`` (the card unless the caller asks for the
-CPU). A configuration that asks for more than one device
-(``tpu.mesh_shape``, the ``DFOL_DISTRIBUTED`` environment) raises: the mesh
-is not ported yet (ROADMAP queue 6). ``visualize`` runs the visualization
-epoch (``viz.visualize_loop``) over the test set, one question a batch.
+It runs on ``device`` (the card unless the caller asks for the CPU). Under
+``torchrun`` (or with ``DFOL_DISTRIBUTED``, a multi-host launch, or a
+``tpu.mesh_shape`` of more than one device) it runs on a device mesh
+(``parallel/mesh.py``): one process per device, the mesh built from
+``tpu.mesh_shape`` / ``tpu.mesh_axes`` / ``tpu.fsdp`` over the launch's
+processes (a shape that does not cover them exactly raises), each loader
+sharded by data rank at ``batch_size / n_data`` rows, and the trainer
+stepping in lockstep; rank 0 writes the files. ``visualize`` runs the
+visualization epoch (``viz.visualize_loop``) over the test set, one
+question a batch, on one device.
 """
 
 from __future__ import annotations
 
 import logging
-import math
 import os
 from typing import Optional
 
@@ -30,23 +34,18 @@ from dfol_vqa_tpu_torch.data.features import FeatureSource, GQAHdf5Features, Syn
 from dfol_vqa_tpu_torch.data.loader import BatchLoader
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter
 from dfol_vqa_tpu_torch.ontology import GQAOntology
+from dfol_vqa_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    distributed_requested,
+    make_mesh,
+)
 from dfol_vqa_tpu_torch.train.trainer import VQATrainer
 
 
-def check_single_device(cfg: Config) -> None:
-    """Raise for what the port cannot run yet, rather than quietly running
-    it on one device."""
-    if os.environ.get("DFOL_DISTRIBUTED"):
-        raise NotImplementedError(
-            "DFOL_DISTRIBUTED (multi-host training) is not ported to PyTorch yet "
-            "(ROADMAP queue 6: mesh)")
-    if math.prod(cfg.tpu.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"tpu.mesh_shape={tuple(cfg.tpu.mesh_shape)} asks for a device mesh, which is not "
-            "ported to PyTorch yet (ROADMAP queue 6: mesh)")
-
-
 class ExperimentBase:
+    mesh: Optional[Mesh] = None
+
     def build_ontology(self, cfg: Config, logger) -> GQAOntology:
         raise NotImplementedError
 
@@ -73,11 +72,12 @@ class ExperimentBase:
             return None
         manager = GQADataManager(path, ontology, cfg.in_memory)
         compiler = self.build_compiler(cfg, ontology, shuffle_choose=shuffle)
+        num_shards, shard_index, rows = batch_sharding(self.mesh, batch_size)
         return BatchLoader(
-            manager.datasets, compiler, features, batch_size, cfg.tpu.max_object_num,
+            manager.datasets, compiler, features, rows, cfg.tpu.max_object_num,
             shuffle=shuffle,
-            num_shards=1,
-            shard_index=0,
+            num_shards=num_shards,
+            shard_index=shard_index,
             keep_original=keep_original,
             num_workers=cfg.tpu.loader_workers,
             group_chunk=(cfg.tpu.train_chunk
@@ -98,7 +98,13 @@ class ExperimentBase:
         device="cuda",
     ):
         cfg = Config.from_yaml(config_file)
-        check_single_device(cfg)
+        self.mesh = None
+        if distributed_requested(cfg):
+            if visualize:
+                raise ValueError("visualize runs on one device, not under a device mesh")
+            self.mesh = make_mesh(cfg.tpu.mesh_shape, cfg.tpu.mesh_axes, device=device,
+                                  fsdp=cfg.tpu.fsdp)
+            device = self.mesh.device
 
         logging.basicConfig(
             level=logging.DEBUG if cfg.verbose else logging.INFO,
@@ -114,7 +120,8 @@ class ExperimentBase:
         ontology = self.build_ontology(cfg, logger)
         interp = self.build_interpreter(cfg, ontology, logger)
         features = self.build_features(cfg, logger)
-        trainer = VQATrainer(cfg, interp, logger, hardset_path=hardset_path, device=device)
+        trainer = VQATrainer(cfg, interp, logger, hardset_path=hardset_path, device=device,
+                             mesh=self.mesh)
 
         params = interp.init_params(torch.Generator().manual_seed(seed or 0), device)
         if not is_training:  # training reloads per repetition inside train()
@@ -166,8 +173,13 @@ class ExperimentBase:
                 cfg, cfg.test_path, ontology, features, cfg.test_batch_size, shuffle=False
             )
             file_name = os.path.basename(str(cfg.test_path))
-            with open(os.path.join(prediction_path, f"prediction_{file_name}.json"), "w") as f:
-                trainer.predict(test_loader, params, f, import_path_base=import_path,
+            if trainer.writes_files:
+                with open(os.path.join(prediction_path, f"prediction_{file_name}.json"),
+                          "w") as f:
+                    trainer.predict(test_loader, params, f, import_path_base=import_path,
+                                    is_submission=is_submission)
+            else:
+                trainer.predict(test_loader, params, None, import_path_base=import_path,
                                 is_submission=is_submission)
 
         if not is_submission and cfg.test_path is not None:

@@ -5,8 +5,15 @@
 
 Port of ``dfol_vqa_tpu/experiments/gqa_experiment.py`` with the same flags.
 It runs on the CUDA card; ``-c`` runs on the CPU instead. Without ``-c`` and
-without a card it raises rather than carry on on the CPU. ``--local_rank``
-is accepted and ignored (one device per process).
+without a card it raises rather than carry on on the CPU. Under ``torchrun``
+it trains over a device mesh, one process per device (``tpu.mesh_shape``
+must cover the processes; ``parallel/mesh.py``):
+
+    torchrun --nproc-per-node 4 -m dfol_vqa_tpu_torch.experiments.gqa_experiment cfg.yaml
+    torchrun --standalone --nproc-per-node 2 \
+        -m dfol_vqa_tpu_torch.experiments.gqa_experiment cfg.yaml -c   # 2 CPU processes
+
+``--local_rank`` is accepted and ignored (``LOCAL_RANK`` picks the card).
 """
 
 import argparse

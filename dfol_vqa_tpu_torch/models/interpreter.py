@@ -207,6 +207,13 @@ def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None, mods: M
     return s * subj2 + (1.0 - s) * obj2
 
 
+def per_question_kernel_route(cfg: Config, device: torch.device) -> bool:
+    """Whether a per-question relating batch takes the relation-oracle
+    kernels (``ops/relation_oracle.rel_cache_kernel``): ``tpu.use_pallas``,
+    a CUDA device and F == 1; the plain ``oracle.rel_cache`` otherwise."""
+    return cfg.tpu.use_pallas and device.type == "cuda" and cfg.oracle_output_dim == 1
+
+
 class Interpreter:
     """Builds worlds and executes compiled program batches."""
 
@@ -321,8 +328,7 @@ class Interpreter:
                 rel_ll = om.rel_cache_shared(params, attr_in_u, pos_u, img_index, rel_tokens,
                                              cfg, generator, deterministic,
                                              rel_gather=self._rel_gather_map)
-            elif (cfg.tpu.use_pallas and objects.device.type == "cuda"
-                    and cfg.oracle_output_dim == 1):
+            elif per_question_kernel_route(cfg, objects.device):
                 from dfol_vqa_tpu_torch.ops.relation_oracle import rel_cache_kernel
 
                 rel_ll = rel_cache_kernel(params, attr_in, pos, rel_tokens, cfg, deterministic,

@@ -43,13 +43,31 @@ DEFAULT_LOG_LIKELIHOOD = -30.0  # reference default_log_likelihood everywhere
 
 
 class Embedding(tnn.Module):
-    """Concept head: ``w (E, V_pad)``, ``b (V_pad,)``; token code v scores
-    column v-1."""
+    """Concept head: ``w (E, V_pad)``, ``b (V_pad,)`` (the trainable
+    interpreter's extra channels: ``w (E, V_pad, F-1)``, ``b (V_pad,
+    F-1)``); token code v scores column v-1. The oracle reads the head
+    through ``logits`` and ``rows`` only, so a device mesh's model axis can
+    put a vocabulary slice in its place (``parallel/mesh.VocabSlice``)."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor):
         super().__init__()
         self.w = tnn.Parameter(w)
         self.b = tnn.Parameter(b)
+
+    def logits(self, h: torch.Tensor, cfg: Optional[Config] = None) -> torch.Tensor:
+        """h (..., E) -> (..., V_pad) logits ((..., V_pad, F-1) for the extra
+        channels), the operands at ``cfg``'s compute dtype when ``cfg`` is
+        given (the attribute head), float32 otherwise (listed pairs, as in
+        JAX)."""
+        c = (lambda x: cast(x, cfg)) if cfg is not None else (lambda x: x)
+        if self.w.ndim == 2:
+            return torch.matmul(c(h), c(self.w)) + self.b
+        return torch.einsum("...e,evk->...vk", c(h), c(self.w)) + self.b
+
+    def rows(self, tok0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """0-based token columns (any shape S) -> (the weight columns as rows
+        S + (E,) (S + (E, F-1)), the biases S (S + (F-1,)))."""
+        return self.w.movedim(1, 0)[tok0], self.b[tok0]
 
 
 LOGIC_GATES = ("filter", "relate0", "relate1")
@@ -85,11 +103,27 @@ def init_logic_gates(generator: torch.Generator) -> tnn.ModuleDict:
     return tnn.ModuleDict({name: nn.Linear.init(2, 6, generator) for name in LOGIC_GATES})
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 def check_supported(cfg: Config) -> None:
     """Raise for configurations the port does not run."""
-    if cfg.tpu.compute_dtype != "float32":
+    if cfg.tpu.compute_dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: the port computes in float32")
+            f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: the port computes in one of "
+            f"{COMPUTE_DTYPES}")
+
+
+def cast(x: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """A product's operand at ``tpu.compute_dtype``, kept float32: with
+    "bfloat16" it is rounded to bf16 and widened again, so the product that
+    follows multiplies bf16 values exactly and sums in float32, JAX's
+    ``x.astype(compute_dtype)`` with ``preferred_element_type=float32``
+    (its output is not rounded). The gradient through it is rounded to bf16
+    too, as JAX's cast transposes. Identity at "float32"."""
+    if cfg.tpu.compute_dtype == "float32":
+        return x
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def resolve_cache_dtype(cfg: Config, batch: int) -> torch.dtype:
@@ -195,8 +229,7 @@ def _op_module_ll(params: OracleParams, cfg: Config, logits0: torch.Tensor,
 def _extra_emb_select(params: OracleParams, tok0: torch.Tensor):
     """(B, R) 0-based token columns -> the extra heads' rows: (e_sel_x
     (B, R, E, F-1), b_sel_x (B, R, F-1))."""
-    w_x, b_x = params.embedding_extra.w, params.embedding_extra.b  # (E, V_pad, F-1), (V_pad, F-1)
-    return w_x.movedim(1, 0)[tok0], b_x[tok0]
+    return params.embedding_extra.rows(tok0)
 
 
 def attr_cache(
@@ -214,10 +247,9 @@ def attr_cache(
     h = nn.mlp_apply(params.attribute_network, attr_in, final="sigmoid",
                      dropout_rate=cfg.dropout, generator=generator,
                      deterministic=deterministic)
-    logits = torch.matmul(h, params.embedding.w) + params.embedding.b
+    logits = params.embedding.logits(h, cfg)
     if trainable_interpreter(params, cfg):
-        logits_x = (torch.einsum("boe,evk->bovk", h, params.embedding_extra.w)
-                    + params.embedding_extra.b)
+        logits_x = params.embedding_extra.logits(h, cfg)
         ll = _op_module_ll(params, cfg, logits, logits_x, 1, generator, deterministic)
     else:
         ll = F.logsigmoid(logits)
@@ -236,8 +268,7 @@ def _first_layer_split(p0: nn.Linear, d_att: int):
 def select_relation_rows(params: OracleParams, rel_tokens: torch.Tensor):
     """(B, R) unsigned token codes -> (e_sel (B, R, E), b_sel (B, R)); pad
     slots (code 0) read column 0 and are overwritten downstream."""
-    tok0 = torch.clamp(rel_tokens.long() - 1, min=0)
-    return params.embedding.w.t()[tok0], params.embedding.b[tok0]
+    return params.embedding.rows(torch.clamp(rel_tokens.long() - 1, min=0))
 
 
 def rel_cache(
@@ -269,17 +300,24 @@ def rel_cache(
     w_s, w_o, w_g, b0 = _first_layer_split(rp.layers[0], d_att)
     x = nn.dropout(attr_in, cfg.dropout, generator, deterministic)
     x_obj = nn.dropout(attr_in, cfg.dropout, generator, deterministic)
-    h_s = torch.matmul(x, w_s)
-    h_o = torch.matmul(x_obj, w_o)
+    h_s = torch.matmul(cast(x, cfg), cast(w_s, cfg))
+    h_o = torch.matmul(cast(x_obj, cfg), cast(w_o, cfg))
     h = (h_s[:, :, None, :] + h_o[:, None, :, :]
          + torch.einsum("bijg,gh->bijh", geom, w_g) + b0)
-    for layer in rp.layers[1:]:
-        h = nn.elu(h)
-        h = nn.dropout(h, cfg.dropout, generator, deterministic)
-        h = torch.matmul(h, layer.w) + layer.b
-    h = torch.sigmoid(h)
+    h = torch.sigmoid(_trunk_tail(h, rp.layers[1:], cfg, generator, deterministic))
     ll = _contract_ll(params, cfg, h, rel_tokens, e_sel, b_sel, generator, deterministic)
     return ll.masked_fill((rel_tokens == 0)[:, :, None, None], default_ll)
+
+
+def _trunk_tail(h: torch.Tensor, layers, cfg: Config,
+                generator: Optional[torch.Generator], deterministic: bool) -> torch.Tensor:
+    """The relation MLP after its first layer's pre-activation ``h``: ELU
+    (expm1), dropout and each Linear, the products at the compute dtype."""
+    for layer in layers:
+        h = nn.elu(h)
+        h = nn.dropout(h, cfg.dropout, generator, deterministic)
+        h = torch.matmul(cast(h, cfg), cast(layer.w, cfg)) + layer.b
+    return h
 
 
 def _contract_ll(params: OracleParams, cfg: Config, h2: torch.Tensor, rel_tokens: torch.Tensor,
@@ -288,12 +326,14 @@ def _contract_ll(params: OracleParams, cfg: Config, h2: torch.Tensor, rel_tokens
                  deterministic: bool = True) -> torch.Tensor:
     """Per-question pair codes h2 (B, O, O, E) against each question's
     relation rows -> (B, R, O, O) log-likelihoods, through the arity-2
-    operator module for F > 1."""
-    logits = torch.einsum("bije,bre->brij", h2, e_sel) + b_sel[:, :, None, None]
+    operator module for F > 1. The products' operands are at the compute
+    dtype."""
+    logits = (torch.einsum("bije,bre->brij", cast(h2, cfg), cast(e_sel, cfg))
+              + b_sel[:, :, None, None])
     if not trainable_interpreter(params, cfg):
         return F.logsigmoid(logits)
     e_sel_x, b_sel_x = _extra_emb_select(params, torch.clamp(rel_tokens.long() - 1, min=0))
-    logits_x = (torch.einsum("bije,bref->brijf", h2, e_sel_x)
+    logits_x = (torch.einsum("bije,bref->brijf", cast(h2, cfg), cast(e_sel_x, cfg))
                 + b_sel_x[:, :, None, None, :])
     return _op_module_ll(params, cfg, logits, logits_x, 2, generator, deterministic)
 
@@ -303,11 +343,14 @@ REL_ROUTES = ("auto", "pallas", "xla")
 
 def shared_kernel_route(cfg: Config, device: torch.device, deterministic: bool) -> bool:
     """Whether ``rel_cache_shared`` takes the CUDA kernels: ``tpu.use_pallas``,
-    a CUDA device, ``tpu.rel_route`` other than "xla", no active dropout
-    (the port computes in float32 only, ``check_supported``). The JAX
-    package's TPU gates (O >= 64, the measured ``resolve_rel_route`` table,
-    128-lane O padding) are not carried over: "auto" and "pallas" take the
-    kernels at any O and batch on the card."""
+    a CUDA device, ``tpu.rel_route`` other than "xla", F == 1, no active
+    dropout. The JAX package's TPU gates (O >= 64, the measured
+    ``resolve_rel_route`` table, 128-lane O padding) are not carried over:
+    "auto" and "pallas" take the kernels at any O and batch on the card.
+    Its compute-dtype gate is kept (``models/oracle.py:486-503`` there):
+    the contraction kernel (kernel 4) runs at every compute dtype, the
+    pair-MLP kernel (kernel 3) only at float32; at bfloat16 the pair code
+    comes from the plain trunk with bf16 products."""
     if cfg.tpu.rel_route not in REL_ROUTES:
         raise ValueError(f"tpu.rel_route must be one of {REL_ROUTES}, got {cfg.tpu.rel_route!r}")
     return (cfg.tpu.use_pallas and device.type == "cuda" and cfg.tpu.rel_route != "xla"
@@ -333,7 +376,8 @@ def rel_cache_shared(
 
     * on the kernel route (``shared_kernel_route``): the pair code h2 in
       ``tpu.rel_stream_dtype`` from ``ops/pair_mlp.pair_mlp_fused`` (or its
-      plain version on the card when ``tpu.fused_pair_mlp`` is off), then
+      plain version on the card when ``tpu.fused_pair_mlp`` is off; from the
+      plain trunk at ``compute_dtype="bfloat16"``), then
       ``ops/shared_contract.shared_contract_kernel`` straight into the cache
       dtype;
     * contract-then-gather when ``rel_gather`` (the interpreter's
@@ -356,29 +400,30 @@ def rel_cache_shared(
     w_s, w_o, w_g, b0 = _first_layer_split(layers[0], d_att)
     x = nn.dropout(attr_in_u, cfg.dropout, generator, deterministic)
     x_obj = nn.dropout(attr_in_u, cfg.dropout, generator, deterministic)
-    h_s = torch.matmul(x, w_s)
-    h_o = torch.matmul(x_obj, w_o)
+    h_s = torch.matmul(cast(x, cfg), cast(w_s, cfg))
+    h_o = torch.matmul(cast(x_obj, cfg), cast(w_o, cfg))
     e_sel, b_sel = select_relation_rows(params, rel_tokens)
     pad_slot = (rel_tokens == 0)[:, :, None, None]
+    kernels = shared_kernel_route(cfg, attr_in_u.device, deterministic)
+    stream = getattr(torch, cfg.tpu.rel_stream_dtype)
 
-    if shared_kernel_route(cfg, attr_in_u.device, deterministic):
-        from dfol_vqa_tpu_torch.ops import pair_mlp, shared_contract
+    if kernels and cfg.tpu.compute_dtype == "float32":
+        from dfol_vqa_tpu_torch.ops import pair_mlp
 
-        stream = getattr(torch, cfg.tpu.rel_stream_dtype)
         trunk = pair_mlp.pair_mlp_fused if cfg.tpu.fused_pair_mlp else pair_mlp.pair_mlp_reference
         h2 = trunk(pos_u, h_s, h_o, w_g, b0, layers[1:], stream)
-        return shared_contract.shared_contract_kernel(
-            h2, img_index, e_sel.to(stream), b_sel, rel_tokens, default_ll,
-            out_dtype=resolve_cache_dtype(cfg, img_index.shape[0]))
+    else:
+        geom = pair_geometry(pos_u)
+        h = (h_s[:, :, None, :] + h_o[:, None, :, :]
+             + torch.einsum("uijg,gh->uijh", geom, w_g) + b0)
+        h2 = torch.sigmoid(_trunk_tail(h, layers[1:], cfg, generator, deterministic))
+    if kernels:
+        from dfol_vqa_tpu_torch.ops import shared_contract
 
-    geom = pair_geometry(pos_u)
-    h = (h_s[:, :, None, :] + h_o[:, None, :, :]
-         + torch.einsum("uijg,gh->uijh", geom, w_g) + b0)
-    for layer in layers[1:]:
-        h = nn.elu(h)
-        h = nn.dropout(h, cfg.dropout, generator, deterministic)
-        h = torch.matmul(h, layer.w) + layer.b
-    h2 = torch.sigmoid(h)  # (U, O, O, E) shared pair code
+        return shared_contract.shared_contract_kernel(
+            h2.to(stream), img_index, e_sel.to(stream), b_sel, rel_tokens, default_ll,
+            out_dtype=resolve_cache_dtype(cfg, img_index.shape[0]))
+    # h2: (U, O, O, E) shared pair code
 
     if (rel_gather is not None and cfg.tpu.rel_contract_then_gather and U < B
             and not trainable_interpreter(params, cfg)):
@@ -386,10 +431,11 @@ def rel_cache_shared(
         # for tokens outside it (the compiler never routes one into a slot)
         cols, inv = rel_gather
         K = len(cols)
-        emb_w = params.embedding.w  # (E, V_pad)
-        cols_t = torch.as_tensor(cols, dtype=torch.long, device=emb_w.device)
-        emb_rel = torch.cat([emb_w[:, cols_t], emb_w.new_zeros((emb_w.shape[0], 1))], dim=1)
-        h2k = torch.einsum("upe,ek->ukp", h2.reshape(U, O * O, -1), emb_rel)  # (U, K+1, O^2)
+        cols_t = torch.as_tensor(cols, dtype=torch.long, device=h2.device)
+        w_rel = params.embedding.rows(cols_t)[0]  # (K, E)
+        emb_rel = torch.cat([w_rel, w_rel.new_zeros((1, w_rel.shape[1]))]).t()
+        h2k = torch.einsum("upe,ek->ukp", cast(h2.reshape(U, O * O, -1), cfg),
+                           cast(emb_rel, cfg))  # (U, K+1, O^2)
         tok0 = torch.clamp(rel_tokens.long() - 1, min=0)
         slot = torch.as_tensor(inv, dtype=torch.long, device=tok0.device)[tok0]  # (B, R)
         flat = img_index.long()[:, None] * (K + 1) + slot
@@ -428,7 +474,6 @@ def rel_scores_for_pairs(
     over the distance clamped at 1e-10, so a zero-distance pair has angle
     0), not ``featurizer.pair_geometry``'s."""
     rp = params.relation_network
-    emb_w, emb_b = params.embedding.w, params.embedding.b
     B = pair_idx.shape[0]
     rows = torch.arange(B, device=pair_idx.device)[:, None]
     i_s, i_o = pair_idx[..., 0].long(), pair_idx[..., 1].long()
@@ -443,15 +488,18 @@ def rel_scores_for_pairs(
     pair_feat = torch.cat([f_s, f_o, geom], dim=-1)
     hmid = nn.mlp_apply(rp, pair_feat, final="sigmoid", dropout_rate=cfg.dropout,
                         generator=generator, deterministic=deterministic)
-    if rel_cols is not None:
-        emb_w, emb_b = emb_w[:, rel_cols], emb_b[rel_cols]
-    logits = torch.matmul(hmid, emb_w) + emb_b
+    if rel_cols is None:
+        logits = params.embedding.logits(hmid)
+    else:
+        w_rows, b_rows = params.embedding.rows(rel_cols)
+        logits = torch.matmul(hmid, w_rows.t()) + b_rows
     if not trainable_interpreter(params, cfg):
         return F.logsigmoid(logits)
-    w_x, b_x = params.embedding_extra.w, params.embedding_extra.b
-    if rel_cols is not None:
-        w_x, b_x = w_x[:, rel_cols], b_x[rel_cols]
-    logits_x = torch.einsum("bpe,evk->bpvk", hmid, w_x) + b_x
+    if rel_cols is None:
+        logits_x = params.embedding_extra.logits(hmid)
+    else:
+        w_rows, b_rows = params.embedding_extra.rows(rel_cols)
+        logits_x = torch.einsum("bpe,kef->bpkf", hmid, w_rows) + b_rows
     return _op_module_ll(params, cfg, logits, logits_x, 2, None, deterministic)
 
 

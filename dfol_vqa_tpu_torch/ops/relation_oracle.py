@@ -93,12 +93,16 @@ def build_bwd() -> cuda_build.Built:
 
 
 def pair_tail_inputs(params: om.OracleParams, attr_in: torch.Tensor, pos: torch.Tensor,
-                     rel_tokens: torch.Tensor):
-    """Inputs of the pair tail: (h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel)."""
+                     rel_tokens: torch.Tensor, cfg: Optional[Config] = None):
+    """Inputs of the pair tail: (h_s, h_o, geom, w_g, b0, w2, b2, e_sel, b_sel).
+    With ``cfg`` the h_s / h_o products take their operands at its compute
+    dtype (``rel_cache_pallas``'s bf16 products, ``relation_oracle.py:265-268``
+    in JAX); the kernel's own inputs stay float32."""
     rp = params.relation_network
     w_s, w_o, w_g, b0 = om._first_layer_split(rp.layers[0], attr_in.shape[-1])
-    h_s = torch.matmul(attr_in, w_s)
-    h_o = torch.matmul(attr_in, w_o)
+    c = (lambda x: om.cast(x, cfg)) if cfg is not None else (lambda x: x)
+    h_s = torch.matmul(c(attr_in), c(w_s))
+    h_o = torch.matmul(c(attr_in), c(w_o))
     e_sel, b_sel = om.select_relation_rows(params, rel_tokens)
     return (h_s, h_o, pair_geometry(pos), w_g, b0, rp.layers[1].w, rp.layers[1].b,
             e_sel, b_sel)
@@ -402,9 +406,11 @@ def rel_cache_kernel(
     plain versions. A relation MLP of other than two layers and active
     dropout go to ``oracle.rel_cache`` on either device, as in the JAX
     wrapper (``generator`` feeds its dropout). The kernels take any relation
-    hidden width and pair-code width."""
+    hidden width and pair-code width. At ``tpu.compute_dtype="bfloat16"``
+    the h_s / h_o products take bf16 operands and the kernels run on their
+    float32 results, as in JAX (kernel 2 is the backward of that)."""
     if not _kernel_applies(params, cfg, deterministic):
         return om.rel_cache(params, attr_in, pos, rel_tokens, cfg, generator, deterministic,
                             default_ll)
-    ins = [t.contiguous() for t in pair_tail_inputs(params, attr_in, pos, rel_tokens)]
+    ins = [t.contiguous() for t in pair_tail_inputs(params, attr_in, pos, rel_tokens, cfg)]
     return PairTail.apply(*ins, rel_tokens.to(torch.int32).contiguous(), float(default_ll))

@@ -30,7 +30,9 @@ pool reads the answer flags back — the completion barrier — and resolves
 the futures, so consecutive groups overlap on the device. ``trace``
 answers one question at batch rung 1 with its hop-by-hop attentions.
 
-Not ported yet (ROADMAP queue 6): multi-device meshes.
+Not ported yet (ROADMAP queue 6): serving over a device mesh
+(``ServingEngine(mesh=...)``); training and evaluation run on one
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations

@@ -15,8 +15,14 @@ device-to-host snapshot at once and leaves serialisation and the write to
 one background writer thread, so successive saves to a path never
 interleave; ``wait_pending`` drains it and re-raises the first failure.
 
-The Orbax backend raises ``NotImplementedError`` (ROADMAP queue 6, with the
-multi-host mesh it serves).
+Under a device mesh ``save`` takes the ``ShardedParams``: it gathers the
+whole leaves (every rank calls it) and rank 0 alone writes the npz, the
+one format both packages read. ``load`` reads the file on every rank; the
+caller shards it (``ShardedParams.load_full``).
+
+The Orbax backend raises ``NotImplementedError``: its directory format needs
+the ``orbax`` and ``tensorstore`` packages, which the port does not use
+(ROADMAP queue 6).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 
 from dfol_vqa_tpu_torch.convert import flatten, params_from_numpy, params_to_numpy
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
+from dfol_vqa_tpu_torch.parallel.mesh import ShardedParams
 
 STEP_KEY = "__global_step__"
 
@@ -39,8 +46,10 @@ _LOCK = threading.Lock()
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP queue 6: mesh "
-                               "and Orbax checkpoints)")
+    return NotImplementedError(f"{what}: the Orbax directory format needs the orbax and "
+                               "tensorstore packages, which the port does not use; the npz "
+                               "backend reads and writes checkpoints of both packages "
+                               "(ROADMAP queue 6)")
 
 
 def _writer() -> concurrent.futures.ThreadPoolExecutor:
@@ -69,18 +78,22 @@ def _write_npz(flat: Dict[str, np.ndarray], final: str) -> None:
     os.replace(tmp, final)
 
 
-def save(export_path_base: str, name: str, params: OracleParams, global_step: int = 0,
+def save(export_path_base: str, name: str, params, global_step: int = 0,
          backend: str = "npz", async_write: bool = False) -> str:
     """Write params (+ step) to ``export_path_base/name.npz``; returns the
-    path. With ``async_write`` the file appears after ``wait_pending``."""
+    path. With ``async_write`` the file appears after ``wait_pending``.
+    ``params`` may be a mesh's ``ShardedParams``: every rank calls ``save``,
+    the leaves are gathered whole, and rank 0 alone writes."""
     if backend != "npz":
         raise _not_ported(f"checkpoint backend {backend!r}")
-    os.makedirs(export_path_base, exist_ok=True)
+    final = os.path.join(export_path_base, name + ".npz")
     # private copies: on the CPU .numpy() shares the parameters' memory, which
     # the optimizer updates in place while a background write runs
     flat = {k: np.array(v) for k, v in flatten(params_to_numpy(params)).items()}
+    if isinstance(params, ShardedParams) and not params.mesh.writes_files:
+        return final
+    os.makedirs(export_path_base, exist_ok=True)
     flat[STEP_KEY] = np.asarray(global_step)
-    final = os.path.join(export_path_base, name + ".npz")
     if async_write:
         future = _writer().submit(_write_npz, flat, final)
         with _LOCK:

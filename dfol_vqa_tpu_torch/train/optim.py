@@ -21,13 +21,20 @@ and gives frozen leaves a zero update. Here:
   nor decay.
 
 The update is in place on the parameters (JAX returns new arrays).
+
+Under a device mesh (``parallel/mesh.py``) the optimizer steps each rank's
+masters (``ShardedParams.masters``: an FSDP leaf's shard, else the leaf),
+so Adam's state follows the shards; the clip's global norm sums each
+master's squared gradient weighted by 1 / its copies and all-reduces the
+sum over the ranks, so it is the norm of the whole gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
@@ -60,14 +67,18 @@ def trainable_labels(params: OracleParams, cfg: Config) -> Dict[str, bool]:
 
 
 class Optimizer:
-    """The JAX package's optimizer chain over ``params``' trainable leaves.
-    ``step()`` reads the ``.grad`` of each trainable parameter (a missing
-    one counts as zero), clips, and applies decay and Adam in place."""
+    """The JAX package's optimizer chain over ``params``' trainable leaves
+    (``sharded``'s masters of them under a mesh). ``step()`` reads the
+    ``.grad`` of each trainable parameter (a missing one counts as zero),
+    clips, and applies decay and Adam in place."""
 
-    def __init__(self, cfg: Config, params: OracleParams):
+    def __init__(self, cfg: Config, params: OracleParams, sharded=None):
         labels = trainable_labels(params, cfg)
-        self.trainable: List[torch.Tensor] = [p for name, p in params.named_parameters()
-                                              if labels[name]]
+        named = sharded.masters() if sharded is not None else params.named_parameters()
+        named = [(name, p) for name, p in named if labels[name]]
+        self.trainable: List[torch.Tensor] = [p for _, p in named]
+        self._norm_weights = ([sharded.norm_weight(name) for name, _ in named]
+                              if sharded is not None else None)
         self.clip_norm = float(cfg.clip_norm)
         self.adam = (torch.optim.Adam(self.trainable, lr=cfg.learning_rate, betas=(0.9, 0.999),
                                       eps=1e-8, weight_decay=cfg.weight_decay)
@@ -80,12 +91,17 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.trainable]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if self._norm_weights is None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        else:
+            sq = sum(torch.sum(g * g) * w for g, w in zip(grads, self._norm_weights))
+            dist.all_reduce(sq)
+            norm = torch.sqrt(sq)
         keep = norm < self.clip_norm
         for g in grads:  # optax's form: (g / norm) * clip_norm
             g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
         self.adam.step()
 
 
-def build_optimizer(cfg: Config, params: OracleParams) -> Optimizer:
-    return Optimizer(cfg, params)
+def build_optimizer(cfg: Config, params: OracleParams, sharded=None) -> Optimizer:
+    return Optimizer(cfg, params, sharded)

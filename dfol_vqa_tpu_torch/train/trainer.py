@@ -24,10 +24,23 @@ package's ``tpu.train_chunk`` / ``eval_chunk`` / ``pad_chunks`` scan fusion
 exists to amortise an RPC to a remote TPU per dispatch; the port dispatches
 one batch at a time, and whether it needs the fusion is a measurement for
 later (ROADMAP queue 5).
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs this trainer on its
+own shard of each loader (``mesh.batch_sharding``). Training steps in
+lockstep (``lockstep``: every rank takes the longest shard's number of
+steps, one without rows that step taking part with none); a step gathers
+the FSDP shards, divides the rank's loss sum by the step's global count of
+real questions, reduces the gradients and steps the masters
+(``ShardedParams``). Evaluation sums the error counts over the data axis
+and gathers predictions and hardset entries in the order one device would
+hold them (``interleave``). Rank 0 alone writes files: checkpoints (the
+whole leaves, gathered), predictions, hardsets, ``losses.npy``; it alone
+reads a checkpoint back and broadcasts it (``load``).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -37,6 +50,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
@@ -47,6 +61,7 @@ from dfol_vqa_tpu_torch.models.interpreter import (
     question_type_of,
 )
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
+from dfol_vqa_tpu_torch.parallel.mesh import Mesh, ShardedParams, broadcast_params, shard_params
 from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer
 from dfol_vqa_tpu_torch.types import QuestionType
@@ -63,6 +78,19 @@ OP_INDEX = OrderedDict(
 ERROR_DIM = len(OP_INDEX) + 1
 
 
+def interleave(per_rank: Sequence[Sequence[Sequence]]) -> List:
+    """Each data rank's per-batch lists of per-question items -> one list in
+    the order one device holds them: batch by batch, and inside a batch row
+    k of every rank before row k + 1 (the loader deals a file's questions
+    to the ranks in turn). One rank: its items in order."""
+    out: List = []
+    for t in range(max((len(b) for b in per_rank), default=0)):
+        rows = [b[t] if t < len(b) else [] for b in per_rank]
+        for k in range(max(len(r) for r in rows)):
+            out.extend(r[k] for r in rows if k < len(r))
+    return out
+
+
 def readback(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """Device tensors -> float32 numpy arrays of the same shapes, with one
     device-to-host copy for all of them."""
@@ -75,8 +103,9 @@ def readback(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 class VQATrainer:
     """Trains and evaluates on one device (``device``, default the card:
-    CPU callers pass ``device="cpu"``); ``params`` passed to its methods
-    live on that device."""
+    CPU callers pass ``device="cpu"``), or on this rank's device of
+    ``mesh``; ``params`` passed to its methods live on that device and are
+    the whole tree (the same on every rank)."""
 
     def __init__(
         self,
@@ -85,11 +114,13 @@ class VQATrainer:
         logger: Optional[logging.Logger] = None,
         hardset_path: Optional[str] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.cfg = cfg
         self.interp = interpreter
         self.logger = logger or logging.getLogger("dfol_vqa_tpu_torch")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.global_step = 0
         self.last_test_counts: Optional[np.ndarray] = None
         self._hardset_path = hardset_path
@@ -102,6 +133,10 @@ class VQATrainer:
     def _prepare_output_metric_dict(self, error: np.ndarray) -> dict:
         return dict(zip(["over_all"] + list(OP_INDEX.keys()), error.flatten().tolist()))
 
+    @property
+    def writes_files(self) -> bool:
+        return self.mesh is None or self.mesh.writes_files
+
     def decode_answers(self, flags: np.ndarray, batch: LoadedBatch) -> List[List[str]]:
         """Answer flags (host) -> answer-string lists (ties kept, in option
         order), as the serving engine decodes them."""
@@ -110,26 +145,67 @@ class VQATrainer:
     # ------------------------------------------------------------------ train
 
     def compute_grads(self, params: OracleParams, batch: LoadedBatch,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      count: Optional[int] = None, shares: int = 1) -> torch.Tensor:
         """Forward and backward on ``batch``: sets the ``.grad`` of
         ``params`` (None for a parameter the batch does not reach) and
-        returns the loss normalised by the batch's real questions, a 0-d
-        tensor on the device (not read back)."""
+        returns the loss normalised by ``count`` real questions (default:
+        the batch's), a 0-d tensor on the device (not read back). The
+        backward runs on ``1 / shares`` of it."""
         _, objects, obj_mask, arrays = to_device_batch(batch, self.device)
         for p in params.parameters():
             p.grad = None
         out = self.interp.forward(params, objects, obj_mask, arrays, batch.spec,
                                   is_training=True, generator=generator)
-        loss = out["loss"] / torch.clamp(torch.sum(arrays["question_mask"]), min=1.0)
-        loss.backward()
+        n = (torch.clamp(torch.sum(arrays["question_mask"]), min=1.0) if count is None
+             else max(count, 1))
+        loss = out["loss"] / n
+        (loss / shares).backward()
         return loss.detach()
 
-    def train_step(self, params: OracleParams, opt: Optimizer, batch: LoadedBatch,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``compute_grads``, then one optimizer step; returns the loss."""
-        loss = self.compute_grads(params, batch, generator)
+    def train_step(self, params, opt: Optimizer, batch: Optional[LoadedBatch],
+                   generator: Optional[torch.Generator] = None,
+                   count: Optional[int] = None) -> torch.Tensor:
+        """``compute_grads``, then one optimizer step; returns the loss.
+
+        Under the mesh ``params`` is the ``ShardedParams``, ``batch`` this
+        rank's rows (None: none this step) and ``count`` the step's count of
+        real questions over the data axis (``lockstep``); the loss returned
+        is this rank's sum over that count, and the data axis's sum of them
+        the step's loss."""
+        if self.mesh is None:
+            loss = self.compute_grads(params, batch, generator)
+            opt.step()
+            return loss
+        working = params.gather()
+        if batch is None:
+            for p in working.parameters():
+                p.grad = None
+            loss = torch.zeros((), device=self.device)
+        else:  # every rank of a model group backpropagates its share
+            loss = self.compute_grads(working, batch, generator, count, self.mesh.n_model)
+        params.reduce_grads()
         opt.step()
+        params.release()
         return loss
+
+    def lockstep(self, loader) -> Iterator[Tuple[Optional[LoadedBatch], int]]:
+        """(batch, real questions of the step) for each step of an epoch
+        over ``loader``. Under the mesh every rank takes as many steps as
+        the longest shard, a rank whose shard has run out with None, and the
+        count is the step's over the data axis."""
+        if self.mesh is None:
+            for batch in loader:
+                yield batch, batch.batch_size
+            return
+        it = iter(loader)
+        while True:
+            batch = next(it, None)
+            live, count = self.mesh.host_sum(
+                [batch is not None, 0 if batch is None else batch.batch_size])
+            if not live:
+                return
+            yield batch, int(round(count))
 
     def train(
         self,
@@ -166,10 +242,17 @@ class VQATrainer:
         checks at dispatch boundaries, which are every step only with
         ``tpu.train_chunk=1``. Randomness (dropout masks) comes from a
         ``torch.Generator`` seeded with ``seed``, so with dropout on the masks
-        differ from JAX's; the repository trains with ``dropout=0.0``."""
-        cfg = self.cfg
-        opt = build_optimizer(cfg, params)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        differ from JAX's; the repository trains with ``dropout=0.0``.
+
+        Under the mesh ``params`` (the same on every rank; rank 0's are
+        broadcast) is split into a ``ShardedParams`` for the run and gets
+        the trained values back at its end; each rank's generator is seeded
+        from (``seed``, its data rank)."""
+        cfg, mesh = self.cfg, self.mesh
+        state = shard_params(mesh, params) if mesh is not None else params
+        opt = build_optimizer(cfg, params, state if mesh is not None else None)
+        generator = torch.Generator(device=self.device).manual_seed(
+            mesh.seed(seed) if mesh is not None else seed)
         errors = np.zeros((ERROR_DIM, cfg.epoch_num, cfg.repetition_num), np.float32)
         losses = np.zeros((cfg.epoch_num, cfg.repetition_num), np.float32)
         self._best_error = np.inf
@@ -179,7 +262,10 @@ class VQATrainer:
             path = {"best": best_export_path_base, "last": last_export_path_base}.get(load_model)
             if path:
                 try:
-                    self._load_into(path, params)
+                    if mesh is None:
+                        self._load_into(path, params)
+                    else:  # rank 0's file on every rank, each taking its own part
+                        state.load_full(self.load(path, params))
                 except FileNotFoundError:
                     pass
             if reset_step:
@@ -190,29 +276,32 @@ class VQATrainer:
                     step_losses: List[torch.Tensor] = []
                     sizes: List[int] = []
                     next_ckpt = self.global_step + cfg.checkpointing_frequency
-                    for batch in train_loader:
-                        step_losses.append(self.train_step(params, opt, batch, generator))
-                        sizes.append(batch.batch_size)
+                    for batch, count in self.lockstep(train_loader):
+                        step_losses.append(self.train_step(state, opt, batch, generator, count))
+                        sizes.append(count)
                         self.global_step += 1
                         if validation_loader is not None and self.global_step >= next_ckpt:
                             next_ckpt = self.global_step + cfg.checkpointing_frequency
-                            self._checkpoint_mid_epoch(validation_loader, params, metric_index,
+                            self._checkpoint_mid_epoch(validation_loader, state, metric_index,
                                                        last_export_path_base,
                                                        best_export_path_base)
                     if step_losses:
-                        ls = readback([torch.stack(step_losses)])[0]
+                        ls = torch.stack(step_losses)
+                        if mesh is not None:
+                            dist.all_reduce(ls, group=mesh.data_group)
+                        ls = readback([ls])[0]
                         losses[epoch, rep] = float(ls @ np.asarray(sizes, np.float64)) / max(
                             sum(sizes), 1)
                     if validation_loader is not None:
-                        errors[:, epoch, rep] = self.test_epoch(validation_loader, params)
+                        errors[:, epoch, rep] = self.test_epoch(validation_loader, state)
                 finally:
                     if last_export_path_base:
                         ckpt.wait_pending()
-                        self._save(last_export_path_base, params, sync=True)
+                        self._save(last_export_path_base, state, sync=True)
                 if (validation_loader is not None and best_export_path_base
                         and errors[metric_index, epoch, rep] < self._best_error):
                     self._best_error = errors[metric_index, epoch, rep]
-                    self._save(best_export_path_base, params)
+                    self._save(best_export_path_base, state)
                 if cfg.verbose:
                     self.logger.info(
                         "Rep %d, Epoch %d: Step %d, Best Err %.5f: error=%s, loss=%.5f (%.1fs)",
@@ -221,7 +310,9 @@ class VQATrainer:
                         losses[epoch, rep], time.time() - start)
 
         ckpt.wait_pending()  # every asynchronous write is on disk before returning
-        if best_export_path_base:
+        if mesh is not None:
+            state.copy_into(params)
+        if best_export_path_base and self.writes_files:
             os.makedirs(best_export_path_base, exist_ok=True)
             np.save(os.path.join(best_export_path_base, "losses"), losses, allow_pickle=False)
             np.save(os.path.join(best_export_path_base, "errors"), errors, allow_pickle=False)
@@ -241,9 +332,13 @@ class VQATrainer:
             self.logger.info("Checkpointing: Step %d, Best Err %.5f: error=%s", self.global_step,
                              self._best_error, self._prepare_output_metric_dict(err))
 
-    def _batches(self, loader, params: OracleParams
+    def _batches(self, loader, params
                  ) -> Iterator[Tuple[LoadedBatch, Dict[str, torch.Tensor]]]:
-        """(batch, outputs on the device) for every batch of ``loader``."""
+        """(batch, outputs on the device) for every batch of ``loader``;
+        ``params`` is the whole tree or, under the mesh, a
+        ``ShardedParams`` (its gathered working tree is read)."""
+        if isinstance(params, ShardedParams):
+            params = params.gather()
         for batch in loader:
             _, objects, obj_mask, arrays = to_device_batch(batch, self.device)
             with torch.inference_mode():
@@ -252,17 +347,19 @@ class VQATrainer:
 
     # ------------------------------------------------------------------- test
 
-    def test_epoch(self, loader, params: OracleParams) -> np.ndarray:
+    def test_epoch(self, loader, params) -> np.ndarray:
         """One evaluation pass with 17-bucket error accounting: returns the
         error rate per bucket (0 for an empty bucket); the per-bucket
-        question counts land in ``last_test_counts``."""
+        question counts land in ``last_test_counts``. Under the mesh the
+        counts are summed over the data axis."""
         batches: List[LoadedBatch] = []
         matches: List = []
+        mined: List[List[tuple]] = []
         for batch, out in self._batches(loader, params):
             batches.append(batch)
             if self._hardset is not None:
                 match = readback([out["match"]])[0] * batch.compiled.question_mask
-                self._mine_hardset(batch, match)
+                mined.append(self._mine_hardset(batch, match))
                 matches.append(match)
             else:
                 matches.append(out["match"])
@@ -282,6 +379,11 @@ class VQATrainer:
             if op_i is not None:
                 error[op_i] += err
                 total[op_i] += n
+        if self.mesh is not None:
+            sums = self.mesh.host_sum(np.concatenate([error, total]))
+            error, total = sums[:ERROR_DIM].astype(np.float32), sums[ERROR_DIM:].astype(np.float32)
+        if self._hardset is not None:
+            self._write_hardset(self._gather(mined))
         self.last_test_counts = total.copy()
         with np.errstate(invalid="ignore", divide="ignore"):
             return np.where(total > 0, error / np.maximum(total, 1), 0.0)
@@ -305,18 +407,21 @@ class VQATrainer:
 
     # ---------------------------------------------------------------- predict
 
-    def predict(self, loader, params: OracleParams, out_file,
+    def predict(self, loader, params, out_file,
                 import_path_base: Optional[str] = None, is_submission: bool = False):
         """Predictions for every real question, written to ``out_file`` as
-        JSON and returned."""
+        JSON and returned. Under the mesh every rank returns all of them and
+        rank 0 alone writes (``out_file`` may be None on the others)."""
         if import_path_base is not None:
             params = self.load(import_path_base, params)
         batches, flags = [], []
         for batch, out in self._batches(loader, params):
             batches.append(batch)
             flags.append(out["answer_flags"])
-        predictions: List[dict] = []
+        per_batch: List[List[dict]] = []
         for batch, f in zip(batches, readback(flags)):
+            predictions: List[dict] = []
+            per_batch.append(predictions)
             answers = self.decode_answers(f > 0.5, batch)
             qtype = question_type_of(batch.spec.terminal_op)
             qm = batch.compiled.question_mask
@@ -337,32 +442,52 @@ class VQATrainer:
                     predictions.append({"questionId": qid,
                                         "prediction": ans[0] if ans else "",
                                         "type": "binary"})
-        json.dump(predictions, out_file)
+        predictions = self._gather(per_batch)
+        if self.writes_files:
+            json.dump(predictions, out_file)
         return predictions
+
+    def _gather(self, per_batch: List[List]) -> List:
+        """This rank's per-batch item lists -> every data rank's items in
+        one device's order (``interleave``)."""
+        per_rank = [per_batch] if self.mesh is None else self.mesh.gather_objects(per_batch)
+        return interleave(per_rank)
 
     # ---------------------------------------------------------------- hardset
 
-    def _mine_hardset(self, batch: LoadedBatch, match: np.ndarray):
+    def _mine_hardset(self, batch: LoadedBatch, match: np.ndarray) -> List[tuple]:
+        """(terminal op, question id, question, hard) of each real question
+        of ``batch``; none when the batch kept no original questions."""
         if batch.compiled.original is None:
-            return
-        os.makedirs(os.path.join(self._hardset_path, "hard"), exist_ok=True)
-        os.makedirs(os.path.join(self._hardset_path, "easy"), exist_ok=True)
+            return []
         op = batch.spec.terminal_op
-        hard_f = os.path.join(self._hardset_path, "hard", f"hard_{op}.json")
-        easy_f = os.path.join(self._hardset_path, "easy", f"easy_{op}.json")
-        with open(hard_f, "a") as hf, open(easy_f, "a") as ef:
-            for qi, q in enumerate(batch.compiled.original):
-                if batch.compiled.question_mask[qi] == 0:
-                    continue
-                qid = batch.compiled.question_ids[qi]
-                if match[qi] >= 1.0:
-                    ef.write(json.dumps(q) + "\n")
-                    self._easyset[qid] = q
-                else:
-                    hf.write(json.dumps(q) + "\n")
-                    self._hardset[qid] = q
+        return [(op, batch.compiled.question_ids[qi], q, bool(match[qi] < 1.0))
+                for qi, q in enumerate(batch.compiled.original)
+                if batch.compiled.question_mask[qi] != 0]
+
+    def _write_hardset(self, entries: List[tuple]) -> None:
+        """Record mined entries in the hard/easy sets and, on the rank that
+        writes files, append each to ``hard/hard_<op>.json`` or
+        ``easy/easy_<op>.json`` (both files exist for every op mined)."""
+        for _, qid, q, hard in entries:
+            (self._hardset if hard else self._easyset)[qid] = q
+        if not (entries and self.writes_files):
+            return
+        lines: Dict[str, List[str]] = {}
+        for op, _, q, hard in entries:
+            for kind in ("hard", "easy"):
+                lines.setdefault(os.path.join(kind, f"{kind}_{op}.json"), [])
+            kind = "hard" if hard else "easy"
+            lines[os.path.join(kind, f"{kind}_{op}.json")].append(json.dumps(q))
+        for kind in ("hard", "easy"):
+            os.makedirs(os.path.join(self._hardset_path, kind), exist_ok=True)
+        for name, rows in lines.items():
+            with open(os.path.join(self._hardset_path, name), "a") as f:
+                f.write("".join(r + "\n" for r in rows))
 
     def _dump_hardsets(self):
+        if not self.writes_files:
+            return
         with open(os.path.join(self._hardset_path, "hard.json"), "w") as f:
             json.dump(self._hardset, f)
         with open(os.path.join(self._hardset_path, "easy.json"), "w") as f:
@@ -370,14 +495,34 @@ class VQATrainer:
 
     # ------------------------------------------------------------ checkpoints
 
-    def _save(self, export_path_base: str, params: OracleParams, sync: bool = False) -> None:
+    def _save(self, export_path_base: str, params, sync: bool = False) -> None:
         ckpt.save(export_path_base, self.cfg.model_name, params, self.global_step,
                   backend=self.cfg.tpu.checkpoint_backend,
                   async_write=self.cfg.tpu.async_save and not sync)
 
     def load(self, import_path_base: str, params: OracleParams) -> OracleParams:
-        params, self.global_step = ckpt.load(import_path_base, self.cfg.model_name, params)
-        return params
+        """The checkpoint as a new tree shaped as ``params``, and its step
+        into ``global_step``. Under the mesh rank 0 alone reads the file,
+        once its own writes are on disk, and broadcasts it, so every rank
+        holds the same values (a missing file raises on every rank)."""
+        if self.mesh is None:
+            params, self.global_step = ckpt.load(import_path_base, self.cfg.model_name, params)
+            return params
+        step = None
+        if self.mesh.writes_files:
+            ckpt.wait_pending()
+            try:
+                params, step = ckpt.load(import_path_base, self.cfg.model_name, params)
+            except FileNotFoundError:
+                pass
+        else:
+            params = copy.deepcopy(params)
+        step = self.mesh.broadcast_object(step)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint {self.cfg.model_name} under "
+                                    f"{import_path_base}")
+        self.global_step = step
+        return broadcast_params(params)
 
     def _load_into(self, import_path_base: str, params: OracleParams) -> None:
         """``load``, copied into ``params`` in place (the optimizer holds

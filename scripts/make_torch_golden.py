@@ -1,6 +1,6 @@
 """Write the JAX reference answers that the PyTorch port meets on the GPU.
 
-Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes six npz files.
+Runs the JAX package (``dfol_vqa_tpu``) on the CPU and writes seven npz files.
 
 ``tests/data/torch_port_golden.npz`` (serving), from the tiny demo engine
 (``build_demo_engine(tiny=True, seed=0)``):
@@ -89,7 +89,17 @@ the tiny demo engine with the serving golden's weights (not stored again):
   ``attention`` (n_hops, O) in probability, ``log_probability`` and
   ``answers`` (JSON): JAX's trace entry.
 
-``chip_smoke.py`` runs the port on the card against the six files;
+``tests/data/torch_port_golden_bf16.npz`` (``compute_dtype="bfloat16"``), at
+production widths (``chip_smoke.bf16_golden_setup``: the sample widths, O=100,
+three batches of 16 questions on 2 images each, the shared route; the port's
+weights from ``torch.Generator().manual_seed(0)``, not stored):
+
+* ``datasets``: the question files (JSON); ``param_sha256/<key>``: each
+  weight's digest, so the card can check that it drew the same weights;
+* ``batch/<k>/objects_sha256`` (the scenes, not stored: their digest),
+  JAX's ``log_probability`` and ``answer_flags`` under ``jax.jit``.
+
+``chip_smoke.py`` runs the port on the card against the seven files;
 ``tests/test_torch_golden.py`` regenerates them and requires them to match
 the checked-in copies.
 
@@ -99,6 +109,7 @@ the checked-in copies.
         [--terminals-out tests/data/torch_port_golden_terminals.npz]
         [--calibrator-out tests/data/torch_port_golden_calibrator.npz]
         [--trace-out tests/data/torch_port_golden_trace.npz]
+        [--bf16-out tests/data/torch_port_golden_bf16.npz]
 """
 
 from __future__ import annotations
@@ -120,6 +131,7 @@ TRAIN_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_train
 TERMINALS_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_terminals.npz")
 CALIBRATOR_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
 TRACE_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_trace.npz")
+BF16_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_bf16.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -434,6 +446,38 @@ def build_calibrator_golden() -> Dict[str, np.ndarray]:
     return out
 
 
+def build_bf16_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from dfol_vqa_tpu.config import Config as JConfig
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.ontology import GQAOntology as JOntology
+    from dfol_vqa_tpu_torch.convert import flatten, params_to_numpy
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    ont = GQAOntology()
+    cfg, world, datasets, params = chip_smoke.bf16_golden_setup(ont)
+    interp = Interpreter(JConfig.from_yaml(chip_smoke.config_dict(cfg)), JOntology())
+    flat = flatten(params_to_numpy(params))
+    jparams = jax.tree.map(jnp.asarray, params_to_numpy(params))
+    out = {"datasets": np.array(json.dumps(datasets, sort_keys=True))}
+    out.update({f"param_sha256/{k}": np.array(chip_smoke.objects_digest(v))
+                for k, v in flat.items()})
+    for k, lb in enumerate(evalset.eval_loader(cfg, ont, world, datasets)):
+        step = jax.jit(lambda p, o, m, a, spec=lb.spec: interp.forward(p, o, m, a, spec, False,
+                                                                         None))
+        res = step(jparams, jnp.asarray(lb.objects), jnp.asarray(lb.obj_mask),
+                   {a: jnp.asarray(v) for a, v in lb.arrays.items()})
+        p = f"batch/{k}/"
+        out[p + "objects_sha256"] = np.array(chip_smoke.objects_digest(lb.objects))
+        out[p + "log_probability"] = np.asarray(res["log_probability"])
+        out[p + "answer_flags"] = np.asarray(res["answer_flags"])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN_PATH)
@@ -442,6 +486,7 @@ def main(argv=None) -> int:
     ap.add_argument("--terminals-out", default=TERMINALS_GOLDEN_PATH)
     ap.add_argument("--calibrator-out", default=CALIBRATOR_GOLDEN_PATH)
     ap.add_argument("--trace-out", default=TRACE_GOLDEN_PATH)
+    ap.add_argument("--bf16-out", default=BF16_GOLDEN_PATH)
     args = ap.parse_args(argv)
     for path, golden, unit, what in (
             (args.out, build_golden(), "/question", "requests"),
@@ -450,7 +495,8 @@ def main(argv=None) -> int:
             (args.terminals_out, build_terminals_golden(), "/objects", "terminal batches"),
             (args.calibrator_out, build_calibrator_golden(), "/eval/log_probability",
              "model batches"),
-            (args.trace_out, build_trace_golden(), "/hops", "traced requests")):
+            (args.trace_out, build_trace_golden(), "/hops", "traced requests"),
+            (args.bf16_out, build_bf16_golden(), "/log_probability", "bf16 batches")):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **golden)
         n = sum(1 for k in golden if k.endswith(unit))

@@ -15,8 +15,9 @@ boundaries; the port after every step):
 * ``parameter_count`` equal to JAX's for ``sample_config``, ``cur6`` and
   F = 4;
 * ``run(visualize=True)``: the traces file equals JAX's;
-* what the port cannot run yet raises: a mesh and ``DFOL_DISTRIBUTED``;
-  the CLI without ``-c`` raises where no card is.
+* what the port cannot run raises: a mesh shape against a world of one
+  process, ``DFOL_DISTRIBUTED`` without a rendezvous; the CLI without
+  ``-c`` raises where no card is.
 """
 
 import dataclasses
@@ -217,20 +218,28 @@ def check_visualize_matches_jax(data, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case", ["visualize", "mesh", "distributed"])
 def test_unported_modes_raise(data, tmp_path, monkeypatch, case):
-    """A mesh and ``DFOL_DISTRIBUTED`` raise, naming ROADMAP queue 6, before
-    anything is written. ``visualize`` is ported now: its case holds the
-    run against JAX's (``check_visualize_matches_jax``)."""
+    """The mesh is ported (``tests/test_torch_mesh.py``); what it cannot
+    run raises before anything is written: ``tpu.mesh_shape=[2]`` in a
+    world of one process (no launch) raises for the world size, and
+    ``DFOL_DISTRIBUTED`` without a rendezvous raises for that. ``visualize``
+    is ported too: its case holds the run against JAX's
+    (``check_visualize_matches_jax``)."""
     if case == "visualize":
         check_visualize_matches_jax(data, tmp_path, monkeypatch)
         return
     over = {"tpu": {"max_object_num": 6, "mesh_shape": [2], "mesh_axes": ["data"]}} \
         if case == "mesh" else {}
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     if case == "distributed":
         monkeypatch.setenv("DFOL_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="queue 6"):
+    error, match = ((ValueError, "this launch has 1 process") if case == "mesh"
+                    else (RuntimeError, "no rendezvous"))
+    with pytest.raises(error, match=match):
         texperiment.GQAObjectBoxExperiment().run(
             run_dir(data, tmp_path, "port", **over), is_training=False, device="cpu")
     assert not (tmp_path / "port" / "tiny" / "t0" / "last").exists()
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_without_cpu_flag_needs_a_card(data, tmp_path):

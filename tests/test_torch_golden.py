@@ -1,4 +1,4 @@
-"""The JAX goldens that the port meets on the GPU (``chip_smoke.py`` phases 5, 7-9).
+"""The JAX goldens that the port meets on the GPU (``chip_smoke.py`` phases 5, 7-9, 11, 12).
 
 ``tests/data/torch_port_golden.npz`` holds the tiny demo engine's weights,
 a dozen compiled requests and the JAX package's log-probabilities and
@@ -18,7 +18,10 @@ terminal's batch and the F = 4 model (operator modules' final layers at
 random) on six, eval and training-mode log-probabilities, answer flags and
 matches, and one training step of each; ``tests/data/torch_port_golden_trace.npz``
 holds ``ServingEngine.trace`` of a dozen requests (hops, attentions,
-log-probabilities, answers). All six are regenerated here and
+log-probabilities, answers); ``tests/data/torch_port_golden_bf16.npz``
+holds ``compute_dtype="bfloat16"`` at production widths (three shared-route
+batches; the weights' and scenes' digests, JAX's log-probabilities and
+answer flags). All seven are regenerated here and
 must match the checked-in copies, so they cannot go stale; and the port, on
 the CPU, must meet them with the checks ``chip_smoke.py`` runs on the card
 (atol 1e-5 here, float32 on the same host type; 1e-4 on the card).
@@ -209,3 +212,14 @@ def test_calibrator_golden_is_current():
 def test_port_meets_calibrator_golden_on_cpu():
     assert chip_smoke.check_calibrator_golden("cpu", atol=1e-5, grad_rtol=1e-5) == {
         "calibrator": 15, "f4": 6}
+
+
+def test_bf16_golden_is_current():
+    """``compute_dtype="bfloat16"`` at production widths (phase 12)."""
+    fresh = load_script().build_bf16_golden()
+    assert sum(k.endswith("/log_probability") for k in fresh) == 3
+    assert_current(fresh, chip_smoke.BF16_GOLDEN)
+
+
+def test_port_meets_bf16_golden_on_cpu():
+    assert chip_smoke.check_bf16_golden("cpu", atol=1e-5) == (3, 0)

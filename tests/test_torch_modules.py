@@ -264,11 +264,11 @@ def test_init_oracle_params_layout(ontology, jax_params):
 
 
 def test_unsupported_configs_raise(ontology):
-    """A compute dtype other than float32 raises, as does the trainable
-    interpreter (F > 1) without an operator module (``ValueError``, as the
-    JAX init raises)."""
+    """A compute dtype other than float32 and bfloat16 raises, as does the
+    trainable interpreter (F > 1) without an operator module (``ValueError``,
+    as the JAX init raises). bfloat16 is ported (``tests/test_torch_bf16.py``)."""
     cfg = tiny_cfg()
-    cfg.tpu.compute_dtype = "bfloat16"
+    cfg.tpu.compute_dtype = "float16"
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         oracle.init_oracle_params(cfg, ontology, torch.Generator())
     with pytest.raises(ValueError, match="operator_layers_config"):
