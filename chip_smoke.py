@@ -58,11 +58,12 @@ Phases, each reported on its own line(s):
    sum taken in another order decide), where the card's answer must lie
    inside the tie and the error may move by one question per such answer —
    and every relating batch must have launched the pair-MLP and
-   shared-contract kernels once (the shared route); then the default bf16
-   stream, whose agreement with the float32 answers is reported, not
-   gated. Questions per
-   second, ms per batch and the device's busy/idle share of one profiled
-   pass are printed;
+   shared-contract kernels once (the shared route), every padded batch of
+   a chunk too (``tpu.eval_chunk=8`` with ``pad_chunks``: the exist run of
+   4 batches runs 8 forwards, one CUDA graph; ``dispatched``); then the
+   default bf16 stream, whose agreement with the float32 answers is
+   reported, not gated. Questions per second, ms per batch and the
+   device's busy/idle share of one profiled pass are printed;
 7. training at production dims (``data/trainset.py``: batch 80, O=100,
    random weights from seed 0, dropout 0): the shuffled set's relating
    batches take the per-question route (U * 2 > B), the deduplicated set's
@@ -127,7 +128,8 @@ Phases, each reported on its own line(s):
    under phase 7's gates, the ``-l best`` hand-over loaded bitwise (stage 6
    partially, its calibrator fresh), frozen leaves unchanged and every
    calibrator leaf moved in stages 6-7, finite losses and each stage's
-   files, every relating batch's kernels; then the CLI
+   files, every relating batch's kernels (padded chunk steps and forwards
+   included: the stages train at ``train_chunk=8``); then the CLI
    (``gqa_experiment -t -l best -p``) over stage 7's test set on the card
    against ``-c`` on the CPU, up to the near-tie rule;
 11. the serving deployment (``phase_daemon``) at the demo engine's
@@ -159,10 +161,33 @@ Phases, each reported on its own line(s):
    4's 64 requests (kernel 1 on bf16 h_s / h_o products), one eval batch
    and one training step per route against the CPU in the card's
    formulation (``KernelRouteOnCpu``), and the seventh JAX golden
-   (``tests/data/torch_port_golden_bf16.npz``, production widths).
+   (``tests/data/torch_port_golden_bf16.npz``, production widths);
+13. chunked dispatch as one CUDA graph per chunk (``phase_chunk``) at
+   ``Config()``'s widths, O=100, batch 80, seed 0: (a) 11 batches of one
+   shuffled ``exist`` file (the per-question route) at ``train_chunk=8``
+   with ``pad_chunks`` (a chunk of 8, a tail of 3 padded to 8), three
+   passes (the first chunk eager, the second captured and replayed, the
+   rest replayed), each chunk held against the card's eager per-step path
+   from the same state (every leaf's change within ``TRAIN_GRAD_RTOL`` of
+   its largest; bitwise equality reported), the tail's graph replayed with
+   every step padded moving no parameter or Adam tensor, kernels 1 and 2
+   counted 8 a chunk, replays included; (b) the same on the deduplicated
+   set (the shared route, kernels 3 and 4); each timed against the eager
+   one-step path (ms per step, host enqueue ms per step, idle share; loader
+   outside, in turns); (c) the eighth JAX golden
+   (``tests/data/torch_port_golden_chunk.npz``: ``checkpointing_frequency=3``,
+   validation at the same global steps as JAX's, the same error vectors,
+   the parameters within ``params_gap``); (d) ``test_epoch`` / ``predict``
+   at ``eval_chunk=8`` against ``eval_chunk=1`` on phase 6's 640 questions
+   (answers, matches, errors equal; log-probabilities within
+   ``GOLDEN_ATOL``; questions/s, host enqueue and idle share of both);
+   (e) a chunk of two shared-route batches at ``dropout=0.1`` (plain
+   tails), whose two replays from one state draw different masks. Graphs,
+   capture seconds and the bytes their memory pool holds are printed.
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4 (both transfers), 6, 7, 8, 9, 10, 11 and 12, each counted from 0),
+of phases 4 (both transfers), 6, 7, 8, 9, 10, 11, 12 and 13, each counted
+from 0; a CUDA graph's replay counts the kernels it holds),
 error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
@@ -194,6 +219,7 @@ TERMINALS_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_termin
 CALIBRATOR_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
 TRACE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_trace.npz")
 BF16_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_bf16.npz")
+CHUNK_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_chunk.npz")
 SUPERVISION_GOLDEN = {"n": 2, "seed": 3}  # the terminals golden's supervision batches
 KERNEL_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4
@@ -1564,6 +1590,8 @@ def phase_eval(device, stamp: str) -> dict:
     shapes = [(lb.spec.terminal_op, lb.objects.shape[0], len(lb.arrays["img_index"]),
                spec_needs_relations(lb.spec)) for lb in loader]
     relating = sum(r for *_, r in shapes)
+    # relating forwards run: eval_chunk groups, padded ones included
+    runs = dispatched(list(loader), cfg.tpu.eval_chunk, cfg.tpu.pad_chunks)["shared"]
     n_q = sum(len(d) for d in datasets)
     for term, U, B, rel in shapes:
         if rel and U * 2 > B:
@@ -1585,18 +1613,20 @@ def phase_eval(device, stamp: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = {"pair_mlp_fwd": pm.LAUNCHES, "shared_contract_fwd": sc.LAUNCHES,
                 "relation_oracle_fwd": ro.LAUNCHES}
-    if launches["pair_mlp_fwd"] != relating or launches["shared_contract_fwd"] != relating:
-        raise AssertionError(f"launches {launches} != {relating} relating batches: a relating "
-                             "batch missed the shared-route kernels")
+    if launches["pair_mlp_fwd"] != runs or launches["shared_contract_fwd"] != runs:
+        raise AssertionError(f"launches {launches} != {runs} relating forwards ({relating} "
+                             "relating batches): a relating batch missed the shared-route "
+                             "kernels")
     log(f"[6] test_epoch on the card (f32 h2 stream): {n_q} questions in {seconds!r} s = "
         f"{n_q / seconds!r} questions/s, {1000 * seconds / len(shapes)!r} ms/batch; launches "
-        f"{launches} for {relating} relating batches ({stamp})")
+        f"{launches} for {relating} relating batches, {runs} relating forwards at "
+        f"eval_chunk={cfg.tpu.eval_chunk} (padded ones included) ({stamp})")
 
     pm.LAUNCHES = sc.LAUNCHES = 0
     preds = gpu.predict(loader, params, io.StringIO())
-    if pm.LAUNCHES != relating or sc.LAUNCHES != relating:
+    if pm.LAUNCHES != runs or sc.LAUNCHES != runs:
         raise AssertionError(f"predict launched pair_mlp {pm.LAUNCHES}, shared_contract "
-                             f"{sc.LAUNCHES} times for {relating} relating batches")
+                             f"{sc.LAUNCHES} times for {runs} relating forwards")
     cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
     t0 = time.perf_counter()
     error_cpu = cpu.test_epoch(loader, params_cpu)
@@ -1643,12 +1673,15 @@ class RouteCounter:
     """A loader that counts its passes, its batches and the relating batches
     it yields by relation route (``by_route``), and raises when a relating
     batch would take another route than ``route`` ("per_question": U * 2 >
-    B, "shared": U * 2 <= B; "either" takes both)."""
+    B, "shared": U * 2 <= B; "either" takes both). ``dispatched`` counts,
+    by route, the relating batches that a trainer running them in groups of
+    ``chunk`` (``pad``: ``tpu.pad_chunks``) computes (``dispatched``)."""
 
-    def __init__(self, loader, route: str):
-        self.loader, self.route = loader, route
+    def __init__(self, loader, route: str, chunk: int = 1, pad: bool = True):
+        self.loader, self.route, self.chunk, self.pad = loader, route, chunk, pad
         self.passes = self.relating = self.batches = 0
         self.by_route = {"per_question": 0, "shared": 0}
+        self.dispatched = {"per_question": 0, "shared": 0}
 
     def __len__(self):
         return len(self.loader)
@@ -1656,18 +1689,24 @@ class RouteCounter:
     def __iter__(self):
         from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
 
+        from dfol_vqa_tpu_torch.data.transfer import group_batches
+
         self.passes += 1
-        for lb in self.loader:
-            self.batches += 1
-            if spec_needs_relations(lb.spec):
-                U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
-                route = "shared" if U * 2 <= B else "per_question"
-                if self.route not in ("either", route):
-                    raise AssertionError(f"a relating {lb.spec.terminal_op} batch with U={U}, "
-                                         f"B={B} would not take the {self.route} route")
-                self.by_route[route] += 1
-                self.relating += 1
-            yield lb
+        for group in group_batches(self.loader, self.chunk):
+            for lb in group:
+                self.batches += 1
+                if spec_needs_relations(lb.spec):
+                    U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+                    route = "shared" if U * 2 <= B else "per_question"
+                    if self.route not in ("either", route):
+                        raise AssertionError(f"a relating {lb.spec.terminal_op} batch with "
+                                             f"U={U}, B={B} would not take the {self.route} "
+                                             "route")
+                    self.by_route[route] += 1
+                    self.relating += 1
+            for route, n in dispatched(group, self.chunk, self.pad).items():
+                self.dispatched[route] += n
+            yield from group
 
 
 def profile_steps(trainer, params, opt, batches) -> tuple:
@@ -1687,12 +1726,10 @@ def profile_steps(trainer, params, opt, batches) -> tuple:
 
 def launch_counts() -> list:
     """The kernels' launch counts: (relation_oracle, its backward, pair_mlp,
-    shared_contract)."""
-    from dfol_vqa_tpu_torch.ops import pair_mlp as pm
-    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
-    from dfol_vqa_tpu_torch.ops import shared_contract as sc
+    shared_contract), a CUDA graph's replays included."""
+    from dfol_vqa_tpu_torch.train import graphs
 
-    return [ro.LAUNCHES, ro.BWD_LAUNCHES, pm.LAUNCHES, sc.LAUNCHES]
+    return graphs.launch_counts()
 
 
 def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_launches,
@@ -1725,8 +1762,14 @@ def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_lau
             for mine, card_p in zip(p_cpu.parameters(), p_gpu.parameters()):
                 mine.copy_(card_p.cpu())
         if o_gpu.adam is not None:
-            # a copy: load_state_dict keeps Adam's step counters as given
-            o_cpu.adam.load_state_dict(copy.deepcopy(o_gpu.adam.state_dict()))
+            # a copy: load_state_dict keeps Adam's step counters as given; the
+            # card's Adam is capturable (its counters on the card), the CPU's not
+            state = copy.deepcopy(o_gpu.adam.state_dict())
+            for group in state["param_groups"]:
+                group["capturable"] = False
+            for leaf in state["state"].values():
+                leaf["step"] = leaf["step"].cpu()
+            o_cpu.adam.load_state_dict(state)
         start = flat_params(p_cpu)
         moments, t0 = adam_moments(o_cpu, p_cpu)
         l_gpu = gpu.compute_grads(p_gpu, lb).item()
@@ -1834,9 +1877,10 @@ def phase_train(device, stamp: str) -> dict:
     cfg.checkpointing_frequency = 4  # one mid-epoch validation in each 7-step epoch
     trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
     params = copy.deepcopy(params_cpu).to(device)
-    train_ld = RouteCounter(trainset.train_loader(cfg, ont, world, shuffled_sets), "per_question")
+    train_ld = RouteCounter(trainset.train_loader(cfg, ont, world, shuffled_sets), "per_question",
+                            cfg.tpu.train_chunk, cfg.tpu.pad_chunks)
     val_ld = RouteCounter(trainset.train_loader(cfg, ont, world, dedup_sets, shuffle=False),
-                          "shared")
+                          "shared", cfg.tpu.eval_chunk, cfg.tpu.pad_chunks)
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         ro.LAUNCHES = ro.BWD_LAUNCHES = pm.LAUNCHES = sc.LAUNCHES = 0
@@ -1849,13 +1893,15 @@ def phase_train(device, stamp: str) -> dict:
         launches = {"relation_oracle_fwd": ro.LAUNCHES, "relation_oracle_bwd": ro.BWD_LAUNCHES,
                     "pair_mlp_fwd": pm.LAUNCHES, "shared_contract_fwd": sc.LAUNCHES}
         passes = cfg.epoch_num * (1 + len(train_ld) // cfg.checkpointing_frequency)
-        want = {"relation_oracle_fwd": train_ld.relating, "relation_oracle_bwd": train_ld.relating,
-                "pair_mlp_fwd": val_ld.relating, "shared_contract_fwd": val_ld.relating}
+        pq, shared = train_ld.dispatched["per_question"], val_ld.dispatched["shared"]
+        want = {"relation_oracle_fwd": pq, "relation_oracle_bwd": pq,
+                "pair_mlp_fwd": shared, "shared_contract_fwd": shared}
         if launches != want or val_ld.passes != passes or train_ld.passes != cfg.epoch_num:
             raise AssertionError(
                 f"train(): launches {launches}, not {want} ({train_ld.relating} per-question "
                 f"relating steps in {train_ld.passes} epochs, {val_ld.relating} shared-route "
-                f"relating validation batches in {val_ld.passes} passes, {passes} expected)")
+                f"relating validation batches in {val_ld.passes} passes, {passes} expected; "
+                f"{shared} relating validation forwards at eval_chunk={cfg.tpu.eval_chunk})")
         relating = {"train": train_ld.relating, "validation": val_ld.relating}
         files = sorted(os.path.relpath(os.path.join(d, f), tmp)
                        for d, _, fs in os.walk(tmp) for f in fs)
@@ -1877,7 +1923,8 @@ def phase_train(device, stamp: str) -> dict:
         f"steps/s, {q / wall!r} questions/s, {1000 * wall / steps!r} ms/step, validation "
         f"included ({stamp}); launches {launches} for relating batches {relating}: kernels 1 "
         f"and 2 once per per-question relating step, kernels 3 and 4 once per shared-route "
-        f"relating validation batch; epoch "
+        f"relating validation forward ({val_ld.dispatched['shared']} at eval_chunk="
+        f"{cfg.tpu.eval_chunk}, padded ones included); epoch "
         f"losses {losses[:, 0].tolist()} (trend reported, not gated); over_all error by epoch "
         f"{errors[0, :, 0].tolist()}; files {files}")
     log(f"[7] inside train(): one validation pass ({len(val_ld)} batches) {val_s!r} s, one "
@@ -2547,7 +2594,9 @@ def phase_curriculum(device, stamp: str) -> dict:
             if loader is None:
                 return None
             route = "either" if shuffle and batch_size <= 80 else "shared"
-            counter = RouteCounter(loader, route)
+            counter = RouteCounter(loader, route,
+                                   cfg.tpu.train_chunk if shuffle else cfg.tpu.eval_chunk,
+                                   cfg.tpu.pad_chunks)
             self.counters.append(("train" if shuffle else "eval", counter))
             return counter
 
@@ -2717,10 +2766,12 @@ def check_stage(cfg, st, root, res, loaded, launches, counters, row) -> None:
     if len(train) != 1:
         raise AssertionError(f"stage {i}: {len(train)} training loaders")
     (train,) = train
-    pq = train.by_route["per_question"]
-    shared = sum(c.relating for c in evals) + train.by_route["shared"]
+    # relating batches run, padded chunk steps and forwards included
+    pq = train.dispatched["per_question"]
+    shared = sum(c.dispatched["shared"] for c in evals) + train.dispatched["shared"]
     want = [pq, pq, shared, shared]
-    if launches != want or (st["split"] == "bal") != (pq > 0) or shared <= 0:
+    if (launches != want or (st["split"] == "bal") != (train.by_route["per_question"] > 0)
+            or shared <= 0):
         raise AssertionError(f"stage {i}: launches (fwd, bwd, pair_mlp, contract) {launches}, "
                              f"want {want} (training steps relating by route "
                              f"{train.by_route}; {shared} shared-route relating batches)")
@@ -3142,6 +3193,55 @@ def check_mesh_step(cfg, rec: dict, want_loss: float, want_grads: dict, rtol: fl
     return {"grad_err": worst, "bound_share": used}
 
 
+def train_job_config(job: dict, spec: dict):
+    """The ``Config`` of a mesh job that trains (``job["train"]`` =
+    ``spec``): one epoch at ``train_chunk=spec["chunk"]`` with a mid-epoch
+    validation every ``spec["every"]`` steps."""
+    from dfol_vqa_tpu_torch.config import Config
+
+    cfg = Config.from_yaml(job["config"])
+    cfg.epoch_num = 1
+    cfg.tpu.train_chunk = spec["chunk"]
+    cfg.checkpointing_frequency = spec["every"]
+    return cfg
+
+
+def mesh_train(job: dict, mesh, features, datasets) -> dict:
+    """``VQATrainer.train`` under ``mesh`` (``train_job_config``) over this
+    rank's shard of ``datasets``, validating on the job's eval files; rank 0
+    writes the trained leaves to ``trained.npz``. Returns {"validation_steps":
+    the global steps at which ``test_epoch`` ran}."""
+    from dfol_vqa_tpu_torch.convert import flatten, params_from_numpy, params_to_numpy
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.parallel.mesh import batch_sharding
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    cfg = train_job_config(job, job["train"])
+    ont = GQAOntology()
+    shards, index, rows = batch_sharding(mesh, job["batch"])
+    loader = mesh_loader(cfg, ont, features, datasets, rows, shards, index)
+    with open(job["eval"]["datasets"]) as f:
+        eval_sets = json.load(f)
+    shards, index, rows = batch_sharding(mesh, job["eval"]["batch"])
+    val = mesh_loader(cfg, ont, features, eval_sets, rows, shards, index)
+    trainer = VQATrainer(cfg, Interpreter(cfg, ont), mesh=mesh)
+    steps, real = [], trainer.test_epoch
+
+    def test_epoch(loader, params):
+        steps.append(trainer.global_step)
+        return real(loader, params)
+
+    trainer.test_epoch = test_epoch
+    with np.load(job["weights"]) as w:
+        params = params_from_numpy({k: w[k] for k in w.files}).to(mesh.device)
+    trainer.train(loader, val, params)
+    if mesh.rank == 0:
+        np.savez(os.path.join(job["out"], "trained.npz"),
+                 **{k: np.asarray(v) for k, v in flatten(params_to_numpy(params)).items()})
+    return {"validation_steps": steps}
+
+
 def mesh_worker(job_path: str) -> None:
     """One rank of a mesh job (``run_mesh_job``): join the mesh, train
     ``steps`` lockstep steps on this rank's shard through
@@ -3178,6 +3278,13 @@ def mesh_worker(job_path: str) -> None:
     features = mesh_features(job["features"])
     with open(job["datasets"]) as f:
         datasets = json.load(f)
+    if job.get("train"):  # the trainer's own loop under the mesh, chunked
+        result = dict(mesh_train(job, mesh, features, datasets), rank=mesh.rank)
+        with open(os.path.join(job["out"], f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(result, f)
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     shards, index, rows = batch_sharding(mesh, job["batch"])
     loader = mesh_loader(cfg, ont, features, datasets, rows, shards, index)
     interp = Interpreter(cfg, ont)
@@ -3720,6 +3827,443 @@ def phase_bf16(device, stamp: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 13: chunked dispatch
+
+CHUNK = 8  # phase 13's tpu.train_chunk / eval_chunk (Config's default)
+CHUNK_BATCHES = 11  # (a), (b): a chunk of 8, then a tail of 3 padded to 8
+CHUNK_EPOCHS = 3  # passes over them: warm-up and capture, then replays
+CHUNK_DROPOUT = 0.1  # (e): sample_config.yaml's dropout
+
+
+def record_validation(trainer) -> list:
+    """Wrap ``trainer.test_epoch`` to record (global step, error vector) at
+    each call; returns the list it fills."""
+    seen, real = [], trainer.test_epoch
+
+    def test_epoch(loader, params):
+        err = real(loader, params)
+        seen.append((trainer.global_step, np.asarray(err, np.float32)))
+        return err
+
+    trainer.test_epoch = test_epoch
+    return seen
+
+
+def params_gap(got: dict, want: dict, lr: float, steps: int) -> float:
+    """The train loop tests' rule for two runs of ``steps`` Adam steps: every
+    element within 2 lr a step (a sign flip of a near-zero gradient), and
+    99% of each leaf within 1e-3 lr a step; raises otherwise. Returns the
+    largest gap in units of lr."""
+    if set(got) != set(want):
+        raise AssertionError(f"leaves differ: {sorted(set(got) ^ set(want))[:4]}")
+    worst = 0.0
+    for k, v in want.items():
+        diff = np.abs(got[k].astype(np.float64) - v)
+        if diff.max() > 2 * lr * steps or np.mean(diff <= 1e-3 * lr * steps) <= 0.99:
+            raise AssertionError(f"{k}: {diff.max()!r} from the reference after {steps} steps "
+                                 f"(lr {lr})")
+        worst = max(worst, float(diff.max()) / lr)
+    return worst
+
+
+def chunk_golden_setup(ont):
+    """(cfg, world, files, train loader, validation loader) of the chunk
+    golden: tiny widths, dropout 0, lr 1e-3, weight decay 0 (a leaf without
+    a gradient keeps its value, so the stored change compresses),
+    ``train_chunk=eval_chunk=8``
+    with ``pad_chunks``, ``checkpointing_frequency=3``, one epoch of 11
+    shuffled ``exist`` batches of 16, the tiny mix on the shared route for
+    validation. Numpy only, so the card rebuilds the same batches."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+
+    cfg = trainset.demo_train_config(tiny=True)
+    cfg.epoch_num = 1
+    cfg.checkpointing_frequency = 3
+    cfg.learning_rate = 1e-3
+    cfg.weight_decay = 0.0
+    cfg.tpu.train_chunk = cfg.tpu.eval_chunk = CHUNK
+    cfg.tpu.pad_chunks = True
+    world = evalset.demo_world(ont, tiny=True)
+    files = {"train": trainset.train_datasets(
+                 world, (("exist", 2, CHUNK_BATCHES * trainset.TINY_BATCH),), seed=11),
+             "validation": evalset.eval_datasets(world, trainset.TINY_MIX, trainset.TINY_BATCH,
+                                                 evalset.TINY_IMAGES_PER_BATCH, seed=4)}
+    train_ld = trainset.train_loader(cfg, ont, world, files["train"], seed=1)
+    val_ld = trainset.train_loader(cfg, ont, world, files["validation"], shuffle=False)
+    return cfg, world, files, train_ld, val_ld
+
+
+def check_chunk_golden(device) -> dict:
+    """``VQATrainer.train`` at the chunk golden's schedule on ``device``
+    (``chunk_golden_setup``) against JAX's: the global steps of validation
+    equal, each validation's error vector equal, the epoch loss within
+    1e-4 relative, the trained parameters within ``params_gap``'s rule.
+    Returns {"steps", "gap_lr", "graphs"}."""
+    from dfol_vqa_tpu_torch.convert import flatten, params_from_numpy, params_to_numpy
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    golden = np.load(CHUNK_GOLDEN)
+    ont = GQAOntology()
+    cfg, _, files, train_ld, val_ld = chunk_golden_setup(ont)
+    for name, f in files.items():
+        if json.dumps(f, sort_keys=True) != str(golden[f"datasets/{name}"]):
+            raise AssertionError(f"the chunk golden's {name} files differ from the setup's")
+    start = {k[len("params/"):]: golden[k] for k in golden.files if k.startswith("params/")}
+    params = params_from_numpy(start).to(device)
+    trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    seen = record_validation(trainer)
+    _, _, losses = trainer.train(train_ld, val_ld, params)
+    steps = [s for s, _ in seen]
+    if steps != golden["validation_steps"].tolist():
+        raise AssertionError(f"validation at steps {steps}, JAX's at "
+                             f"{golden['validation_steps'].tolist()}")
+    errors = np.stack([e for _, e in seen])
+    if not np.array_equal(errors, golden["validation_errors"]):
+        raise AssertionError(f"validation errors {errors[:, 0]} != JAX's "
+                             f"{golden['validation_errors'][:, 0]}")
+    if not np.allclose(losses, golden["losses"], rtol=1e-4, atol=0):
+        raise AssertionError(f"epoch loss {losses} != JAX's {golden['losses']}")
+    want = {k: v + golden["update/" + k] for k, v in start.items()}
+    gap = params_gap(flatten(params_to_numpy(params)), want, cfg.learning_rate, CHUNK_BATCHES)
+    return {"steps": steps, "gap_lr": gap, "graphs": trainer.train_graph_stats}
+
+
+def copy_train_state(dst_params, dst_opt, src_params, src_opt) -> None:
+    """``src``'s parameters and Adam state into ``dst``'s tensors, in place."""
+    with torch.no_grad():
+        for a, b in zip(dst_opt._state_tensors(), src_opt._state_tensors()):
+            a.copy_(b)
+        for a, b in zip(dst_params.parameters(), src_params.parameters()):
+            a.copy_(b)
+
+
+def train_state(params, opt) -> list:
+    return [t.detach().clone() for t in list(params.parameters()) + opt._state_tensors()]
+
+
+def update_errors(got: list, want: list, start: list) -> tuple:
+    """(worst |got - want| over each leaf's largest |want - start|, leaves
+    bitwise equal): the update gate of ``TRAIN_GRAD_RTOL``."""
+    worst, same = 0.0, 0
+    for g, w, s in zip(got, want, start):
+        err = float((g.double() - w.double()).abs().max())
+        scale = float((w.double() - s.double()).abs().max())
+        same += bool(torch.equal(g, w))
+        if err > TRAIN_GRAD_RTOL * scale and err > 0:
+            raise AssertionError(f"a leaf of shape {tuple(g.shape)} after a chunk is {err!r} "
+                                 f"from the eager path's, over {TRAIN_GRAD_RTOL} x its largest "
+                                 f"change {scale!r}")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+    return worst, same
+
+
+def timed_loop(run) -> tuple:
+    """(host ms until ``run()`` returns, ms until the card is done)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    enqueue = 1000 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return enqueue, 1000 * (time.perf_counter() - t0)
+
+
+def profiled_idle(run) -> str:
+    """``run()`` under ``torch.profiler``: the device's idle share, or
+    "not measured" when the profiler saw no device event."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = 1000 * (time.perf_counter() - t0)
+    busy, _ = device_time(prof)
+    return ("not measured (the profiler saw no device event)" if busy is None else
+            repr(1 - busy / wall))
+
+
+def in_turns(runs: dict, rounds: int = 2) -> dict:
+    """{name: [(enqueue ms, wall ms), ...]} of each zero-argument run, in
+    turns (a, b, b, a, ...), after one untimed run of each."""
+    for run in runs.values():
+        run()
+    out = {name: [] for name in runs}
+    order = (list(runs) + list(runs)[::-1]) * rounds
+    for name in order:
+        out[name].append(timed_loop(runs[name]))
+    return out
+
+
+def chunk_train_route(route: str, cfg, ont, world, params_cpu, device, stamp: str) -> dict:
+    """Phase 13 (a) / (b) on one relation route: returns the main run's
+    launches (the graphed side's chunks, replays included)."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.data.transfer import chunk_prefetch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
+    from dfol_vqa_tpu_torch.train.graphs import GraphCache
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    n_q = CHUNK_BATCHES * trainset.PRODUCTION_BATCH
+    if route == "per_question":
+        sets = trainset.train_datasets(world, (("exist", 2, n_q),), seed=13)
+        loader = trainset.train_loader(cfg, ont, world, sets, seed=13)
+    else:
+        sets = evalset.eval_datasets(world, (("exist", 2, n_q),), trainset.PRODUCTION_BATCH,
+                                     evalset.PRODUCTION_IMAGES_PER_BATCH, seed=13)
+        loader = trainset.train_loader(cfg, ont, world, sets, shuffle=False)
+    batches = list(loader)
+    for lb in batches:
+        U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+        if not spec_needs_relations(lb.spec) or (U * 2 <= B) != (route == "shared"):
+            raise AssertionError(f"a {lb.spec.terminal_op} batch with U={U}, B={B} is off "
+                                 f"the {route} route")
+    groups = list(chunk_prefetch(batches, CHUNK, device))
+    if [len(g[0]) for g in groups] != [CHUNK, CHUNK_BATCHES - CHUNK]:
+        raise AssertionError(f"{route}: groups {[len(g[0]) for g in groups]}")
+    graphed = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    eager = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    eager.graphs = GraphCache(device, capture=False)
+    params, p_eager = copy.deepcopy(params_cpu).to(device), copy.deepcopy(params_cpu).to(device)
+    opt, o_eager = Optimizer(cfg, params), Optimizer(cfg, p_eager)
+    opt.static_grads()
+    o_eager.static_grads()
+
+    def eager_steps(group, objects, obj_mask, arrays):
+        for i, lb in enumerate(group):
+            eager._grads(p_eager, objects[i], obj_mask[i], {k: v[i] for k, v in arrays.items()},
+                         lb.spec)
+            o_eager.step()
+
+    # the main run: CHUNK_EPOCHS passes of chunks through the graph, each
+    # chunk held against the eager per-step path from the same state
+    torch.cuda.synchronize()
+    worst, same, leaves, main = 0.0, 0, 0, [0, 0, 0, 0]
+    for epoch in range(CHUNK_EPOCHS):
+        for group, objects, obj_mask, arrays in groups:
+            copy_train_state(p_eager, o_eager, params, opt)
+            start = train_state(p_eager, o_eager)
+            c0 = launch_counts()
+            graphed._train_chunk(params, opt, group, objects, obj_mask, arrays, None)
+            main = [m + b - a for m, a, b in zip(main, c0, launch_counts())]
+            eager_steps(group, objects, obj_mask, arrays)
+            w, s = update_errors(train_state(params, opt), train_state(p_eager, o_eager), start)
+            worst, same, leaves = max(worst, w), same + s, leaves + len(start)
+    chunks = CHUNK_EPOCHS * len(groups)
+    want = ([CHUNK * chunks] * 2 + [0, 0] if route == "per_question"
+            else [0, 0] + [CHUNK * chunks] * 2)
+    if main != want:
+        raise AssertionError(f"{route}: {chunks} chunks launched (fwd, bwd, pair_mlp, "
+                             f"contract) {main}, not {want}")
+    stats = graphed.graphs.stats()
+    if stats["graphs"] != 1 or stats["replays"] != chunks - 1:
+        raise AssertionError(f"{route}: graphs {stats}")
+    # the padded steps: the tail's graph replayed with every step padded
+    group, objects, obj_mask, arrays = groups[-1]
+    before = train_state(params, opt)
+    graphed._train_chunk(params, opt, group, objects, obj_mask, arrays, None, n_valid=0)
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, train_state(params, opt)))
+    if moved:
+        raise AssertionError(f"{route}: {moved} leaves moved in a chunk of padded steps")
+    log(f"[13] {route} route, {CHUNK_BATCHES} batches of {trainset.PRODUCTION_BATCH} at "
+        f"train_chunk={CHUNK} with pad_chunks (groups {CHUNK}, {CHUNK_BATCHES - CHUNK} padded "
+        f"to {CHUNK}), {CHUNK_EPOCHS} passes: {chunks} chunks (1 eager, 1 captured, "
+        f"{chunks - 2} replayed), each against the card's eager per-step path from the same "
+        f"state: worst leaf update error {worst!r} of its largest change (gate "
+        f"{TRAIN_GRAD_RTOL}), {same} of {leaves} leaf checks bitwise equal; a replay with "
+        f"every step padded moved 0 of {len(before)} parameters and Adam tensors; launches "
+        f"(fwd, bwd, pair_mlp, contract) {main}, {CHUNK} a chunk, replays counted; "
+        f"graphs {stats['graphs']}, capture {stats['capture_seconds']} s, pool "
+        f"{stats['pool_bytes']} bytes ({stamp})")
+
+    # time: the chunk graph against the eager one-step path, loader and
+    # transfer outside, in turns
+    steps = [(g, o, m, a) for g, o, m, a in groups]
+
+    def chunked():
+        for g, o, m, a in steps:
+            graphed._train_chunk(params, opt, g, o, m, a, None)
+
+    def per_step():
+        for g, o, m, a in steps:
+            eager_steps(g, o, m, a)
+
+    times = in_turns({"per_step": per_step, "chunked": chunked})
+    idle = {"per_step": profiled_idle(per_step), "chunked": profiled_idle(chunked)}
+    done = CHUNK * len(groups)
+    text = "; ".join(
+        f"{name}: {statistics.median(w for _, w in t) / CHUNK_BATCHES!r} ms per step "
+        f"(runs {[round(w, 3) for _, w in t]} ms), host enqueue "
+        f"{statistics.median(e for e, _ in t) / CHUNK_BATCHES!r} ms per step, idle share "
+        f"{idle[name]}" for name, t in times.items())
+    log(f"[13] {route} route, one pass of {CHUNK_BATCHES} steps ({done} run by the chunked "
+        f"side: the tail's padded steps compute), median of 4 in turns: {text} ({stamp})")
+    return dict(zip(("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd",
+                     "shared_contract_fwd"), main))
+
+
+def chunk_eval(ont, params_cpu, device, stamp: str) -> dict:
+    """Phase 13 (d): returns the launches of the main run (the chunked
+    ``_eval_chunked`` pass after warm-up and capture)."""
+    from dfol_vqa_tpu_torch.data import evalset
+    from dfol_vqa_tpu_torch.data.transfer import group_batches
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    world = evalset.demo_world(ont)
+    sides = {}
+    for chunk in (CHUNK, 1):
+        cfg = evalset.demo_eval_config()
+        cfg.tpu.eval_chunk = chunk
+        sides[chunk] = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    datasets = evalset.eval_datasets(world, evalset.PRODUCTION_MIX, evalset.PRODUCTION_BATCH,
+                                     evalset.PRODUCTION_IMAGES_PER_BATCH)
+    batches = list(evalset.eval_loader(sides[1].cfg, ont, world, datasets))
+    n_q = sum(len(d) for d in datasets)
+    params = copy.deepcopy(params_cpu).to(device)
+    g8, g1 = sides[CHUNK], sides[1]
+    for _ in range(2):  # eager warm-up, then capture (and replay)
+        g8.test_epoch(batches, params)
+    want = dispatched(batches, CHUNK, g8.cfg.tpu.pad_chunks)
+    torch.cuda.synchronize()
+    c0 = launch_counts()
+    outs8 = [(b, {k: v.clone() for k, v in o.items()}) for b, o in g8._eval_chunked(batches,
+                                                                                   params)]
+    torch.cuda.synchronize()
+    main = [b - a for a, b in zip(c0, launch_counts())]
+    if main != [0, 0, want["shared"], want["shared"]]:
+        raise AssertionError(f"chunked eval launched {main}, not kernels 3 and 4 "
+                             f"{want['shared']} times (padded batches included)")
+    outs1 = list(g1._eval_chunked(batches, params))
+    lp_err = 0.0
+    for (b8, o8), (b1, o1) in zip(outs8, outs1):
+        for k in ("answer_flags", "match"):
+            if not torch.equal(o8[k], o1[k]):
+                raise AssertionError(f"chunked eval: {k} of a {b8.spec.terminal_op} batch "
+                                     "differs from eval_chunk=1")
+        lp_err = max(lp_err, float((o8["log_probability"] - o1["log_probability"]).abs().max()))
+    if not lp_err <= GOLDEN_ATOL:
+        raise AssertionError(f"chunked eval: log_probability {lp_err!r} from eval_chunk=1")
+    errors = {c: t.test_epoch(batches, params) for c, t in sides.items()}
+    preds = {c: t.predict(batches, params, io.StringIO()) for c, t in sides.items()}
+    if not np.array_equal(errors[CHUNK], errors[1]) or preds[CHUNK] != preds[1]:
+        raise AssertionError("chunked test_epoch / predict differ from eval_chunk=1")
+    times = in_turns({"eval_chunk=1": lambda: g1.test_epoch(batches, params),
+                      f"eval_chunk={CHUNK}": lambda: g8.test_epoch(batches, params)})
+    enq = {}
+    for name, t in (("eval_chunk=1", g1), (f"eval_chunk={CHUNK}", g8)):
+        enq[name] = timed_loop(lambda t=t: [o for _, o in t._eval_chunked(batches, params)])[0]
+    idle = {"eval_chunk=1": profiled_idle(lambda: g1.test_epoch(batches, params)),
+            f"eval_chunk={CHUNK}": profiled_idle(lambda: g8.test_epoch(batches, params))}
+    stats = g8.graphs.stats()
+    text = "; ".join(
+        f"{name}: {n_q / (statistics.median(w for _, w in t) / 1000)!r} questions/s, "
+        f"{statistics.median(w for _, w in t) / len(batches)!r} ms per batch (runs "
+        f"{[round(w, 3) for _, w in t]} ms), host enqueue {enq[name] / len(batches)!r} ms per "
+        f"batch, idle share {idle[name]}" for name, t in times.items())
+    log(f"[13] (d) chunked eval of {n_q} questions ({len(batches)} batches of "
+        f"{evalset.PRODUCTION_BATCH}, groups "
+        f"{[len(g) for g in group_batches(batches, CHUNK)]}, "
+        f"bf16 h2 stream): answers, matches, test_epoch errors and predict equal to "
+        f"eval_chunk=1, log_probability within {lp_err!r}; launches (fwd, bwd, pair_mlp, "
+        f"contract) {main} ({want['shared']} relating forwards dispatched, padded ones "
+        f"included); graphs {stats['graphs']}, replays {stats['replays']}, capture "
+        f"{stats['capture_seconds']} s, pool {stats['pool_bytes']} bytes; median of 4 in "
+        f"turns: {text} ({stamp})")
+    return dict(zip(("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd",
+                     "shared_contract_fwd"), main))
+
+
+def chunk_dropout(ont, params_cpu, device, stamp: str) -> None:
+    """Phase 13 (e): a chunk of two deduplicated batches (the shared route's
+    plain tails, as dropout sends them) at ``dropout=0.1``, run three
+    times from one state: eagerly, captured and replayed, replayed. The
+    replays draw new masks, so their losses differ."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.data.transfer import chunk_prefetch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+
+    cfg = trainset.demo_train_config()
+    cfg.dropout = CHUNK_DROPOUT
+    cfg.tpu.train_chunk = 2
+    world = evalset.demo_world(ont)
+    sets = evalset.eval_datasets(world, (("exist", 2, 2 * trainset.PRODUCTION_BATCH),),
+                                 trainset.PRODUCTION_BATCH, evalset.PRODUCTION_IMAGES_PER_BATCH,
+                                 seed=17)
+    (group,) = list(chunk_prefetch(list(trainset.train_loader(cfg, ont, world, sets,
+                                                              shuffle=False)), 2, device))
+    trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
+    params = copy.deepcopy(params_cpu).to(device)
+    opt = Optimizer(cfg, params)
+    opt.static_grads()
+    gen = torch.Generator(device=device).manual_seed(0)
+    start = train_state(params, opt)
+    losses, c0 = [], launch_counts()
+    for _ in range(3):
+        with torch.no_grad():
+            for t, s in zip(list(params.parameters()) + opt._state_tensors(), start):
+                t.copy_(s)
+        losses.append(trainer._train_chunk(params, opt, *group, gen).cpu().numpy())
+    launched = [b - a for a, b in zip(c0, launch_counts())]
+    if not all(np.isfinite(x).all() for x in losses) or np.array_equal(losses[1], losses[2]):
+        raise AssertionError(f"dropout chunk: losses {losses}: two replays drew the same masks")
+    if launched[2:] != [0, 0] or launched[:2] != [0, 0]:
+        raise AssertionError(f"dropout chunk launched {launched}: dropout takes the plain tails")
+    log(f"[13] (e) a chunk of 2 shared-route batches at dropout={CHUNK_DROPOUT} (plain tails, "
+        f"no kernel: launches {launched}), eager then two replays from one state: losses "
+        f"{[x.tolist() for x in losses]}, the replays' differ (new masks each; the generator "
+        f"advances on padded steps too); capture {trainer.graphs.capture_seconds} s ({stamp})")
+
+
+def dispatched(batches, chunk: int, pad: bool) -> dict:
+    """Relating batches dispatched by route when ``batches`` run in groups
+    of ``chunk``: a group of k >= 2 runs ``chunk`` of them with
+    ``pad_chunks`` (its padded ones compute too), else k."""
+    from dfol_vqa_tpu_torch.data.transfer import group_batches
+    from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
+
+    out = {"per_question": 0, "shared": 0}
+    for group in group_batches(batches, chunk):
+        lb = group[0]
+        if spec_needs_relations(lb.spec):
+            U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+            n = chunk if pad and len(group) > 1 else len(group)
+            out["shared" if U * 2 <= B else "per_question"] += n
+    return out
+
+
+def phase_chunk(device, stamp: str) -> dict:
+    """Phase 13: chunked dispatch as one CUDA graph per chunk. Returns the
+    launches of its main runs by path."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    t0 = time.perf_counter()
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config(stream_dtype="float32")
+    cfg.tpu.train_chunk = CHUNK
+    world = evalset.demo_world(ont)
+    params_cpu = Interpreter(cfg, ont).init_params(torch.Generator().manual_seed(0))
+    paths = {}
+    for route in ("per_question", "shared"):
+        paths[f"chunk_{route}"] = chunk_train_route(route, cfg, ont, world, params_cpu, device,
+                                                    stamp)
+    res = check_chunk_golden(device)
+    log(f"[13] (c) JAX chunk golden (tiny widths, train_chunk={CHUNK}, checkpointing_frequency"
+        f"=3, {CHUNK_BATCHES} batches): validation at global steps {res['steps']} as JAX's, "
+        f"error vectors equal, parameters at most {res['gap_lr']!r} lr from JAX's; graphs "
+        f"{res['graphs']} ({stamp})")
+    paths["chunk_eval"] = chunk_eval(ont, params_cpu, device, stamp)
+    chunk_dropout(ont, params_cpu, device, stamp)
+    log(f"[13] phase 13 took {time.perf_counter() - t0!r} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -3785,6 +4329,7 @@ def main() -> int:
     paths["daemon"] = phase_daemon(device, stamp)
     paths["mesh"] = phase_mesh(device, stamp)
     paths["bf16"] = phase_bf16(device, stamp)
+    paths.update(phase_chunk(device, stamp))
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

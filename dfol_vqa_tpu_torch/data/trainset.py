@@ -50,7 +50,7 @@ def demo_train_config(tiny: bool = False, stream_dtype: str = "float32") -> Conf
     """``evalset.demo_eval_config`` with ``dropout=0.0`` (as every training
     script of the repository sets it) and the train batch: 80 at
     production dims, 16 at tiny widths; ``tpu.train_chunk=1`` (one step per
-    dispatch, as the port runs)."""
+    dispatch, so that each step can be held against another's)."""
     cfg = evalset.demo_eval_config(tiny, stream_dtype)
     cfg.dropout = 0.0
     cfg.train_batch_size = TINY_BATCH if tiny else PRODUCTION_BATCH

@@ -1,10 +1,16 @@
-"""Host -> device transfer of a compiled batch.
+"""Host -> device transfer of compiled batches, one at a time or in chunks.
 
-Port of ``dfol_vqa_tpu/data/device_prefetch.to_device_batch``. Each tensor
-of a ``LoadedBatch`` — ``objects``, ``obj_mask`` and every entry of
-``arrays`` — is copied on its own from pinned host memory with
+Port of ``dfol_vqa_tpu/data/device_prefetch.py``. ``to_device_batch``
+copies each tensor of a ``LoadedBatch`` — ``objects``, ``obj_mask`` and
+every entry of ``arrays`` — on its own from pinned host memory with
 ``non_blocking=True``, so the copies queue on the current stream behind the
-work already enqueued.
+work already enqueued. ``device_prefetch`` does that for a loader's batches
+on a worker thread, ``size`` batches ahead. ``chunk_prefetch`` groups runs
+of same-bucket batches (``group_key``: the same spec, meta and object
+shape, at most ``chunk`` of them), stacks each group on the host into
+pinned staging buffers and copies it as one transfer per tensor on a copy
+stream of its own, also on a worker thread: the input of the trainer's
+chunked steps (``train/trainer.py``).
 
 The JAX package packs the ~20 small program tensors into one int32 buffer
 (``program_compiler.pack_arrays``/``unpack_arrays``) to save one RPC per
@@ -22,7 +28,9 @@ device when the rank joins, so the pinned staging is that card's too).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,13 +58,14 @@ def quantize_objects(objects, obj_scale):
     return q
 
 
-def _put(x: np.ndarray, device: torch.device, dtype: Optional[torch.dtype] = None):
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if dtype is not None:
-        t = t.to(dtype)
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _put(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    return _to(torch.from_numpy(np.ascontiguousarray(x)), device)
 
 
 def to_device_batch(batch, device, transfer_dtype: Optional[str] = None
@@ -67,11 +76,173 @@ def to_device_batch(batch, device, transfer_dtype: Optional[str] = None
         raise ValueError(f"transfer_dtype must be one of {TRANSFER_DTYPES}, "
                          f"got {transfer_dtype!r}")
     device = torch.device(device)
-    if transfer_dtype == "int8":
-        objects = _put(quantize_objects(batch.objects, batch.obj_scale), device)
-    else:
-        objects = _put(batch.objects, device,
-                       torch.bfloat16 if transfer_dtype == "bfloat16" else None)
+    objects = _to(_host_objects(batch, transfer_dtype), device)
     obj_mask = _put(batch.obj_mask, device)
     arrays = {k: _put(v, device) for k, v in batch.arrays.items()}
     return batch, objects, obj_mask, arrays
+
+
+def group_key(batch) -> tuple:
+    """What a chunk's batches share: a run of batches closes where the next
+    one differs in spec, meta (the program tensors' shapes) or object
+    shape (``chunk_prefetch`` in the JAX package)."""
+    return (batch.spec, batch.meta, tuple(batch.objects.shape))
+
+
+def group_batches(loader, chunk: int) -> Iterator[list]:
+    """Runs of consecutive batches of one ``group_key``, each closed at
+    ``chunk`` batches; the tail flushes. ``chunk=1`` yields one batch per
+    group."""
+    buf: list = []
+    for b in loader:
+        if buf and group_key(buf[0]) != group_key(b):
+            yield buf
+            buf = []
+        buf.append(b)
+        if len(buf) >= chunk:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _host_objects(batch, transfer_dtype: Optional[str]) -> torch.Tensor:
+    """A batch's objects on the host as ``transfer_dtype`` sends them,
+    prepared with the batch's own int8 scale."""
+    if transfer_dtype == "int8":
+        return torch.from_numpy(quantize_objects(batch.objects, batch.obj_scale))
+    t = torch.from_numpy(np.ascontiguousarray(batch.objects))
+    return t.to(torch.bfloat16) if transfer_dtype == "bfloat16" else t
+
+
+def _stack_parts(group, transfer_dtype: Optional[str]) -> List[Tuple[str, list]]:
+    """(name, per-batch host tensors) of every tensor a group ships:
+    objects, obj_mask, then ``arrays`` in sorted order."""
+    parts = [("objects", [_host_objects(b, transfer_dtype) for b in group]),
+             ("obj_mask", [torch.from_numpy(np.ascontiguousarray(b.obj_mask)) for b in group])]
+    for name in sorted(group[0].arrays):
+        parts.append((name, [torch.from_numpy(np.ascontiguousarray(b.arrays[name]))
+                             for b in group]))
+    return parts
+
+
+class _Staging:
+    """One set of pinned host buffers (a flat byte buffer per tensor name,
+    grown as needed) and the event of the copies that last read them:
+    ``fill`` waits for that event before writing."""
+
+    def __init__(self):
+        self.buffers: Dict[str, torch.Tensor] = {}
+        self.done: Optional[torch.cuda.Event] = None
+
+    def fill(self, name: str, parts: list) -> torch.Tensor:
+        if self.done is not None:
+            self.done.synchronize()
+            self.done = None
+        shape = (len(parts),) + tuple(parts[0].shape)
+        nbytes = int(np.prod(shape)) * parts[0].element_size()
+        buf = self.buffers.get(name)
+        if buf is None or buf.numel() < nbytes:
+            buf = self.buffers[name] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        out = buf[:nbytes].view(parts[0].dtype).view(shape)
+        torch.stack(parts, out=out)
+        return out
+
+
+def _stack_to_device(group, device: torch.device, transfer_dtype: Optional[str],
+                     staging: Optional[_Staging], stream) -> Dict[str, torch.Tensor]:
+    """A group's tensors stacked on a leading axis, on ``device``: through
+    ``staging`` and ``stream`` (one non-blocking copy per tensor) for a
+    CUDA device, ``torch.stack`` on the CPU."""
+    out = {}
+    if device.type != "cuda":
+        for name, parts in _stack_parts(group, transfer_dtype):
+            out[name] = torch.stack(parts).to(device)
+        return out
+    with torch.cuda.stream(stream):
+        for name, parts in _stack_parts(group, transfer_dtype):
+            host = staging.fill(name, parts)
+            out[name] = torch.empty(host.shape, dtype=host.dtype, device=device)
+            out[name].copy_(host, non_blocking=True)
+        staging.done = torch.cuda.Event()
+        staging.done.record(stream)
+    return out
+
+
+def _threaded(produce, size: int) -> Iterator:
+    """Run the generator ``produce()`` on a worker thread, at most ``size``
+    items ahead; an exception in the producer is raised in the caller."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    sentinel = object()
+    err: list = []
+
+    def worker():
+        try:
+            for item in produce():
+                q.put(item)
+        except BaseException as e:  # re-raised in the consumer
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            break
+        yield item
+    t.join()
+    if err:
+        raise err[0]
+
+
+def chunk_prefetch(loader, chunk: int, device, size: int = 2,
+                   transfer_dtype: Optional[str] = None) -> Iterator:
+    """Yields ``(group, objects, obj_mask, arrays)`` for the runs of
+    ``group_batches(loader, chunk)``: the tensors stacked on a leading
+    ``len(group)`` axis, on ``device``, objects as ``transfer_dtype`` says
+    (int8 and bf16 prepared per batch).
+
+    A worker thread stacks each group into pinned staging buffers and
+    copies it as one transfer per tensor on a copy stream of its own,
+    ``size`` groups ahead; the consumer's current stream waits for the
+    copies before it gets them. The worker reuses a set of staging
+    buffers only once the copies that read it have finished (an event per
+    set)."""
+    if transfer_dtype not in TRANSFER_DTYPES:
+        raise ValueError(f"transfer_dtype must be one of {TRANSFER_DTYPES}, "
+                         f"got {transfer_dtype!r}")
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+    ring = [_Staging() for _ in range(size + 1)] if cuda else None
+
+    def produce():
+        for i, group in enumerate(group_batches(loader, chunk)):
+            t = _stack_to_device(group, device, transfer_dtype,
+                                 ring[i % len(ring)] if cuda else None, stream)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            yield group, t, ready
+
+    for group, t, ready in _threaded(produce, size):
+        if ready is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(ready)
+            for x in t.values():
+                x.record_stream(current)
+        objects, obj_mask = t.pop("objects"), t.pop("obj_mask")
+        yield group, objects, obj_mask, t
+
+
+def device_prefetch(loader, device, size: int = 2,
+                    transfer_dtype: Optional[str] = None) -> Iterator:
+    """Yields ``to_device_batch(batch, device, transfer_dtype)`` for every
+    batch of ``loader``, the copies issued ``size`` batches ahead on a
+    worker thread (on the device's default stream, which the consumer's
+    work follows)."""
+    device = torch.device(device)
+    return _threaded(lambda: (to_device_batch(b, device, transfer_dtype) for b in loader), size)

@@ -29,7 +29,7 @@ the attentions the executor carries.
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -279,6 +279,19 @@ class Interpreter:
             self._index_cache[key] = torch.as_tensor(cols, device=device)
         return self._index_cache[key]
 
+    def _rel_gather_on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_rel_gather_map`` as int64 tensors on ``device``, moved there
+        once (a step that a CUDA graph captures copies nothing from the
+        host); normal tensors even when first asked for under
+        ``torch.inference_mode()``, since training saves them for backward."""
+        key = ("rel_gather", str(device))
+        if key not in self._index_cache:
+            with torch.inference_mode(False):
+                self._index_cache[key] = tuple(
+                    torch.as_tensor(np.asarray(a, np.int64), device=device)
+                    for a in self._rel_gather_map)
+        return self._index_cache[key]
+
     @property
     def _rel_gather_map(self):
         """Static (cols, inv) pair for the contract-then-gather relation
@@ -327,7 +340,7 @@ class Interpreter:
             if U * 2 <= B:
                 rel_ll = om.rel_cache_shared(params, attr_in_u, pos_u, img_index, rel_tokens,
                                              cfg, generator, deterministic,
-                                             rel_gather=self._rel_gather_map)
+                                             rel_gather=self._rel_gather_on(objects.device))
             elif per_question_kernel_route(cfg, objects.device):
                 from dfol_vqa_tpu_torch.ops.relation_oracle import rel_cache_kernel
 
@@ -669,6 +682,27 @@ class Interpreter:
         )
         return self.execute(params, world, arrays, spec, is_training, modulator_switch,
                             return_trace)
+
+    def forward_many(
+        self,
+        params: om.OracleParams,
+        objects: torch.Tensor,
+        obj_mask: torch.Tensor,
+        arrays: Dict[str, torch.Tensor],
+        spec: BucketSpec,
+        is_training: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``forward`` over N stacked same-spec batches (``objects`` (N, U,
+        O, D+6), ``obj_mask`` (N, U, O), each entry of ``arrays`` with a
+        leading N axis), one after another: ``log_probability``, ``match``
+        and ``answer_flags`` stacked on a leading N axis, as the JAX
+        package's ``step_packed_many`` returns them."""
+        outs = [self.forward(params, objects[i], obj_mask[i],
+                             {k: v[i] for k, v in arrays.items()}, spec, is_training, generator)
+                for i in range(objects.shape[0])]
+        return {k: torch.stack([o[k] for o in outs])
+                for k in ("log_probability", "match", "answer_flags")}
 
     def execute(self, params: om.OracleParams, world: World, arrays: Dict[str, torch.Tensor],
                 spec: BucketSpec, is_training: bool = False,

@@ -20,7 +20,16 @@ and gives frozen leaves a zero update. Here:
 * frozen parameters are not given to Adam, so they get neither an update
   nor decay.
 
-The update is in place on the parameters (JAX returns new arrays).
+The update is in place on the parameters (JAX returns new arrays). On a
+CUDA device Adam is built with ``capturable=True`` (its step counters and
+bias corrections stay on the device), so that a CUDA graph can capture
+the step (``train/graphs.py``), and ``static_grads`` gives every trainable
+parameter a gradient buffer that stays at one address for the
+optimizer's life. ``step(valid=...)`` is the gated step of the JAX
+package's padded chunks (``_train_step_chunk_padded``: ``jnp.where(valid,
+new, old)`` over parameters and optimizer state): where the 0-d boolean
+device tensor ``valid`` is false, the parameters, ``exp_avg``,
+``exp_avg_sq`` and Adam's ``step`` keep their values, with no host read.
 
 Under a device mesh (``parallel/mesh.py``) the optimizer steps each rank's
 masters (``ShardedParams.masters``: an FSDP leaf's shard, else the leaf),
@@ -80,16 +89,44 @@ class Optimizer:
         self._norm_weights = ([sharded.norm_weight(name) for name, _ in named]
                               if sharded is not None else None)
         self.clip_norm = float(cfg.clip_norm)
+        self.capturable = bool(self.trainable) and self.trainable[0].device.type == "cuda"
         self.adam = (torch.optim.Adam(self.trainable, lr=cfg.learning_rate, betas=(0.9, 0.999),
-                                      eps=1e-8, weight_decay=cfg.weight_decay)
+                                      eps=1e-8, weight_decay=cfg.weight_decay,
+                                      capturable=self.capturable)
                      if self.trainable else None)
 
-    def step(self) -> None:
-        if self.adam is None:
-            return
+    def static_grads(self) -> None:
+        """Give each trainable parameter without one a zero gradient buffer;
+        the steps after it accumulate into these buffers in place."""
         for p in self.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+    def _init_state(self) -> None:
+        """Adam's state as its first step would create it (zero moments,
+        step 0), so that a gated first step has values to keep."""
+        for p in self.trainable:
+            state = self.adam.state[p]
+            if not state:
+                state["step"] = (torch.zeros((), dtype=torch.float32, device=p.device)
+                                 if self.capturable else torch.tensor(0.0, dtype=torch.float32))
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The parameters, then each one's exp_avg, exp_avg_sq and step."""
+        self._init_state()
+        out = list(self.trainable)
+        for p in self.trainable:
+            state = self.adam.state[p]
+            out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
+        return out
+
+    def step(self, valid: Optional[torch.Tensor] = None) -> None:
+        if self.adam is None:
+            return
+        kept = None if valid is None else [t.clone() for t in self._state_tensors()]
+        self.static_grads()
         grads = [p.grad for p in self.trainable]
         if self._norm_weights is None:
             norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -101,6 +138,10 @@ class Optimizer:
         for g in grads:  # optax's form: (g / norm) * clip_norm
             g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
         self.adam.step()
+        if kept is not None:
+            with torch.no_grad():
+                for t, old in zip(self._state_tensors(), kept):
+                    t.copy_(torch.where(valid.to(t.device), t, old))
 
 
 def build_optimizer(cfg: Config, params: OracleParams, sharded=None) -> Optimizer:

@@ -15,15 +15,26 @@ deduplicate images: a relating batch whose unique images U satisfy
 U * 2 <= B takes the shared-image relation route, any other the
 per-question route (``Interpreter.build_world``).
 
-Each batch is copied to the device (``data/transfer.to_device_batch``).
-Evaluation runs ``Interpreter.forward`` under ``torch.inference_mode()``;
-its outputs stay on the device and are read back once, after the last batch
-(per batch only when hardset mining needs the answers). Training keeps each
-step's loss on the device and reads the epoch's losses back once. The JAX
-package's ``tpu.train_chunk`` / ``eval_chunk`` / ``pad_chunks`` scan fusion
-exists to amortise an RPC to a remote TPU per dispatch; the port dispatches
-one batch at a time, and whether it needs the fusion is a measurement for
-later (ROADMAP queue 5).
+Chunked dispatch, as in the JAX package (``tpu.train_chunk``,
+``tpu.eval_chunk``, ``tpu.pad_chunks``): ``data/transfer.chunk_prefetch``
+groups runs of same-bucket batches (at most a chunk of them) and copies
+each group to the device as one stacked transfer per tensor. A group of
+one batch takes the one-step path. A group of k >= 2 takes the chunk step:
+k training steps (``_train_chunk``) or k forwards (``_eval_chunked``,
+through ``Interpreter.forward_many``). With ``pad_chunks`` a short group
+is padded to the full chunk by repeating its last batch: padded training
+steps are gated no-ops on the parameters and Adam's state
+(``Optimizer.step(valid=...)``, ``n_valid`` a device tensor), padded
+forwards are dropped. ``global_step`` advances by a group's real length,
+and mid-epoch validation and saves are checked after each group only, as
+the JAX trainer checks them at dispatch boundaries. On a CUDA device each
+chunk step runs as one CUDA graph per key (``train/graphs.py``: the
+first chunk of a key eagerly, the second captured, every later one
+replayed); on the CPU it runs eagerly, which is the plain version.
+Evaluation runs under ``torch.inference_mode()``; its outputs stay on the
+device and are read back once, after the last batch (per batch only when
+hardset mining needs the answers). Training keeps each step's loss on the
+device and reads the epoch's losses back once.
 
 With a ``mesh`` (``parallel/mesh.py``) every rank runs this trainer on its
 own shard of each loader (``mesh.batch_sharding``). Training steps in
@@ -31,16 +42,25 @@ lockstep (``lockstep``: every rank takes the longest shard's number of
 steps, one without rows that step taking part with none); a step gathers
 the FSDP shards, divides the rank's loss sum by the step's global count of
 real questions, reduces the gradients and steps the masters
-(``ShardedParams``). Evaluation sums the error counts over the data axis
-and gathers predictions and hardset entries in the order one device would
-hold them (``interleave``). Rank 0 alone writes files: checkpoints (the
-whole leaves, gathered), predictions, hardsets, ``losses.npy``; it alone
-reads a checkpoint back and broadcasts it (``load``).
+(``ShardedParams``). Every rank takes the chunk boundaries one device
+would take for the global batches (``mesh_groups``: the ranks agree on
+each global batch's spec, program shapes and unique-image count), and
+checkpoints fall at those boundaries; the steps of a chunk run eagerly,
+one lockstep step at a time, with no padded steps and no CUDA graph (gloo
+cannot be captured, and each step's exchange of sizes and keys is a host
+collective).
+Evaluation under the mesh runs each chunk eagerly too, sums the error
+counts over the data axis and gathers predictions and hardset entries in
+the order one device would hold them (``interleave``). Rank 0 alone
+writes files: checkpoints (the whole leaves, gathered), predictions,
+hardsets, ``losses.npy``; it alone reads a checkpoint back and broadcasts
+it (``load``).
 """
 
 from __future__ import annotations
 
 import copy
+import inspect
 import json
 import logging
 import os
@@ -53,8 +73,9 @@ import torch
 import torch.distributed as dist
 
 from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.data.features import FeatureSource
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
-from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+from dfol_vqa_tpu_torch.data.transfer import chunk_prefetch, to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import (
     Interpreter,
     decode_answer_flags,
@@ -63,6 +84,7 @@ from dfol_vqa_tpu_torch.models.interpreter import (
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
 from dfol_vqa_tpu_torch.parallel.mesh import Mesh, ShardedParams, broadcast_params, shard_params
 from dfol_vqa_tpu_torch.train import checkpoint as ckpt
+from dfol_vqa_tpu_torch.train.graphs import GraphCache, param_key
 from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer
 from dfol_vqa_tpu_torch.types import QuestionType
 
@@ -76,6 +98,43 @@ OP_INDEX = OrderedDict(
     ]
 )
 ERROR_DIM = len(OP_INDEX) + 1
+
+# the loader's padding of a batch's unique images (FeatureSource.batch_unique)
+U_PAD_LADDER = inspect.signature(FeatureSource.batch_unique).parameters["pad_ladder"].default
+U_KEYS = ("obj_geom", "obj_scale")  # program tensors whose leading axis is U_pad
+
+
+def mesh_group_key(batch: LoadedBatch) -> tuple:
+    """A rank's part of the global batch's ``group_key``: the spec, the
+    shapes of the program tensors indexed by question, the object shape
+    past U, and the batch's image ids (the union's count gives U)."""
+    shapes = tuple((k, shape, dtype) for k, shape, dtype, _ in batch.meta[:-1]
+                   if k not in U_KEYS)
+    return (batch.spec, shapes, tuple(batch.objects.shape[1:]),
+            tuple(batch.compiled.image_ids))
+
+
+def global_group_key(parts: Sequence[tuple]) -> tuple:
+    """The global batch's ``group_key`` from the live ranks'
+    ``mesh_group_key``s: one device's batch of those rows differs from
+    another in spec, meta or object shape exactly where this does (its
+    meta's U entries and offsets follow from U_pad)."""
+    spec, shapes, rest, _ = parts[0]
+    U = len({im for p in parts for im in p[3]})
+    u_pad = next((v for v in U_PAD_LADDER if U <= v), U)
+    return (spec, shapes, rest, u_pad)
+
+
+def pad_chunk(x: torch.Tensor, k: int) -> torch.Tensor:
+    """A (g, ...) stack padded to (k, ...) by repeating its last element."""
+    g = x.shape[0]
+    if g >= k:
+        return x
+    return torch.cat([x, x[-1:].expand((k - g,) + tuple(x.shape[1:]))])
+
+
+def _shapes(tensors: Sequence[torch.Tensor]) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
 def interleave(per_rank: Sequence[Sequence[Sequence]]) -> List:
@@ -127,6 +186,9 @@ class VQATrainer:
         self._hardset: Optional[dict] = None
         self._easyset: Optional[dict] = None
         self._best_error = np.inf
+        # chunk steps as CUDA graphs on one card; eager on the CPU and under a mesh
+        self.graphs = GraphCache(self.device, capture=mesh is None)
+        self.train_graph_stats: Optional[dict] = None  # the graphs' stats at train()'s end
 
     # ------------------------------------------------------------- utilities
 
@@ -148,20 +210,67 @@ class VQATrainer:
                       generator: Optional[torch.Generator] = None,
                       count: Optional[int] = None, shares: int = 1) -> torch.Tensor:
         """Forward and backward on ``batch``: sets the ``.grad`` of
-        ``params`` (None for a parameter the batch does not reach) and
-        returns the loss normalised by ``count`` real questions (default:
-        the batch's), a 0-d tensor on the device (not read back). The
-        backward runs on ``1 / shares`` of it."""
+        ``params`` (a gradient buffer that exists is zeroed and accumulated
+        into in place; None stays for a parameter the batch does not reach)
+        and returns the loss normalised by ``count`` real questions
+        (default: the batch's), a 0-d tensor on the device (not read back).
+        The backward runs on ``1 / shares`` of it."""
         _, objects, obj_mask, arrays = to_device_batch(batch, self.device)
+        return self._grads(params, objects, obj_mask, arrays, batch.spec, generator, count,
+                           shares)
+
+    def _grads(self, params: OracleParams, objects, obj_mask, arrays, spec,
+               generator: Optional[torch.Generator] = None, count: Optional[int] = None,
+               shares: int = 1) -> torch.Tensor:
+        """``compute_grads`` on a batch already on the device."""
         for p in params.parameters():
-            p.grad = None
-        out = self.interp.forward(params, objects, obj_mask, arrays, batch.spec,
+            if p.grad is not None:
+                p.grad.zero_()
+        out = self.interp.forward(params, objects, obj_mask, arrays, spec,
                                   is_training=True, generator=generator)
         n = (torch.clamp(torch.sum(arrays["question_mask"]), min=1.0) if count is None
              else max(count, 1))
         loss = out["loss"] / n
         (loss / shares).backward()
         return loss.detach()
+
+    def _train_chunk(self, params: OracleParams, opt: Optimizer, group: List[LoadedBatch],
+                     objects: torch.Tensor, obj_mask: torch.Tensor,
+                     arrays: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator],
+                     n_valid: Optional[int] = None) -> torch.Tensor:
+        """The steps of a group of k >= 2 batches (stacked tensors), as the
+        JAX package's ``_train_step_chunk`` (``pad_chunks`` off: one graph
+        per group length) or ``_train_step_chunk_padded`` (on: padded to
+        ``train_chunk`` by repeating the last batch, the steps at index >=
+        ``n_valid`` gated no-ops; ``n_valid`` defaults to the group's
+        length). Returns the real steps' losses on the device. A padded
+        step runs its forward and backward like any other, so with dropout
+        it draws masks and advances ``generator`` (JAX keeps its rng on a
+        padded step; the masks differ from JAX's anyway)."""
+        cfg, b0 = self.cfg, group[0]
+        padded = cfg.tpu.pad_chunks
+        k = max(cfg.tpu.train_chunk, len(group)) if padded else len(group)
+        names = sorted(arrays)
+        stacked = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
+        n_valid = torch.full((), len(group) if n_valid is None else n_valid, dtype=torch.int64,
+                             device=self.device)
+
+        def steps(objects, obj_mask, n_valid, *rest):
+            losses = []
+            for i in range(k):
+                loss = self._grads(params, objects[i], obj_mask[i],
+                                   {n: t[i] for n, t in zip(names, rest)}, b0.spec, generator)
+                opt.step(valid=n_valid > i if padded else None)
+                losses.append(loss)
+            return (torch.stack(losses),)
+
+        inputs = stacked[:2] + [n_valid] + stacked[2:]
+        key = ("train", b0.spec, b0.meta, _shapes(inputs), k, padded, id(opt),
+               param_key(params))
+        gen = generator if cfg.dropout > 0 else None
+        (losses,) = self.graphs.run(key, steps, inputs, generator=gen)
+        return losses[:len(group)]
 
     def train_step(self, params, opt: Optimizer, batch: Optional[LoadedBatch],
                    generator: Optional[torch.Generator] = None,
@@ -188,6 +297,59 @@ class VQATrainer:
         opt.step()
         params.release()
         return loss
+
+    def mesh_groups(self, loader, chunk: int
+                    ) -> Iterator[List[Tuple[Optional[LoadedBatch], int]]]:
+        """Under the mesh: the ``lockstep`` steps of an epoch in the chunks
+        one device would take for the global batches. Each step the ranks
+        exchange their batch's ``mesh_group_key`` and size (one host
+        collective, as ``lockstep``'s count); a chunk closes where the
+        global key changes or at ``chunk`` steps."""
+        it = iter(loader)
+        buf: List[Tuple[Optional[LoadedBatch], int]] = []
+        key = None
+        while True:
+            batch = next(it, None)
+            parts = [p for p in self.mesh.gather_objects(
+                None if batch is None else (batch.batch_size, mesh_group_key(batch)))
+                if p is not None]
+            if not parts:
+                break
+            step_key = global_group_key([p[1] for p in parts])
+            if buf and step_key != key:
+                yield buf
+                buf = []
+            key = step_key
+            buf.append((batch, sum(p[0] for p in parts)))
+            if len(buf) >= chunk:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+
+    def _train_groups(self, loader, state, opt: Optimizer,
+                      generator: Optional[torch.Generator]
+                      ) -> Iterator[Tuple[List[torch.Tensor], List[int]]]:
+        """Trains an epoch over ``loader`` group by group; yields each
+        group's (step losses on the device, real questions per step) after
+        its last step."""
+        chunk = max(1, self.cfg.tpu.train_chunk)
+        if self.mesh is not None:
+            for group in self.mesh_groups(loader, chunk):
+                yield ([self.train_step(state, opt, batch, generator, count)
+                        for batch, count in group], [count for _, count in group])
+            return
+        for group, objects, obj_mask, arrays in chunk_prefetch(loader, chunk, self.device):
+            if len(group) == 1:
+                loss = self._grads(state, objects[0], obj_mask[0],
+                                   {k: v[0] for k, v in arrays.items()}, group[0].spec,
+                                   generator)
+                opt.step()
+                yield [loss], [group[0].batch_size]
+            else:
+                losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
+                                           generator)
+                yield list(losses), [b.batch_size for b in group]
 
     def lockstep(self, loader) -> Iterator[Tuple[Optional[LoadedBatch], int]]:
         """(batch, real questions of the step) for each step of an epoch
@@ -237,12 +399,12 @@ class VQATrainer:
         last good parameters on disk. ``losses.npy`` and ``errors.npy`` go to
         ``best_export_path_base``.
 
-        Two differences from the JAX trainer. It dispatches one step at a
-        time and checks ``checkpointing_frequency`` after every step; JAX
-        checks at dispatch boundaries, which are every step only with
-        ``tpu.train_chunk=1``. Randomness (dropout masks) comes from a
-        ``torch.Generator`` seeded with ``seed``, so with dropout on the masks
-        differ from JAX's; the repository trains with ``dropout=0.0``.
+        Steps run in chunks of same-bucket batches (the module docstring),
+        and ``checkpointing_frequency`` is checked after each chunk, at the
+        global steps the JAX trainer checks it. One difference remains:
+        randomness (dropout masks) comes from a ``torch.Generator`` seeded
+        with ``seed``, so with dropout on the masks differ from JAX's; the
+        repository's training cells run at ``dropout=0.0``.
 
         Under the mesh ``params`` (the same on every rank; rank 0's are
         broadcast) is split into a ``ShardedParams`` for the run and gets
@@ -251,6 +413,20 @@ class VQATrainer:
         cfg, mesh = self.cfg, self.mesh
         state = shard_params(mesh, params) if mesh is not None else params
         opt = build_optimizer(cfg, params, state if mesh is not None else None)
+        if mesh is None:
+            opt.static_grads()
+        self.graphs.drop("train")  # a graph of another run steps another optimizer
+        try:
+            return self._train(train_loader, validation_loader, params, state, opt,
+                               metric_index, last_export_path_base, best_export_path_base,
+                               seed, load_model, reset_step)
+        finally:
+            self.train_graph_stats = self.graphs.stats()
+            self.graphs.drop("train")
+
+    def _train(self, train_loader, validation_loader, params, state, opt, metric_index,
+               last_export_path_base, best_export_path_base, seed, load_model, reset_step):
+        cfg, mesh = self.cfg, self.mesh
         generator = torch.Generator(device=self.device).manual_seed(
             mesh.seed(seed) if mesh is not None else seed)
         errors = np.zeros((ERROR_DIM, cfg.epoch_num, cfg.repetition_num), np.float32)
@@ -276,10 +452,11 @@ class VQATrainer:
                     step_losses: List[torch.Tensor] = []
                     sizes: List[int] = []
                     next_ckpt = self.global_step + cfg.checkpointing_frequency
-                    for batch, count in self.lockstep(train_loader):
-                        step_losses.append(self.train_step(state, opt, batch, generator, count))
-                        sizes.append(count)
-                        self.global_step += 1
+                    for group_losses, counts in self._train_groups(train_loader, state, opt,
+                                                                   generator):
+                        step_losses += group_losses
+                        sizes += counts
+                        self.global_step += len(counts)
                         if validation_loader is not None and self.global_step >= next_ckpt:
                             next_ckpt = self.global_step + cfg.checkpointing_frequency
                             self._checkpoint_mid_epoch(validation_loader, state, metric_index,
@@ -332,18 +509,43 @@ class VQATrainer:
             self.logger.info("Checkpointing: Step %d, Best Err %.5f: error=%s", self.global_step,
                              self._best_error, self._prepare_output_metric_dict(err))
 
-    def _batches(self, loader, params
-                 ) -> Iterator[Tuple[LoadedBatch, Dict[str, torch.Tensor]]]:
-        """(batch, outputs on the device) for every batch of ``loader``;
-        ``params`` is the whole tree or, under the mesh, a
-        ``ShardedParams`` (its gathered working tree is read)."""
+    def _eval_chunked(self, loader, params
+                      ) -> Iterator[Tuple[LoadedBatch, Dict[str, torch.Tensor]]]:
+        """(batch, outputs on the device: ``log_probability``, ``match``,
+        ``answer_flags``) for every batch of ``loader``, in order. A group of
+        one batch runs ``Interpreter.forward``; a group of k >= 2 runs
+        ``forward_many`` (padded to ``eval_chunk`` with ``pad_chunks``, the
+        padded outputs dropped), one CUDA graph per key on one card, as the
+        JAX package's ``_eval_chunked``. ``params`` is the whole tree or,
+        under the mesh, a ``ShardedParams`` (its gathered working tree is
+        read)."""
         if isinstance(params, ShardedParams):
             params = params.gather()
-        for batch in loader:
-            _, objects, obj_mask, arrays = to_device_batch(batch, self.device)
-            with torch.inference_mode():
-                out = self.interp.forward(params, objects, obj_mask, arrays, batch.spec)
-            yield batch, out
+        cfg = self.cfg
+        chunk = max(1, cfg.tpu.eval_chunk)
+        for group, objects, obj_mask, arrays in chunk_prefetch(loader, chunk, self.device):
+            b0 = group[0]
+            if len(group) == 1:
+                with torch.inference_mode():
+                    out = self.interp.forward(params, objects[0], obj_mask[0],
+                                              {k: v[0] for k, v in arrays.items()}, b0.spec)
+                yield b0, out
+                continue
+            k = max(chunk, len(group)) if cfg.tpu.pad_chunks else len(group)
+            names = sorted(arrays)
+            inputs = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
+
+            def forwards(objects, obj_mask, *rest):
+                with torch.inference_mode():
+                    out = self.interp.forward_many(params, objects, obj_mask,
+                                                   dict(zip(names, rest)), b0.spec)
+                return out["log_probability"], out["match"], out["answer_flags"]
+
+            key = ("eval", b0.spec, b0.meta, _shapes(inputs), param_key(params))
+            lp, match, flags = self.graphs.run(key, forwards, inputs)
+            for i, batch in enumerate(group):
+                yield batch, {"log_probability": lp[i], "match": match[i],
+                              "answer_flags": flags[i]}
 
     # ------------------------------------------------------------------- test
 
@@ -355,7 +557,7 @@ class VQATrainer:
         batches: List[LoadedBatch] = []
         matches: List = []
         mined: List[List[tuple]] = []
-        for batch, out in self._batches(loader, params):
+        for batch, out in self._eval_chunked(loader, params):
             batches.append(batch)
             if self._hardset is not None:
                 match = readback([out["match"]])[0] * batch.compiled.question_mask
@@ -415,7 +617,7 @@ class VQATrainer:
         if import_path_base is not None:
             params = self.load(import_path_base, params)
         batches, flags = [], []
-        for batch, out in self._batches(loader, params):
+        for batch, out in self._eval_chunked(loader, params):
             batches.append(batch)
             flags.append(out["answer_flags"])
         per_batch: List[List[dict]] = []

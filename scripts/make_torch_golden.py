@@ -99,7 +99,23 @@ weights from ``torch.Generator().manual_seed(0)``, not stored):
 * ``batch/<k>/objects_sha256`` (the scenes, not stored: their digest),
   JAX's ``log_probability`` and ``answer_flags`` under ``jax.jit``.
 
-``chip_smoke.py`` runs the port on the card against the seven files;
+``tests/data/torch_port_golden_chunk.npz`` (chunked training), from the
+tiny demo training config at ``tpu.train_chunk=8`` with ``pad_chunks`` and
+``checkpointing_frequency=3`` (``chip_smoke.chunk_golden_setup``): one
+epoch of JAX's ``VQATrainer.train`` over 11 shuffled batches of one
+``exist`` file (a chunk of 8, then a tail of 3 padded to 8) with the
+training golden's weights (``PRNGKey(0)``) and a validation loader of the
+tiny mix on the shared route:
+
+* ``params/<key>``: the weights before training; ``update/<key>``: the
+  change training made (weight decay 0, so untouched leaves store zeros);
+* ``datasets/train``, ``datasets/validation``: the question files (JSON);
+* ``validation_steps``: the global steps at which ``test_epoch`` ran (the
+  mid-epoch checks at chunk boundaries, then the epoch's end);
+  ``validation_errors``: its chunked error vector each time; ``losses``:
+  the epoch loss.
+
+``chip_smoke.py`` runs the port on the card against the eight files;
 ``tests/test_torch_golden.py`` regenerates them and requires them to match
 the checked-in copies.
 
@@ -110,6 +126,7 @@ the checked-in copies.
         [--calibrator-out tests/data/torch_port_golden_calibrator.npz]
         [--trace-out tests/data/torch_port_golden_trace.npz]
         [--bf16-out tests/data/torch_port_golden_bf16.npz]
+        [--chunk-out tests/data/torch_port_golden_chunk.npz]
 """
 
 from __future__ import annotations
@@ -132,6 +149,7 @@ TERMINALS_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_t
 CALIBRATOR_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_calibrator.npz")
 TRACE_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_trace.npz")
 BF16_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_bf16.npz")
+CHUNK_GOLDEN_PATH = os.path.join(ROOT, "tests", "data", "torch_port_golden_chunk.npz")
 
 # (family, hops, count): 12 requests over the serving slice's terminals
 GOLDEN_MIX = (("exist", 0, 2), ("exist", 1, 2), ("exist", 2, 2),
@@ -478,6 +496,34 @@ def build_bf16_golden() -> Dict[str, np.ndarray]:
     return out
 
 
+def build_chunk_golden() -> Dict[str, np.ndarray]:
+    jax = _jax_on_cpu()
+
+    import chip_smoke
+    from dfol_vqa_tpu.models.interpreter import Interpreter
+    from dfol_vqa_tpu.ontology import GQAOntology as JOntology
+    from dfol_vqa_tpu.train.checkpoint import _flatten
+    from dfol_vqa_tpu.train.trainer import VQATrainer
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+
+    ont = GQAOntology()
+    cfg, world, files, train_ld, val_ld = chip_smoke.chunk_golden_setup(ont)
+    params = Interpreter(cfg, JOntology()).init_params(jax.random.PRNGKey(0))
+    out = {f"params/{k}": v for k, v in _flatten(jax.tree.map(np.asarray, params)).items()}
+    for name, f in files.items():
+        out[f"datasets/{name}"] = np.array(json.dumps(f, sort_keys=True))
+    trainer = VQATrainer(cfg, Interpreter(cfg, JOntology()))
+    seen = chip_smoke.record_validation(trainer)
+    params, _, losses = trainer.train(train_ld, val_ld, params)
+    before = {k: out[f"params/{k}"] for k in _flatten(jax.tree.map(np.asarray, params))}
+    out.update({f"update/{k}": v - before[k]
+                for k, v in _flatten(jax.tree.map(np.asarray, params)).items()})
+    out["validation_steps"] = np.asarray([s for s, _ in seen], np.int64)
+    out["validation_errors"] = np.stack([e for _, e in seen])
+    out["losses"] = np.asarray(losses)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN_PATH)
@@ -487,6 +533,7 @@ def main(argv=None) -> int:
     ap.add_argument("--calibrator-out", default=CALIBRATOR_GOLDEN_PATH)
     ap.add_argument("--trace-out", default=TRACE_GOLDEN_PATH)
     ap.add_argument("--bf16-out", default=BF16_GOLDEN_PATH)
+    ap.add_argument("--chunk-out", default=CHUNK_GOLDEN_PATH)
     args = ap.parse_args(argv)
     for path, golden, unit, what in (
             (args.out, build_golden(), "/question", "requests"),
@@ -496,10 +543,12 @@ def main(argv=None) -> int:
             (args.calibrator_out, build_calibrator_golden(), "/eval/log_probability",
              "model batches"),
             (args.trace_out, build_trace_golden(), "/hops", "traced requests"),
-            (args.bf16_out, build_bf16_golden(), "/log_probability", "bf16 batches")):
+            (args.bf16_out, build_bf16_golden(), "/log_probability", "bf16 batches"),
+            (args.chunk_out, build_chunk_golden(), "validation_steps", "validation runs")):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **golden)
-        n = sum(1 for k in golden if k.endswith(unit))
+        n = (len(golden[unit]) if unit in golden else
+             sum(1 for k in golden if k.endswith(unit)))
         print(f"wrote {path}: {n} {what}, {os.path.getsize(path)} bytes")
     return 0
 

@@ -1,4 +1,4 @@
-"""The JAX goldens that the port meets on the GPU (``chip_smoke.py`` phases 5, 7-9, 11, 12).
+"""The JAX goldens that the port meets on the GPU (``chip_smoke.py`` phases 5, 7-9, 11-13).
 
 ``tests/data/torch_port_golden.npz`` holds the tiny demo engine's weights,
 a dozen compiled requests and the JAX package's log-probabilities and
@@ -21,7 +21,11 @@ holds ``ServingEngine.trace`` of a dozen requests (hops, attentions,
 log-probabilities, answers); ``tests/data/torch_port_golden_bf16.npz``
 holds ``compute_dtype="bfloat16"`` at production widths (three shared-route
 batches; the weights' and scenes' digests, JAX's log-probabilities and
-answer flags). All seven are regenerated here and
+answer flags); ``tests/data/torch_port_golden_chunk.npz`` holds one epoch
+of JAX's chunked training (``train_chunk=8``, ``pad_chunks``,
+``checkpointing_frequency=3``, 11 batches): the global steps and error
+vectors of its validations, the epoch loss and the parameters' change.
+All eight are regenerated here and
 must match the checked-in copies, so they cannot go stale; and the port, on
 the CPU, must meet them with the checks ``chip_smoke.py`` runs on the card
 (atol 1e-5 here, float32 on the same host type; 1e-4 on the card).
@@ -223,3 +227,28 @@ def test_bf16_golden_is_current():
 
 def test_port_meets_bf16_golden_on_cpu():
     assert chip_smoke.check_bf16_golden("cpu", atol=1e-5) == (3, 0)
+
+
+def test_chunk_golden_is_current():
+    """The validation steps, error vectors and files equal; the epoch loss
+    within 1e-6 relative and the parameters' change within
+    ``chip_smoke.params_gap``'s rule (XLA:CPU may vectorise differently on
+    another host type)."""
+    fresh = load_script().build_chunk_golden()
+    stored = np.load(chip_smoke.CHUNK_GOLDEN)
+    assert set(fresh) == set(stored.files)
+    assert fresh["validation_steps"].tolist() == [8, 11, 11]
+    start = {k[len("params/"):]: v for k, v in fresh.items() if k.startswith("params/")}
+    chip_smoke.params_gap({k: v + fresh["update/" + k] for k, v in start.items()},
+                          {k: v + stored["update/" + k] for k, v in start.items()}, 1e-3, 11)
+    for k, v in fresh.items():
+        if k == "losses":
+            np.testing.assert_allclose(v, stored[k], rtol=1e-6, atol=0)
+        elif not k.startswith("update/"):
+            np.testing.assert_array_equal(v, stored[k], err_msg=k)
+    assert os.path.getsize(chip_smoke.CHUNK_GOLDEN) < 300_000
+
+
+def test_port_meets_chunk_golden_on_cpu():
+    res = chip_smoke.check_chunk_golden("cpu")
+    assert res["steps"] == [8, 11, 11] and res["graphs"]["graphs"] == 0
