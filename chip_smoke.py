@@ -58,10 +58,9 @@ Phases, each reported on its own line(s):
    sum taken in another order decide), where the card's answer must lie
    inside the tie and the error may move by one question per such answer —
    and every relating batch must have launched the pair-MLP and
-   shared-contract kernels once (the shared route), every padded batch of
-   a chunk too (``tpu.eval_chunk=8`` with ``pad_chunks``: the exist run of
-   4 batches runs 8 forwards, one CUDA graph; ``dispatched``); then the
-   default bf16 stream, whose agreement with the float32 answers is
+   shared-contract kernels once (the shared route; ``tpu.eval_chunk=8``:
+   the exist run of 4 batches runs as one CUDA graph of 4 forwards); then
+   the default bf16 stream, whose agreement with the float32 answers is
    reported, not gated. Questions per second, ms per batch and the
    device's busy/idle share of one profiled pass are printed;
 7. training at production dims (``data/trainset.py``: batch 80, O=100,
@@ -128,8 +127,8 @@ Phases, each reported on its own line(s):
    under phase 7's gates, the ``-l best`` hand-over loaded bitwise (stage 6
    partially, its calibrator fresh), frozen leaves unchanged and every
    calibrator leaf moved in stages 6-7, finite losses and each stage's
-   files, every relating batch's kernels (padded chunk steps and forwards
-   included: the stages train at ``train_chunk=8``); then the CLI
+   files, every relating batch's kernels once (the stages train at
+   ``train_chunk=8``, their chunks as CUDA graphs); then the CLI
    (``gqa_experiment -t -l best -p``) over stage 7's test set on the card
    against ``-c`` on the CPU, up to the near-tie rule;
 11. the serving deployment (``phase_daemon``) at the demo engine's
@@ -146,7 +145,7 @@ Phases, each reported on its own line(s):
    threads (``/healthz``, ``/v1/trace``, ``/stats`` gated);
 12. the training mesh (``phase_mesh``) and ``compute_dtype="bfloat16"``
    (``phase_bf16``). The mesh: ``mesh_worker`` children, one per rank
-   (the parent built the kernels; the children load them), three lockstep
+   (the parent built the kernels; the children load them), three
    steps per layout at ``sample_config``'s widths, O=100, global batch 80
    (one shared-route step, two per-question ones), each held against the
    single-process step on the union batch from the same parameters and
@@ -165,13 +164,14 @@ Phases, each reported on its own line(s):
 13. chunked dispatch as one CUDA graph per chunk (``phase_chunk``) at
    ``Config()``'s widths, O=100, batch 80, seed 0: (a) 11 batches of one
    shuffled ``exist`` file (the per-question route) at ``train_chunk=8``
-   with ``pad_chunks`` (a chunk of 8, a tail of 3 padded to 8), three
-   passes (the first chunk eager, the second captured and replayed, the
-   rest replayed), each chunk held against the card's eager per-step path
-   from the same state (every leaf's change within ``TRAIN_GRAD_RTOL`` of
-   its largest; bitwise equality reported), the tail's graph replayed with
-   every step padded moving no parameter or Adam tensor, kernels 1 and 2
-   counted 8 a chunk, replays included; (b) the same on the deduplicated
+   with ``pad_chunks`` (a chunk of 8, then a tail of 3: a graph each, the
+   graph running the tail's real steps only), three passes (a key's first
+   chunk eager, the second captured and replayed, the third replayed),
+   each chunk held against the card's eager per-step path from the same
+   state (every leaf's change within ``TRAIN_GRAD_RTOL`` of its largest;
+   bitwise equality reported), the eager chunk's tail padded to 8 leaving
+   every parameter and Adam tensor bitwise where its 3 real steps leave
+   them, kernels 1 and 2 counted once a step, replays included; (b) the same on the deduplicated
    set (the shared route, kernels 3 and 4); each timed against the eager
    one-step path (ms per step, host enqueue ms per step, idle share; loader
    outside, in turns); (c) the eighth JAX golden
@@ -1590,8 +1590,6 @@ def phase_eval(device, stamp: str) -> dict:
     shapes = [(lb.spec.terminal_op, lb.objects.shape[0], len(lb.arrays["img_index"]),
                spec_needs_relations(lb.spec)) for lb in loader]
     relating = sum(r for *_, r in shapes)
-    # relating forwards run: eval_chunk groups, padded ones included
-    runs = dispatched(list(loader), cfg.tpu.eval_chunk, cfg.tpu.pad_chunks)["shared"]
     n_q = sum(len(d) for d in datasets)
     for term, U, B, rel in shapes:
         if rel and U * 2 > B:
@@ -1613,20 +1611,19 @@ def phase_eval(device, stamp: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = {"pair_mlp_fwd": pm.LAUNCHES, "shared_contract_fwd": sc.LAUNCHES,
                 "relation_oracle_fwd": ro.LAUNCHES}
-    if launches["pair_mlp_fwd"] != runs or launches["shared_contract_fwd"] != runs:
-        raise AssertionError(f"launches {launches} != {runs} relating forwards ({relating} "
-                             "relating batches): a relating batch missed the shared-route "
-                             "kernels")
+    if launches["pair_mlp_fwd"] != relating or launches["shared_contract_fwd"] != relating:
+        raise AssertionError(f"launches {launches} != {relating} relating batches: a relating "
+                             "batch missed the shared-route kernels")
     log(f"[6] test_epoch on the card (f32 h2 stream): {n_q} questions in {seconds!r} s = "
         f"{n_q / seconds!r} questions/s, {1000 * seconds / len(shapes)!r} ms/batch; launches "
-        f"{launches} for {relating} relating batches, {runs} relating forwards at "
-        f"eval_chunk={cfg.tpu.eval_chunk} (padded ones included) ({stamp})")
+        f"{launches} for {relating} relating batches at eval_chunk={cfg.tpu.eval_chunk} "
+        f"({stamp})")
 
     pm.LAUNCHES = sc.LAUNCHES = 0
     preds = gpu.predict(loader, params, io.StringIO())
-    if pm.LAUNCHES != runs or sc.LAUNCHES != runs:
+    if pm.LAUNCHES != relating or sc.LAUNCHES != relating:
         raise AssertionError(f"predict launched pair_mlp {pm.LAUNCHES}, shared_contract "
-                             f"{sc.LAUNCHES} times for {runs} relating forwards")
+                             f"{sc.LAUNCHES} times for {relating} relating batches")
     cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
     t0 = time.perf_counter()
     error_cpu = cpu.test_epoch(loader, params_cpu)
@@ -1673,15 +1670,12 @@ class RouteCounter:
     """A loader that counts its passes, its batches and the relating batches
     it yields by relation route (``by_route``), and raises when a relating
     batch would take another route than ``route`` ("per_question": U * 2 >
-    B, "shared": U * 2 <= B; "either" takes both). ``dispatched`` counts,
-    by route, the relating batches that a trainer running them in groups of
-    ``chunk`` (``pad``: ``tpu.pad_chunks``) computes (``dispatched``)."""
+    B, "shared": U * 2 <= B; "either" takes both)."""
 
-    def __init__(self, loader, route: str, chunk: int = 1, pad: bool = True):
-        self.loader, self.route, self.chunk, self.pad = loader, route, chunk, pad
+    def __init__(self, loader, route: str):
+        self.loader, self.route = loader, route
         self.passes = self.relating = self.batches = 0
         self.by_route = {"per_question": 0, "shared": 0}
-        self.dispatched = {"per_question": 0, "shared": 0}
 
     def __len__(self):
         return len(self.loader)
@@ -1689,24 +1683,18 @@ class RouteCounter:
     def __iter__(self):
         from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
 
-        from dfol_vqa_tpu_torch.data.transfer import group_batches
-
         self.passes += 1
-        for group in group_batches(self.loader, self.chunk):
-            for lb in group:
-                self.batches += 1
-                if spec_needs_relations(lb.spec):
-                    U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
-                    route = "shared" if U * 2 <= B else "per_question"
-                    if self.route not in ("either", route):
-                        raise AssertionError(f"a relating {lb.spec.terminal_op} batch with "
-                                             f"U={U}, B={B} would not take the {self.route} "
-                                             "route")
-                    self.by_route[route] += 1
-                    self.relating += 1
-            for route, n in dispatched(group, self.chunk, self.pad).items():
-                self.dispatched[route] += n
-            yield from group
+        for lb in self.loader:
+            self.batches += 1
+            if spec_needs_relations(lb.spec):
+                U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
+                route = "shared" if U * 2 <= B else "per_question"
+                if self.route not in ("either", route):
+                    raise AssertionError(f"a relating {lb.spec.terminal_op} batch with U={U}, "
+                                         f"B={B} would not take the {self.route} route")
+                self.by_route[route] += 1
+                self.relating += 1
+            yield lb
 
 
 def profile_steps(trainer, params, opt, batches) -> tuple:
@@ -1877,10 +1865,9 @@ def phase_train(device, stamp: str) -> dict:
     cfg.checkpointing_frequency = 4  # one mid-epoch validation in each 7-step epoch
     trainer = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
     params = copy.deepcopy(params_cpu).to(device)
-    train_ld = RouteCounter(trainset.train_loader(cfg, ont, world, shuffled_sets), "per_question",
-                            cfg.tpu.train_chunk, cfg.tpu.pad_chunks)
+    train_ld = RouteCounter(trainset.train_loader(cfg, ont, world, shuffled_sets), "per_question")
     val_ld = RouteCounter(trainset.train_loader(cfg, ont, world, dedup_sets, shuffle=False),
-                          "shared", cfg.tpu.eval_chunk, cfg.tpu.pad_chunks)
+                          "shared")
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         ro.LAUNCHES = ro.BWD_LAUNCHES = pm.LAUNCHES = sc.LAUNCHES = 0
@@ -1893,7 +1880,7 @@ def phase_train(device, stamp: str) -> dict:
         launches = {"relation_oracle_fwd": ro.LAUNCHES, "relation_oracle_bwd": ro.BWD_LAUNCHES,
                     "pair_mlp_fwd": pm.LAUNCHES, "shared_contract_fwd": sc.LAUNCHES}
         passes = cfg.epoch_num * (1 + len(train_ld) // cfg.checkpointing_frequency)
-        pq, shared = train_ld.dispatched["per_question"], val_ld.dispatched["shared"]
+        pq, shared = train_ld.relating, val_ld.relating
         want = {"relation_oracle_fwd": pq, "relation_oracle_bwd": pq,
                 "pair_mlp_fwd": shared, "shared_contract_fwd": shared}
         if launches != want or val_ld.passes != passes or train_ld.passes != cfg.epoch_num:
@@ -1901,7 +1888,7 @@ def phase_train(device, stamp: str) -> dict:
                 f"train(): launches {launches}, not {want} ({train_ld.relating} per-question "
                 f"relating steps in {train_ld.passes} epochs, {val_ld.relating} shared-route "
                 f"relating validation batches in {val_ld.passes} passes, {passes} expected; "
-                f"{shared} relating validation forwards at eval_chunk={cfg.tpu.eval_chunk})")
+                f"eval_chunk={cfg.tpu.eval_chunk})")
         relating = {"train": train_ld.relating, "validation": val_ld.relating}
         files = sorted(os.path.relpath(os.path.join(d, f), tmp)
                        for d, _, fs in os.walk(tmp) for f in fs)
@@ -1923,8 +1910,7 @@ def phase_train(device, stamp: str) -> dict:
         f"steps/s, {q / wall!r} questions/s, {1000 * wall / steps!r} ms/step, validation "
         f"included ({stamp}); launches {launches} for relating batches {relating}: kernels 1 "
         f"and 2 once per per-question relating step, kernels 3 and 4 once per shared-route "
-        f"relating validation forward ({val_ld.dispatched['shared']} at eval_chunk="
-        f"{cfg.tpu.eval_chunk}, padded ones included); epoch "
+        f"relating validation batch (eval_chunk={cfg.tpu.eval_chunk}); epoch "
         f"losses {losses[:, 0].tolist()} (trend reported, not gated); over_all error by epoch "
         f"{errors[0, :, 0].tolist()}; files {files}")
     log(f"[7] inside train(): one validation pass ({len(val_ld)} batches) {val_s!r} s, one "
@@ -2594,9 +2580,7 @@ def phase_curriculum(device, stamp: str) -> dict:
             if loader is None:
                 return None
             route = "either" if shuffle and batch_size <= 80 else "shared"
-            counter = RouteCounter(loader, route,
-                                   cfg.tpu.train_chunk if shuffle else cfg.tpu.eval_chunk,
-                                   cfg.tpu.pad_chunks)
+            counter = RouteCounter(loader, route)
             self.counters.append(("train" if shuffle else "eval", counter))
             return counter
 
@@ -2766,9 +2750,8 @@ def check_stage(cfg, st, root, res, loaded, launches, counters, row) -> None:
     if len(train) != 1:
         raise AssertionError(f"stage {i}: {len(train)} training loaders")
     (train,) = train
-    # relating batches run, padded chunk steps and forwards included
-    pq = train.dispatched["per_question"]
-    shared = sum(c.dispatched["shared"] for c in evals) + train.dispatched["shared"]
+    pq = train.by_route["per_question"]
+    shared = sum(c.relating for c in evals) + train.by_route["shared"]
     want = [pq, pq, shared, shared]
     if (launches != want or (st["split"] == "bal") != (train.by_route["per_question"] > 0)
             or shared <= 0):
@@ -3322,7 +3305,7 @@ def mesh_worker(job_path: str) -> None:
     opt.step = recorded_step
     records, flags, checks, losses = [], [], [], []
     launches = [0, 0, 0, 0]
-    for t, (lb, count) in enumerate(trainer.lockstep(loader)):
+    for t, ((lb, count),) in enumerate(trainer.mesh_groups(loader, 1)):
         if t >= job["steps"]:
             break
         before = flat_params_of(state)
@@ -3830,7 +3813,7 @@ def phase_bf16(device, stamp: str) -> dict:
 # ------------------------------------------------------ phase 13: chunked dispatch
 
 CHUNK = 8  # phase 13's tpu.train_chunk / eval_chunk (Config's default)
-CHUNK_BATCHES = 11  # (a), (b): a chunk of 8, then a tail of 3 padded to 8
+CHUNK_BATCHES = 11  # (a), (b): a chunk of 8, then a tail of 3
 CHUNK_EPOCHS = 3  # passes over them: warm-up and capture, then replays
 CHUNK_DROPOUT = 0.1  # (e): sample_config.yaml's dropout
 
@@ -4037,7 +4020,7 @@ def chunk_train_route(route: str, cfg, ont, world, params_cpu, device, stamp: st
                          lb.spec)
             o_eager.step()
 
-    # the main run: CHUNK_EPOCHS passes of chunks through the graph, each
+    # the main run: CHUNK_EPOCHS passes of chunks through the graphs, each
     # chunk held against the eager per-step path from the same state
     torch.cuda.synchronize()
     worst, same, leaves, main = 0.0, 0, 0, [0, 0, 0, 0]
@@ -4052,54 +4035,55 @@ def chunk_train_route(route: str, cfg, ont, world, params_cpu, device, stamp: st
             w, s = update_errors(train_state(params, opt), train_state(p_eager, o_eager), start)
             worst, same, leaves = max(worst, w), same + s, leaves + len(start)
     chunks = CHUNK_EPOCHS * len(groups)
-    want = ([CHUNK * chunks] * 2 + [0, 0] if route == "per_question"
-            else [0, 0] + [CHUNK * chunks] * 2)
+    steps = CHUNK_EPOCHS * CHUNK_BATCHES
+    want = [steps] * 2 + [0, 0] if route == "per_question" else [0, 0] + [steps] * 2
     if main != want:
         raise AssertionError(f"{route}: {chunks} chunks launched (fwd, bwd, pair_mlp, "
                              f"contract) {main}, not {want}")
     stats = graphed.graphs.stats()
-    if stats["graphs"] != 1 or stats["replays"] != chunks - 1:
+    if stats["graphs"] != len(groups) or stats["replays"] != chunks - len(groups):
         raise AssertionError(f"{route}: graphs {stats}")
-    # the padded steps: the tail's graph replayed with every step padded
+    # the padded steps, where they run (the eager chunk pads the tail to
+    # CHUNK): every leaf bitwise where the tail's real steps alone leave it
     group, objects, obj_mask, arrays = groups[-1]
-    before = train_state(params, opt)
-    graphed._train_chunk(params, opt, group, objects, obj_mask, arrays, None, n_valid=0)
-    moved = sum(not torch.equal(a, b) for a, b in zip(before, train_state(params, opt)))
+    copy_train_state(p_eager, o_eager, params, opt)
+    eager._train_chunk(p_eager, o_eager, group, objects, obj_mask, arrays, None)
+    padded = train_state(p_eager, o_eager)
+    copy_train_state(p_eager, o_eager, params, opt)
+    eager_steps(group, objects, obj_mask, arrays)
+    moved = sum(not torch.equal(a, b) for a, b in zip(padded, train_state(p_eager, o_eager)))
     if moved:
-        raise AssertionError(f"{route}: {moved} leaves moved in a chunk of padded steps")
+        raise AssertionError(f"{route}: {moved} leaves moved by the padded steps of a chunk")
     log(f"[13] {route} route, {CHUNK_BATCHES} batches of {trainset.PRODUCTION_BATCH} at "
-        f"train_chunk={CHUNK} with pad_chunks (groups {CHUNK}, {CHUNK_BATCHES - CHUNK} padded "
-        f"to {CHUNK}), {CHUNK_EPOCHS} passes: {chunks} chunks (1 eager, 1 captured, "
-        f"{chunks - 2} replayed), each against the card's eager per-step path from the same "
-        f"state: worst leaf update error {worst!r} of its largest change (gate "
-        f"{TRAIN_GRAD_RTOL}), {same} of {leaves} leaf checks bitwise equal; a replay with "
-        f"every step padded moved 0 of {len(before)} parameters and Adam tensors; launches "
-        f"(fwd, bwd, pair_mlp, contract) {main}, {CHUNK} a chunk, replays counted; "
-        f"graphs {stats['graphs']}, capture {stats['capture_seconds']} s, pool "
-        f"{stats['pool_bytes']} bytes ({stamp})")
+        f"train_chunk={CHUNK} with pad_chunks (groups {CHUNK} and {CHUNK_BATCHES - CHUNK}, a "
+        f"graph each), {CHUNK_EPOCHS} passes: {chunks} chunks ({len(groups)} eager, "
+        f"{len(groups)} captured, {chunks - 2 * len(groups)} replayed), each against the card's "
+        f"eager per-step path from the same state: worst leaf update error {worst!r} of its "
+        f"largest change (gate {TRAIN_GRAD_RTOL}), {same} of {leaves} leaf checks bitwise "
+        f"equal; the eager chunk's {CHUNK - len(group)} padded steps moved 0 of {len(padded)} "
+        f"parameters and Adam tensors; launches (fwd, bwd, pair_mlp, contract) {main}, one a "
+        f"step, replays counted; graphs {stats['graphs']}, capture "
+        f"{stats['capture_seconds']} s, pool {stats['pool_bytes']} bytes ({stamp})")
 
-    # time: the chunk graph against the eager one-step path, loader and
+    # time: the chunk graphs against the eager one-step path, loader and
     # transfer outside, in turns
-    steps = [(g, o, m, a) for g, o, m, a in groups]
-
     def chunked():
-        for g, o, m, a in steps:
+        for g, o, m, a in groups:
             graphed._train_chunk(params, opt, g, o, m, a, None)
 
     def per_step():
-        for g, o, m, a in steps:
+        for g, o, m, a in groups:
             eager_steps(g, o, m, a)
 
     times = in_turns({"per_step": per_step, "chunked": chunked})
     idle = {"per_step": profiled_idle(per_step), "chunked": profiled_idle(chunked)}
-    done = CHUNK * len(groups)
     text = "; ".join(
         f"{name}: {statistics.median(w for _, w in t) / CHUNK_BATCHES!r} ms per step "
         f"(runs {[round(w, 3) for _, w in t]} ms), host enqueue "
         f"{statistics.median(e for e, _ in t) / CHUNK_BATCHES!r} ms per step, idle share "
         f"{idle[name]}" for name, t in times.items())
-    log(f"[13] {route} route, one pass of {CHUNK_BATCHES} steps ({done} run by the chunked "
-        f"side: the tail's padded steps compute), median of 4 in turns: {text} ({stamp})")
+    log(f"[13] {route} route, one pass of {CHUNK_BATCHES} steps, median of 4 in turns: "
+        f"{text} ({stamp})")
     return dict(zip(("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd",
                      "shared_contract_fwd"), main))
 
@@ -4126,16 +4110,17 @@ def chunk_eval(ont, params_cpu, device, stamp: str) -> dict:
     g8, g1 = sides[CHUNK], sides[1]
     for _ in range(2):  # eager warm-up, then capture (and replay)
         g8.test_epoch(batches, params)
-    want = dispatched(batches, CHUNK, g8.cfg.tpu.pad_chunks)
+    relating = RouteCounter(batches, "shared")
+    list(relating)
     torch.cuda.synchronize()
     c0 = launch_counts()
     outs8 = [(b, {k: v.clone() for k, v in o.items()}) for b, o in g8._eval_chunked(batches,
                                                                                    params)]
     torch.cuda.synchronize()
     main = [b - a for a, b in zip(c0, launch_counts())]
-    if main != [0, 0, want["shared"], want["shared"]]:
+    if main != [0, 0, relating.relating, relating.relating]:
         raise AssertionError(f"chunked eval launched {main}, not kernels 3 and 4 "
-                             f"{want['shared']} times (padded batches included)")
+                             f"{relating.relating} times")
     outs1 = list(g1._eval_chunked(batches, params))
     lp_err = 0.0
     for (b8, o8), (b1, o1) in zip(outs8, outs1):
@@ -4168,8 +4153,7 @@ def chunk_eval(ont, params_cpu, device, stamp: str) -> dict:
         f"{[len(g) for g in group_batches(batches, CHUNK)]}, "
         f"bf16 h2 stream): answers, matches, test_epoch errors and predict equal to "
         f"eval_chunk=1, log_probability within {lp_err!r}; launches (fwd, bwd, pair_mlp, "
-        f"contract) {main} ({want['shared']} relating forwards dispatched, padded ones "
-        f"included); graphs {stats['graphs']}, replays {stats['replays']}, capture "
+        f"contract) {main} ({relating.relating} relating batches); graphs {stats['graphs']}, replays {stats['replays']}, capture "
         f"{stats['capture_seconds']} s, pool {stats['pool_bytes']} bytes; median of 4 in "
         f"turns: {text} ({stamp})")
     return dict(zip(("relation_oracle_fwd", "relation_oracle_bwd", "pair_mlp_fwd",
@@ -4215,25 +4199,7 @@ def chunk_dropout(ont, params_cpu, device, stamp: str) -> None:
         raise AssertionError(f"dropout chunk launched {launched}: dropout takes the plain tails")
     log(f"[13] (e) a chunk of 2 shared-route batches at dropout={CHUNK_DROPOUT} (plain tails, "
         f"no kernel: launches {launched}), eager then two replays from one state: losses "
-        f"{[x.tolist() for x in losses]}, the replays' differ (new masks each; the generator "
-        f"advances on padded steps too); capture {trainer.graphs.capture_seconds} s ({stamp})")
-
-
-def dispatched(batches, chunk: int, pad: bool) -> dict:
-    """Relating batches dispatched by route when ``batches`` run in groups
-    of ``chunk``: a group of k >= 2 runs ``chunk`` of them with
-    ``pad_chunks`` (its padded ones compute too), else k."""
-    from dfol_vqa_tpu_torch.data.transfer import group_batches
-    from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
-
-    out = {"per_question": 0, "shared": 0}
-    for group in group_batches(batches, chunk):
-        lb = group[0]
-        if spec_needs_relations(lb.spec):
-            U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
-            n = chunk if pad and len(group) > 1 else len(group)
-            out["shared" if U * 2 <= B else "per_question"] += n
-    return out
+        f"{[x.tolist() for x in losses]}, the replays' differ (new masks each); capture {trainer.graphs.capture_seconds} s ({stamp})")
 
 
 def phase_chunk(device, stamp: str) -> dict:

@@ -4,13 +4,15 @@ Port of ``dfol_vqa_tpu/data/device_prefetch.py``. ``to_device_batch``
 copies each tensor of a ``LoadedBatch`` — ``objects``, ``obj_mask`` and
 every entry of ``arrays`` — on its own from pinned host memory with
 ``non_blocking=True``, so the copies queue on the current stream behind the
-work already enqueued. ``device_prefetch`` does that for a loader's batches
-on a worker thread, ``size`` batches ahead. ``chunk_prefetch`` groups runs
-of same-bucket batches (``group_key``: the same spec, meta and object
-shape, at most ``chunk`` of them), stacks each group on the host into
+work already enqueued. ``chunk_prefetch`` groups runs of same-bucket
+batches (``group_key``: the same spec, meta and object shape, at most
+``chunk`` of them), stacks each group of two or more on the host into
 pinned staging buffers and copies it as one transfer per tensor on a copy
-stream of its own, also on a worker thread: the input of the trainer's
-chunked steps (``train/trainer.py``).
+stream of its own, on a worker thread; a group of one goes through
+``to_device_batch`` when the consumer takes it. It feeds the trainer's
+steps (``train/trainer.py``). The JAX package's ``device_prefetch`` (one
+batch at a time, ``size`` ahead) has no counterpart: ``chunk_prefetch`` at
+``chunk=1`` takes its place.
 
 The JAX package packs the ~20 small program tensors into one int32 buffer
 (``program_compiler.pack_arrays``/``unpack_arrays``) to save one RPC per
@@ -204,12 +206,15 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
     ``len(group)`` axis, on ``device``, objects as ``transfer_dtype`` says
     (int8 and bf16 prepared per batch).
 
-    A worker thread stacks each group into pinned staging buffers and
-    copies it as one transfer per tensor on a copy stream of its own,
-    ``size`` groups ahead; the consumer's current stream waits for the
-    copies before it gets them. The worker reuses a set of staging
-    buffers only once the copies that read it have finished (an event per
-    set)."""
+    A worker thread groups the batches, ``size`` groups ahead, and stacks
+    each group of two or more into pinned staging buffers and copies it as
+    one transfer per tensor on a copy stream of its own; the consumer's
+    current stream waits for the copies before it gets them. The worker
+    reuses a set of staging buffers only once the copies that read it have
+    finished (an event per set). A group of one is copied by
+    ``to_device_batch`` on the consumer's thread when the consumer takes
+    it, its tensors given the leading axis as views: for one batch the
+    stacking, staging and second stream cost more than they save."""
     if transfer_dtype not in TRANSFER_DTYPES:
         raise ValueError(f"transfer_dtype must be one of {TRANSFER_DTYPES}, "
                          f"got {transfer_dtype!r}")
@@ -219,9 +224,14 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
     ring = [_Staging() for _ in range(size + 1)] if cuda else None
 
     def produce():
-        for i, group in enumerate(group_batches(loader, chunk)):
+        i = 0
+        for group in group_batches(loader, chunk):
+            if len(group) == 1:
+                yield group, None, None
+                continue
             t = _stack_to_device(group, device, transfer_dtype,
                                  ring[i % len(ring)] if cuda else None, stream)
+            i += 1
             ready = None
             if cuda:
                 ready = torch.cuda.Event()
@@ -229,6 +239,10 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
             yield group, t, ready
 
     for group, t, ready in _threaded(produce, size):
+        if t is None:
+            _, objects, obj_mask, arrays = to_device_batch(group[0], device, transfer_dtype)
+            yield group, objects[None], obj_mask[None], {k: v[None] for k, v in arrays.items()}
+            continue
         if ready is not None:
             current = torch.cuda.current_stream(device)
             current.wait_event(ready)
@@ -237,12 +251,3 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
         objects, obj_mask = t.pop("objects"), t.pop("obj_mask")
         yield group, objects, obj_mask, t
 
-
-def device_prefetch(loader, device, size: int = 2,
-                    transfer_dtype: Optional[str] = None) -> Iterator:
-    """Yields ``to_device_batch(batch, device, transfer_dtype)`` for every
-    batch of ``loader``, the copies issued ``size`` batches ahead on a
-    worker thread (on the device's default stream, which the consumer's
-    work follows)."""
-    device = torch.device(device)
-    return _threaded(lambda: (to_device_batch(b, device, transfer_dtype) for b in loader), size)

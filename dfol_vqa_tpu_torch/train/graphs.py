@@ -12,8 +12,12 @@ version. On a CUDA device:
   capture must find ready (the kernels' libraries and attributes, Adam's
   state, the interpreter's index tensors, the gradient buffers);
 * the second call copies its inputs into static buffers (allocated outside
-  any graph), captures ``fn`` on them into one ``torch.cuda.CUDAGraph``
-  and replays it, so this chunk too runs once;
+  any graph), captures ``fn`` on them into one ``torch.cuda.CUDAGraph`` on
+  a side stream and replays it, so this chunk too runs once. The capture
+  is begun directly, not through ``torch.cuda.graph``, whose entry runs
+  ``gc.collect`` and empties the device and pinned-host caches: on a
+  training run that captures a graph now and then, refilling those caches
+  afterwards costs more than the capture;
 * every later call copies its inputs into those buffers on the current
   stream, replays the graph and returns clones of its static outputs.
 
@@ -93,6 +97,7 @@ class GraphCache:
         self.capture = capture and self.device.type == "cuda"
         self._entries: Dict[Hashable, object] = {}
         self._pool = None
+        self._stream = None  # the capture stream, made at the first capture
         self.capture_seconds: List[float] = []
 
     @property
@@ -103,6 +108,10 @@ class GraphCache:
         """Forget the graphs (and warm-ups) of keys that start with ``kind``."""
         for key in [k for k in self._entries if k[0] == kind]:
             del self._entries[key]
+        if not self.graphs:
+            # the allocator releases a pool that no graph uses any more, and
+            # a capture must not name a released pool
+            self._pool = None
 
     def run(self, key: tuple, fn: Callable[..., Tuple[torch.Tensor, ...]],
             inputs: Sequence[torch.Tensor],
@@ -132,9 +141,19 @@ class GraphCache:
             graph.register_generator_state(generator)
         before = launch_counts()
         t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        torch.cuda.synchronize(self.device)
+        self._stream.wait_stream(current)
         try:
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                outputs = tuple(fn(*static))
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    outputs = tuple(fn(*static))
+                finally:
+                    graph.capture_end()
+            current.wait_stream(self._stream)
         except BaseException:
             del self._entries[key]
             raise

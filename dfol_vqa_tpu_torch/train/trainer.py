@@ -18,19 +18,24 @@ per-question route (``Interpreter.build_world``).
 Chunked dispatch, as in the JAX package (``tpu.train_chunk``,
 ``tpu.eval_chunk``, ``tpu.pad_chunks``): ``data/transfer.chunk_prefetch``
 groups runs of same-bucket batches (at most a chunk of them) and copies
-each group to the device as one stacked transfer per tensor. A group of
-one batch takes the one-step path. A group of k >= 2 takes the chunk step:
+each group of two or more to the device as one stacked transfer per
+tensor. A group of one batch (copied by ``to_device_batch``) takes the
+one-step path. A group of k >= 2 takes the chunk step:
 k training steps (``_train_chunk``) or k forwards (``_eval_chunked``,
-through ``Interpreter.forward_many``). With ``pad_chunks`` a short group
-is padded to the full chunk by repeating its last batch: padded training
-steps are gated no-ops on the parameters and Adam's state
+through ``Interpreter.forward_many``). ``global_step`` advances by a
+group's real length, and mid-epoch validation and saves are checked after
+each group only, as the JAX trainer checks them at dispatch boundaries.
+On a CUDA device each chunk step runs as one CUDA graph per key
+(``train/graphs.py``: the first chunk of a key eagerly, the second
+captured, every later one replayed); on the CPU it runs eagerly, which is
+the plain version. With ``pad_chunks`` the eager chunk pads a short group
+to the full chunk by repeating its last batch, as the JAX package does:
+padded training steps are gated no-ops on the parameters and Adam's state
 (``Optimizer.step(valid=...)``, ``n_valid`` a device tensor), padded
-forwards are dropped. ``global_step`` advances by a group's real length,
-and mid-epoch validation and saves are checked after each group only, as
-the JAX trainer checks them at dispatch boundaries. On a CUDA device each
-chunk step runs as one CUDA graph per key (``train/graphs.py``: the
-first chunk of a key eagerly, the second captured, every later one
-replayed); on the CPU it runs eagerly, which is the plain version.
+forwards are dropped. A CUDA graph runs only a group's real steps or
+forwards, one graph per group length (``_chunk_len``): padded steps are
+exact no-ops, so the result is the same, and a capture costs less than
+the padded compute.
 Evaluation runs under ``torch.inference_mode()``; its outputs stay on the
 device and are read back once, after the last batch (per batch only when
 hardset mining needs the answers). Training keeps each step's loss on the
@@ -38,7 +43,7 @@ device and reads the epoch's losses back once.
 
 With a ``mesh`` (``parallel/mesh.py``) every rank runs this trainer on its
 own shard of each loader (``mesh.batch_sharding``). Training steps in
-lockstep (``lockstep``: every rank takes the longest shard's number of
+lockstep (``mesh_groups``: every rank takes the longest shard's number of
 steps, one without rows that step taking part with none); a step gathers
 the FSDP shards, divides the rank's loss sum by the step's global count of
 real questions, reduces the gradients and steps the masters
@@ -46,8 +51,8 @@ real questions, reduces the gradients and steps the masters
 would take for the global batches (``mesh_groups``: the ranks agree on
 each global batch's spec, program shapes and unique-image count), and
 checkpoints fall at those boundaries; the steps of a chunk run eagerly,
-one lockstep step at a time, with no padded steps and no CUDA graph (gloo
-cannot be captured, and each step's exchange of sizes and keys is a host
+one step at a time, with no padded steps and no CUDA graph (gloo cannot be
+captured, and each step's exchange of sizes and keys is a host
 collective).
 Evaluation under the mesh runs each chunk eagerly too, sums the error
 counts over the data axis and gathers predictions and hardset entries in
@@ -189,6 +194,7 @@ class VQATrainer:
         # chunk steps as CUDA graphs on one card; eager on the CPU and under a mesh
         self.graphs = GraphCache(self.device, capture=mesh is None)
         self.train_graph_stats: Optional[dict] = None  # the graphs' stats at train()'s end
+        self._eval_params: Optional[tuple] = None  # (tree, param_key) the eval graphs read
 
     # ------------------------------------------------------------- utilities
 
@@ -234,27 +240,33 @@ class VQATrainer:
         (loss / shares).backward()
         return loss.detach()
 
+    def _chunk_len(self, n: int, chunk: int) -> int:
+        """The steps or forwards a chunk of ``n`` >= 2 batches runs: with
+        ``pad_chunks`` the ``chunk`` that the eager path pads it to, as the
+        JAX package does; ``n`` without, and in a CUDA graph, which runs the
+        real ones only (one graph per group length)."""
+        if self.cfg.tpu.pad_chunks and not self.graphs.capture:
+            return max(chunk, n)
+        return n
+
     def _train_chunk(self, params: OracleParams, opt: Optimizer, group: List[LoadedBatch],
                      objects: torch.Tensor, obj_mask: torch.Tensor,
                      arrays: Dict[str, torch.Tensor],
-                     generator: Optional[torch.Generator],
-                     n_valid: Optional[int] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
         """The steps of a group of k >= 2 batches (stacked tensors), as the
-        JAX package's ``_train_step_chunk`` (``pad_chunks`` off: one graph
-        per group length) or ``_train_step_chunk_padded`` (on: padded to
-        ``train_chunk`` by repeating the last batch, the steps at index >=
-        ``n_valid`` gated no-ops; ``n_valid`` defaults to the group's
-        length). Returns the real steps' losses on the device. A padded
-        step runs its forward and backward like any other, so with dropout
-        it draws masks and advances ``generator`` (JAX keeps its rng on a
-        padded step; the masks differ from JAX's anyway)."""
-        cfg, b0 = self.cfg, group[0]
-        padded = cfg.tpu.pad_chunks
-        k = max(cfg.tpu.train_chunk, len(group)) if padded else len(group)
+        JAX package's ``_train_step_chunk`` or, padded (``_chunk_len``), its
+        ``_train_step_chunk_padded``: padded to ``train_chunk`` by repeating
+        the last batch, the steps past the group's length gated no-ops.
+        Returns the real steps' losses on the device. A padded step runs its
+        forward and backward like any other, so with dropout it draws masks
+        and advances ``generator`` (JAX keeps its rng on a padded step; the
+        masks differ from JAX's anyway)."""
+        b0 = group[0]
+        k = self._chunk_len(len(group), self.cfg.tpu.train_chunk)
+        padded = k > len(group)
         names = sorted(arrays)
         stacked = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
-        n_valid = torch.full((), len(group) if n_valid is None else n_valid, dtype=torch.int64,
-                             device=self.device)
+        n_valid = torch.full((), len(group), dtype=torch.int64, device=self.device)
 
         def steps(objects, obj_mask, n_valid, *rest):
             losses = []
@@ -268,7 +280,7 @@ class VQATrainer:
         inputs = stacked[:2] + [n_valid] + stacked[2:]
         key = ("train", b0.spec, b0.meta, _shapes(inputs), k, padded, id(opt),
                param_key(params))
-        gen = generator if cfg.dropout > 0 else None
+        gen = generator if self.cfg.dropout > 0 else None
         (losses,) = self.graphs.run(key, steps, inputs, generator=gen)
         return losses[:len(group)]
 
@@ -279,7 +291,7 @@ class VQATrainer:
 
         Under the mesh ``params`` is the ``ShardedParams``, ``batch`` this
         rank's rows (None: none this step) and ``count`` the step's count of
-        real questions over the data axis (``lockstep``); the loss returned
+        real questions over the data axis (``mesh_groups``); the loss returned
         is this rank's sum over that count, and the data axis's sum of them
         the step's loss."""
         if self.mesh is None:
@@ -300,11 +312,13 @@ class VQATrainer:
 
     def mesh_groups(self, loader, chunk: int
                     ) -> Iterator[List[Tuple[Optional[LoadedBatch], int]]]:
-        """Under the mesh: the ``lockstep`` steps of an epoch in the chunks
-        one device would take for the global batches. Each step the ranks
-        exchange their batch's ``mesh_group_key`` and size (one host
-        collective, as ``lockstep``'s count); a chunk closes where the
-        global key changes or at ``chunk`` steps."""
+        """Under the mesh: the steps of an epoch over ``loader``, as lists
+        of (batch, real questions of the step over the data axis) in the
+        chunks one device would take for the global batches. Every rank
+        takes as many steps as the longest shard, a rank whose shard has
+        run out with None. Each step the ranks exchange their batch's
+        ``mesh_group_key`` and size (one host collective); a chunk closes
+        where the global key changes or at ``chunk`` steps."""
         it = iter(loader)
         buf: List[Tuple[Optional[LoadedBatch], int]] = []
         key = None
@@ -350,24 +364,6 @@ class VQATrainer:
                 losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
                                            generator)
                 yield list(losses), [b.batch_size for b in group]
-
-    def lockstep(self, loader) -> Iterator[Tuple[Optional[LoadedBatch], int]]:
-        """(batch, real questions of the step) for each step of an epoch
-        over ``loader``. Under the mesh every rank takes as many steps as
-        the longest shard, a rank whose shard has run out with None, and the
-        count is the step's over the data axis."""
-        if self.mesh is None:
-            for batch in loader:
-                yield batch, batch.batch_size
-            return
-        it = iter(loader)
-        while True:
-            batch = next(it, None)
-            live, count = self.mesh.host_sum(
-                [batch is not None, 0 if batch is None else batch.batch_size])
-            if not live:
-                return
-            yield batch, int(round(count))
 
     def train(
         self,
@@ -514,15 +510,22 @@ class VQATrainer:
         """(batch, outputs on the device: ``log_probability``, ``match``,
         ``answer_flags``) for every batch of ``loader``, in order. A group of
         one batch runs ``Interpreter.forward``; a group of k >= 2 runs
-        ``forward_many`` (padded to ``eval_chunk`` with ``pad_chunks``, the
-        padded outputs dropped), one CUDA graph per key on one card, as the
-        JAX package's ``_eval_chunked``. ``params`` is the whole tree or,
-        under the mesh, a ``ShardedParams`` (its gathered working tree is
-        read)."""
+        ``forward_many`` (padded as ``_chunk_len`` says, the padded outputs
+        dropped), one CUDA graph per key on one card, as the JAX package's
+        ``_eval_chunked``. ``params`` is the whole tree or, under the mesh, a
+        ``ShardedParams`` (its gathered working tree is read).
+
+        The eval graphs belong to one parameter tree: evaluating another
+        drops them, and the trainer holds the tree they read, so its tensors
+        keep their addresses while the graphs live."""
         if isinstance(params, ShardedParams):
             params = params.gather()
-        cfg = self.cfg
-        chunk = max(1, cfg.tpu.eval_chunk)
+        owner = (params, param_key(params))
+        if self._eval_params is None or self._eval_params[0] is not params or \
+                self._eval_params[1] != owner[1]:
+            self.graphs.drop("eval")
+            self._eval_params = owner
+        chunk = max(1, self.cfg.tpu.eval_chunk)
         for group, objects, obj_mask, arrays in chunk_prefetch(loader, chunk, self.device):
             b0 = group[0]
             if len(group) == 1:
@@ -531,7 +534,7 @@ class VQATrainer:
                                               {k: v[0] for k, v in arrays.items()}, b0.spec)
                 yield b0, out
                 continue
-            k = max(chunk, len(group)) if cfg.tpu.pad_chunks else len(group)
+            k = self._chunk_len(len(group), chunk)
             names = sorted(arrays)
             inputs = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
 
@@ -541,7 +544,7 @@ class VQATrainer:
                                                    dict(zip(names, rest)), b0.spec)
                 return out["log_probability"], out["match"], out["answer_flags"]
 
-            key = ("eval", b0.spec, b0.meta, _shapes(inputs), param_key(params))
+            key = ("eval", b0.spec, b0.meta, _shapes(inputs))
             lp, match, flags = self.graphs.run(key, forwards, inputs)
             for i, batch in enumerate(group):
                 yield batch, {"log_probability": lp[i], "match": match[i],

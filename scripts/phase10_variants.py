@@ -5,11 +5,8 @@ for variants of a changed one:
 
 * ``parent``: the parent checkout as it is;
 * ``change``: the changed checkout as it is;
-* ``no-pad``: ``tpu.pad_chunks=False`` in every stage's config (one graph
-  per group length, no padded steps or forwards);
-* ``eager``: no CUDA graph (``GraphCache`` with ``capture=False``), padded;
-* ``keep-cache``: ``torch.cuda.empty_cache`` a no-op, so a capture keeps
-  the allocator's cached blocks;
+* ``eager``: no CUDA graph (``GraphCache`` with ``capture=False``), so
+  chunks run eagerly and pad as the JAX package does;
 * ``chunk-1``: ``tpu.train_chunk = tpu.eval_chunk = 1`` in every stage's
   config (no chunk forms: the one-step path through the chunk feed).
 
@@ -18,8 +15,9 @@ seconds. Run from the repository root on the card:
 
     python3 scripts/phase10_variants.py PARENT_DIR CHANGE_DIR OUT_DIR [VARIANT ...]
 
-Writes each run's log to OUT_DIR/phase10_<i>_<variant>.log and prints one
-line per run."""
+The variants run in the order given, by default ``parent change change
+parent`` (the two checkouts in turns). Writes each run's log to
+OUT_DIR/phase10_<i>_<variant>.log and prints one line per run."""
 import os
 import re
 import subprocess
@@ -51,15 +49,6 @@ graphs.GraphCache._capture = _counted
 VARIANTS = {
     "parent": "",
     "change": COUNT,
-    "no-pad": COUNT + """
-from dfol_vqa_tpu_torch.config import Config
-_from_yaml = Config.from_yaml
-def _no_pad(path_or_dict):
-    cfg = _from_yaml(path_or_dict)
-    cfg.tpu.pad_chunks = False
-    return cfg
-Config.from_yaml = staticmethod(_no_pad)
-""",
     "chunk-1": COUNT + """
 from dfol_vqa_tpu_torch.config import Config
 _from_yaml = Config.from_yaml
@@ -75,9 +64,6 @@ def _eager(self, device, capture=True):
     _init(self, device, False)
 graphs.GraphCache.__init__ = _eager
 """,
-    "keep-cache": COUNT + """
-torch.cuda.empty_cache = lambda: None
-""",
 }
 RUN = """
 cs.phase_curriculum(torch.device('cuda', 0), cs.card())
@@ -86,7 +72,7 @@ if 'captures' in globals():
 """
 
 parent, change, out = sys.argv[1], sys.argv[2], sys.argv[3]
-order = sys.argv[4:] or ["parent", "change", "no-pad", "eager", "keep-cache", "parent"]
+order = sys.argv[4:] or ["parent", "change", "change", "parent"]
 os.makedirs(out, exist_ok=True)
 failed = 0
 for i, name in enumerate(order):

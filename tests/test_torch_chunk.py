@@ -7,7 +7,8 @@ chunk on the card, eagerly here) at the same boundaries.
 
 * ``chunk_prefetch``'s groups against JAX's (``tests/test_chunk_prefetch``):
   the tail flush, a spec / meta / shape boundary forcing a flush,
-  ``chunk=1``, int8 per batch, the producer's error; ``device_prefetch``.
+  ``chunk=1``, int8 per batch, the producer's error; a group of one is
+  ``to_device_batch``'s tensors.
 * ``VQATrainer.train`` over one run of six same-bucket batches at
   ``train_chunk=4`` (groups of 4 and 2), ``pad_chunks`` on and off,
   ``checkpointing_frequency=3``, against the JAX trainer from one init:
@@ -50,8 +51,7 @@ from dfol_vqa_tpu.train.trainer import VQATrainer as JVQATrainer
 from dfol_vqa_tpu_torch.convert import flatten, params_from_numpy, params_to_numpy
 from dfol_vqa_tpu_torch.data import evalset, trainset
 from dfol_vqa_tpu_torch.data.features import SyntheticFeatures
-from dfol_vqa_tpu_torch.data.transfer import (chunk_prefetch, device_prefetch, group_batches,
-                                              to_device_batch)
+from dfol_vqa_tpu_torch.data.transfer import chunk_prefetch, group_batches, to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter
 from dfol_vqa_tpu_torch.train import trainer as tr
 from dfol_vqa_tpu_torch.train.optim import Optimizer
@@ -147,16 +147,18 @@ def test_chunk_prefetch_producer_error_reaches_the_caller():
             run()
 
 
-def test_device_prefetch_equals_to_device_batch(ontology):
+def test_group_of_one_is_to_device_batch(ontology):
+    """At ``chunk=1`` every group is one batch, its tensors
+    ``to_device_batch``'s with a leading axis of one."""
     cfg = evalset.demo_eval_config(tiny=True)
     world = evalset.demo_world(ontology, tiny=True)
     batches = list(eval_loader(ontology, cfg, world))
-    got = list(device_prefetch(iter(batches), "cpu", transfer_dtype="int8"))
-    assert [g[0] for g in got] == batches
+    got = list(chunk_prefetch(iter(batches), 1, "cpu", transfer_dtype="int8"))
+    assert [g[0] for g in got] == [[b] for b in batches]
     for (_, o, m, a), b in zip(got, batches):
         _, wo, wm, wa = to_device_batch(b, "cpu", "int8")
-        assert torch.equal(o, wo) and torch.equal(m, wm)
-        assert set(a) == set(wa) and all(torch.equal(a[k], wa[k]) for k in a)
+        assert torch.equal(o, wo[None]) and torch.equal(m, wm[None])
+        assert set(a) == set(wa) and all(torch.equal(a[k], wa[k][None]) for k in a)
 
 
 # ------------------------------------------------------------ training

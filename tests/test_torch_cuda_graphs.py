@@ -12,9 +12,11 @@ and eval configs, dropout 0), over chunks of four batches:
   leaf's change within 3e-4 of its largest change, the chip smoke's
   ``TRAIN_GRAD_RTOL``; the losses within 1e-5 relative), for the first
   chunk (eager), the second (captured, then replayed) and the third
-  (replayed); a padded chunk's padded steps change nothing;
+  (replayed), against the eager path padded or not; under ``pad_chunks``
+  a short group's graph runs its real steps only;
 * an evaluation chunk replayed from its graph gives the eager forwards'
-  answer flags and matches, log-probabilities within 1e-6;
+  answer flags and matches, log-probabilities within 1e-6; evaluating
+  another parameter tree drops the eval graphs of the last one;
 * a capture that fails raises, and the key is not left half made;
 * the kernels' launch counts include the launches of every replay.
 """
@@ -102,9 +104,10 @@ def test_train_chunk_replay_equals_eager(cuda, ontology, pad):
 
 @pytest.mark.cuda
 def test_padded_steps_change_nothing_in_a_graph(cuda, ontology):
-    """Three groups of two batches padded to four: after each replay the
-    state equals two eager unpadded steps' within the gate, and Adam's step
-    count grows by two a chunk."""
+    """Three groups of two batches at ``train_chunk=4`` with
+    ``pad_chunks``: the graph runs the two real steps only, so after each
+    replay the state equals two eager steps' within the gate, and Adam's
+    step count grows by two a chunk."""
     cfg = trainset.demo_train_config(tiny=True)
     cfg.tpu.train_chunk = 2
     world = evalset.demo_world(ontology, tiny=True)
@@ -153,6 +156,33 @@ def test_eval_chunk_replay_equals_eager(cuda, ontology):
                                        rtol=0)
     stats = graphed.graphs.stats()
     assert stats["graphs"] == 2 and stats["replays"] == 4
+
+
+@pytest.mark.cuda
+def test_eval_graphs_follow_the_parameter_tree(cuda, ontology):
+    """Evaluating a second tree drops the first tree's graphs and reads the
+    second tree's values; the trainer holds the tree its graphs read."""
+    cfg = evalset.demo_eval_config(tiny=True, stream_dtype="float32")
+    cfg.tpu.eval_chunk = CHUNK
+    world = evalset.demo_world(ontology, tiny=True)
+    files = evalset.eval_datasets(world, (("exist", 2, 64),), evalset.TINY_BATCH,
+                                  evalset.TINY_IMAGES_PER_BATCH, seed=6)
+    interp = Interpreter(cfg, ontology)
+    trees = [interp.init_params(torch.Generator().manual_seed(s), cuda) for s in (0, 1)]
+    graphed = VQATrainer(cfg, Interpreter(cfg, ontology), device=cuda)
+    eager = VQATrainer(cfg, Interpreter(cfg, ontology), device=cuda)
+    eager.graphs = GraphCache(cuda, capture=False)
+    for params in trees:
+        want = [o["log_probability"] for _, o in eager._eval_chunked(
+            evalset.eval_loader(cfg, ontology, world, files), params)]
+        for _ in range(3):
+            got = [o["log_probability"] for _, o in graphed._eval_chunked(
+                evalset.eval_loader(cfg, ontology, world, files), params)]
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+        stats = graphed.graphs.stats()
+        assert stats["graphs"] == 1 and stats["replays"] == 2
+        assert graphed._eval_params[0] is params
 
 
 @pytest.mark.cuda
