@@ -183,11 +183,28 @@ Phases, each reported on its own line(s):
    ``GOLDEN_ATOL``; questions/s, host enqueue and idle share of both);
    (e) a chunk of two shared-route batches at ``dropout=0.1`` (plain
    tails), whose two replays from one state draw different masks. Graphs,
-   capture seconds and the bytes their memory pool holds are printed.
+   capture seconds and the bytes their memory pool holds are printed;
+14. serving over a device mesh in one process and the graft entry points
+   (``phase_serving_mesh``): (a) the demo engine at production widths on
+   logical meshes of the card, ``(2,)``, ``(4,)``, ``(2, 2)`` and ``(4,
+   2)`` (``parallel/mesh.make_local_mesh``; each data row a replica, the
+   concept head split over the model axis, a group's rows split in blocks
+   over the data axis), warmed up on every data row, serving phase 4's 64
+   and phase 8's 68 requests: answers equal to the CPU engine's (and so to
+   the single-card engine's), kernel 1 once per relating part and never
+   for the others; (b) the first JAX golden through a ``(2, 2)`` tiny mesh
+   engine; (c) the ``cur7`` calibrator engine on ``(2, 2)`` against phase
+   9's CPU answers, its GloVe constant on each replica's device; (d) with
+   two cards or more, requests/s of a mesh over every card against one
+   card in turns (else printed as not measured); (e)
+   ``graft_entry.entry()`` on the card against the CPU from the same
+   weights (within ``GOLDEN_ATOL``) and ``graft_entry.dryrun_multichip(2)``
+   as two gloo ranks on the card (over NCCL on every card where there are
+   two or more), its ranks' launches counted.
 
 Then one JSON line with each kernel's launches (summed over the main runs
-of phases 4 (both transfers), 6, 7, 8, 9, 10, 11, 12 and 13, each counted
-from 0; a CUDA graph's replay counts the kernels it holds),
+of phases 4 (both transfers), 6, 7, 8, 9, 10, 11, 12, 13 and 14, each
+counted from 0; a CUDA graph's replay counts the kernels it holds),
 error, times, FLOP, bound and
 share of bound (``library_ms`` null: no single PyTorch call computes any of
 the four fused functions), and last the
@@ -777,12 +794,13 @@ def check_launches(launches: int, keys, relating) -> None:
 
 
 def phase_serve(eng, cpu_eng, world, stamp: str, mix=SERVE_MIX, tag: str = "4",
-                seed: int = 1000) -> int:
+                seed: int = 1000, answers: dict = None) -> int:
     """Serve ``mix`` (default: phase 4's 64 requests) on the card; the
     answers must equal ``cpu_eng``'s (the same engine and weights on the
     CPU), and kernel 1 must have launched once per relating group: at least
     once per relating canonical spec, at most once per relating request.
-    Returns the kernel launches of the run."""
+    ``answers[tag]`` keeps the CPU engine's answers (phase 14 holds its mesh
+    engines to them). Returns the kernel launches of the run."""
     from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
 
@@ -803,6 +821,8 @@ def phase_serve(eng, cpu_eng, world, stamp: str, mix=SERVE_MIX, tag: str = "4",
     if got != want:
         bad = sum(a != b for a, b in zip(got, want))
         raise AssertionError(f"{bad}/{len(qs)} GPU answers differ from the CPU plain engine")
+    if answers is not None:
+        answers[tag] = want
     check_launches(launches, keys, relating)
     p50 = statistics.median(r.latency_ms for r in results)
     families = sorted({q["program"]["last_op"]["operator"] for q in qs})
@@ -863,9 +883,11 @@ def phase_serve_int8(eng, cpu_eng, world, device, stamp: str) -> int:
     return launches
 
 
-def check_golden(device, atol: float) -> int:
-    """Run the port against the JAX golden on ``device``; returns the number
-    of requests checked. Answers must be equal and log-probabilities within
+def check_golden(device, atol: float, mesh=None) -> int:
+    """Run the port against the JAX golden on ``device`` (or over the
+    serving ``mesh``: each request's forward through data row 0's replica,
+    its head split over the row's model devices); returns the number of
+    requests checked. Answers must be equal and log-probabilities within
     ``atol``; the port's compiled program tensors must equal JAX's."""
     from dfol_vqa_tpu_torch.convert import params_from_numpy
     from dfol_vqa_tpu_torch.data.transfer import to_device_batch
@@ -875,7 +897,9 @@ def check_golden(device, atol: float) -> int:
     params = params_from_numpy({k[len("params/"):]: golden[k]
                                 for k in golden.files if k.startswith("params/")})
     n = sum(1 for k in golden.files if k.endswith("/question"))
-    _, _, _, eng = build_demo_engine(tiny=True, device=device, params=params, max_batch=8)
+    _, _, _, eng = build_demo_engine(tiny=True, device=device, params=params, max_batch=8,
+                                     mesh=mesh)
+    device = eng.device
     try:
         qs, objs, masks = [], [], []
         for i in range(n):
@@ -2185,7 +2209,7 @@ def model_params(cfg, ont):
     return params
 
 
-def phase_calibrator_serve(world, device, stamp: str) -> int:
+def phase_calibrator_serve(world, device, stamp: str, answers: dict = None) -> int:
     """Phase 4's 64 requests through a ``ServingEngine`` with the calibrator
     configuration at O=24 on the card, answers equal to the same engine on
     the CPU, kernel 1 once per relating group (``phase_serve``); the
@@ -2209,7 +2233,7 @@ def phase_calibrator_serve(world, device, stamp: str) -> int:
                              transfer_dtype="bfloat16") for d in (device, "cpu")]
     cal.compute_modulations = counted
     try:
-        launches = phase_serve(engines[0], engines[1], world, stamp, tag="9")
+        launches = phase_serve(engines[0], engines[1], world, stamp, tag="9", answers=answers)
     finally:
         cal.compute_modulations = real
         for eng in engines:
@@ -2429,8 +2453,9 @@ def phase_calibrator_profile(device, stamp: str) -> None:
         f"{name[:60]} {ms!r} ({n})" for name, (ms, n) in top))
 
 
-def phase_calibrator(world, device, stamp: str) -> dict:
-    """Phase 9: the calibrator and the trainable interpreter on the card.
+def phase_calibrator(world, device, stamp: str, answers: dict = None) -> dict:
+    """Phase 9: the calibrator and the trainable interpreter on the card
+    (``answers["9"]``: the CPU engine's answers to the served burst).
     Returns the kernels' launches over its main runs (the served burst, the
     eval, the training steps, F = 4)."""
     t0 = time.perf_counter()
@@ -2440,7 +2465,7 @@ def phase_calibrator(world, device, stamp: str) -> dict:
         f"where float32 saturates, {SATURATED_ULPS} x 2^-24 in probability), answer "
         f"flags and matches equal up to near-ties, one step each (calibrator: per-question and "
         f"shared; F=4: per-question) within {GOLDEN_GRAD_RTOL} relative and the Adam bound")
-    serve = phase_calibrator_serve(world, device, stamp)
+    serve = phase_calibrator_serve(world, device, stamp, answers)
     cfg = calibrator_config()
     from dfol_vqa_tpu_torch.ontology import GQAOntology
 
@@ -3432,48 +3457,22 @@ def read_records(path: str) -> list:
 
 def run_mesh_job(job: dict, world: int, workdir: str, timeout: float) -> list:
     """Run ``job`` in ``world`` processes (``mesh_worker``, rendezvous
-    through a file under ``workdir``), each with ``timeout`` seconds; kill
-    them all and raise when one fails or times out. Returns each rank's
-    JSON result."""
+    through a file under ``workdir``; ``parallel/launch.run_processes``),
+    each with ``timeout`` seconds; kill them all and raise when one fails or
+    times out. Returns each rank's JSON result."""
+    from dfol_vqa_tpu_torch.parallel.launch import run_processes
+
     os.makedirs(workdir, exist_ok=True)
     job = dict(job, world=world, out=workdir, init="file://" + os.path.join(workdir, "rdv"))
-    procs = []
+    commands = []
     for rank in range(world):
         path = os.path.join(workdir, f"job{rank}.json")
         with open(path, "w") as f:
             json.dump(dict(job, rank=rank), f)
-        log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke; chip_smoke.mesh_worker({path!r})"],
-            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=ROOT)), log_f))
-    deadline = time.monotonic() + timeout
-    failed = None
-    try:
-        for rank, (proc, _) in enumerate(procs):
-            try:
-                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                failed = (rank, f"timed out after {timeout} s")
-                break
-            if rc != 0:
-                failed = (rank, f"exit code {rc}")
-                break
-    finally:
-        for proc, log_f in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_f.close()
-    if failed is not None:
-        tails = []
-        for rank in range(world):
-            with open(os.path.join(workdir, f"rank{rank}.log")) as f:
-                text = f.read()
-            if "Error" in text:
-                tails.append(f"--- rank {rank}:\n{text[-2500:]}")
-        raise AssertionError(f"mesh job {job['name']}: rank {failed[0]} {failed[1]}:\n"
-                             + "\n".join(tails))
+        commands.append([sys.executable, "-c",
+                         f"import chip_smoke; chip_smoke.mesh_worker({path!r})"])
+    run_processes(commands, workdir, timeout, f"mesh job {job['name']}", cwd=ROOT,
+                  env=dict(os.environ, PYTHONPATH=ROOT))
     out = []
     for rank in range(world):
         with open(os.path.join(workdir, f"rank{rank}.json")) as f:
@@ -4229,6 +4228,169 @@ def phase_chunk(device, stamp: str) -> dict:
     log(f"[13] phase 13 took {time.perf_counter() - t0!r} s")
     return paths
 
+# phase 14: serving over a device mesh in one process, and the graft entry points
+MESH_SERVE_SHAPES = ((2,), (4,), (2, 2), (4, 2))  # (a): logical meshes of the one card
+SCALING_BURSTS = 8  # (d): phase 4's mix drawn 8 times (512 requests) per timed run
+
+
+def mesh_serve_check(eng, qs, want, what: str) -> tuple:
+    """Serve ``qs`` on the mesh engine ``eng``, the relating requests first
+    and then the others; the answers must equal ``want`` (the CPU engine's,
+    which the single-card engine's equal), and kernel 1 must launch once per
+    relating part (a group's row block, or the whole group when the data
+    axis does not divide its rung: ``stats["parts"]``) and never for the
+    others. Returns (kernel 1's launches, relating parts, seconds)."""
+    from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
+    from dfol_vqa_tpu_torch.ops import relation_oracle as ro
+
+    relating = [spec_needs_relations(eng._prepare(q)[0]) for q in qs]
+    got: list = [None] * len(qs)
+    counts = {}
+    t0 = time.perf_counter()
+    for rel in (True, False):
+        idx = [i for i, r in enumerate(relating) if r == rel]
+        parts = eng.stats["parts"]
+        ro.LAUNCHES = 0
+        for i, res in zip(idx, eng.answer_many([qs[i] for i in idx])):
+            got[i] = res.answers
+        counts[rel] = (ro.LAUNCHES, eng.stats["parts"] - parts)
+    seconds = time.perf_counter() - t0
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"{what}: {bad}/{len(qs)} answers differ from the CPU engine's")
+    (launches, parts), (others, _) = counts[True], counts[False]
+    if launches != parts or parts <= 0 or others != 0:
+        raise AssertionError(f"{what}: the relation_oracle kernel launched {launches} times for "
+                             f"{parts} relating parts, and {others} times for the others")
+    return launches, parts, seconds
+
+
+def mesh_scaling(world, stamp: str) -> None:
+    """(d): requests/s of a mesh over every card against the single-card
+    engine, in turns, on bursts of phase 4's mix at ``max_batch=32``; only
+    where this process sees two cards or more (logical devices of one card
+    would measure nothing)."""
+    from dfol_vqa_tpu_torch.parallel.mesh import make_local_mesh
+    from dfol_vqa_tpu_torch.serve import build_demo_engine
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[14] (d) scaling over cards not measured: this machine has {n} card(s) ({stamp}); "
+            f"the logical meshes of (a) share one card and would measure nothing")
+        return
+    cards = [torch.device("cuda", i) for i in range(n)]
+    shapes = [(n,)] + ([(n // 2, 2)] if n % 2 == 0 else [])
+    qs = [q for b in range(SCALING_BURSTS) for q in serve_questions(world, seed=5000 + 100 * b)]
+    engines = {"one card": build_demo_engine(device=cards[0], max_batch=32, seed=0)[3]}
+    for shape in shapes:
+        engines[f"mesh {shape}"] = build_demo_engine(
+            mesh=make_local_mesh(shape, devices=cards), max_batch=32, seed=0)[3]
+    try:
+        for eng in engines.values():
+            eng.warmup(qs)
+        rates: dict = {k: [] for k in engines}
+        answers = {}
+        for name in list(engines) + list(engines)[::-1]:  # in turns
+            t0 = time.perf_counter()
+            res = engines[name].answer_many(qs)
+            rates[name].append(len(qs) / (time.perf_counter() - t0))
+            answers[name] = [r.answers for r in res]
+        if any(a != answers["one card"] for a in answers.values()):
+            raise AssertionError("(d) a mesh over the cards answered otherwise than one card")
+        log(f"[14] (d) {len(qs)} requests at max_batch=32, requests/s in turns: " + "; ".join(
+            f"{k} {v}" for k, v in rates.items()) + f" ({n} cards, {stamp})")
+    finally:
+        for eng in engines.values():
+            eng.stop()
+
+
+def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
+    """Phase 14: serving over a device mesh in one process and the graft
+    entry points. (a) the demo engine at production widths on the logical
+    meshes ``MESH_SERVE_SHAPES`` of the card (warmed up on every data row):
+    phase 4's 64 and phase 8's 68 requests, answers equal to the CPU
+    engine's (``served``, which phases 4 and 8 held equal to the single-card
+    engine's), kernel 1 once per relating part; (b) the first JAX golden
+    through a (2, 2) tiny mesh engine; (c) the ``cur7`` calibrator engine
+    on (2, 2) against phase 9's CPU answers, its GloVe constant on each
+    replica's device; (d) scaling over real cards (``mesh_scaling``); (e)
+    ``graft_entry.entry()`` on the card against the CPU from the same
+    weights, and ``dryrun_multichip(2)`` as two gloo ranks on the card (and
+    over NCCL on every card where there are two or more). Returns the
+    kernels' launches of its main runs."""
+    from dfol_vqa_tpu_torch import graft_entry
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.parallel.mesh import make_local_mesh
+    from dfol_vqa_tpu_torch.serve import ServingEngine, build_demo_engine
+    from dfol_vqa_tpu_torch.train import graphs
+
+    t0 = time.perf_counter()
+    mixes = {"4": serve_questions(world), "8": serve_questions(world, SERVE_TERMINALS_MIX, 2000)}
+    fwd = 0
+    for shape in MESH_SERVE_SHAPES:
+        mesh = make_local_mesh(shape, devices=[device] * int(np.prod(shape)))
+        _, _, _, eng = build_demo_engine(mesh=mesh, max_batch=32, seed=0)
+        try:
+            info = eng.warmup(mixes["4"] + mixes["8"])
+            runs = []
+            for tag, qs in mixes.items():
+                launches, parts, secs = mesh_serve_check(eng, qs, served[tag],
+                                                         f"mesh {shape}, phase {tag}'s requests")
+                fwd += launches
+                runs.append(f"phase {tag}'s {len(qs)} in {secs!r} s, {parts} relating parts")
+            log(f"[14] (a) mesh {shape} of {device}: warmup {info['runs']} runs of "
+                f"{info['specs']} specs in {info['seconds']!r} s; " + "; ".join(runs)
+                + f"; answers == CPU engine == single card, kernel 1 once per relating part "
+                f"({stamp})")
+        finally:
+            eng.stop()
+    n = check_golden(device, GOLDEN_ATOL,
+                     mesh=make_local_mesh((2, 2), devices=[device] * 4))
+    log(f"[14] (b) JAX golden through a (2, 2) mesh engine: {n} requests, answers equal, "
+        f"log_probability within {GOLDEN_ATOL}")
+    ont = GQAOntology()
+    cfg = calibrator_config(objects=24)
+    eng = ServingEngine(cfg, ont, model_params(cfg, ont), features=world, max_batch=32,
+                        transfer_dtype="bfloat16",
+                        mesh=make_local_mesh((2, 2), devices=[device] * 4))
+    try:
+        eng.warmup(mixes["4"])
+        launches, parts, _ = mesh_serve_check(eng, mixes["4"], served["9"], "cur7 on (2, 2)")
+        fwd += launches
+        for row in range(eng.mesh.n_data):
+            lead, _ = eng._replica(row)
+            if eng._constants(lead)["embedding"].device != lead:
+                raise AssertionError(f"cur7 on (2, 2): row {row}'s GloVe constant is not on "
+                                     f"{lead}")
+        keys = [k for k in eng.interp._index_cache if k[0] == "embedding"]
+    finally:
+        eng.stop()
+    log(f"[14] (c) cur7 calibrator engine on (2, 2): phase 4's requests == phase 9's CPU "
+        f"answers, {parts} relating parts, GloVe constant cached as {keys}")
+    mesh_scaling(world, stamp)
+    fn, args = graft_entry.entry(device=device)
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    before = graphs.launch_counts()
+    with torch.no_grad():
+        lp = fn(*args).cpu().numpy()
+    entry_launches = [b - a for a, b in zip(before, graphs.launch_counts())]
+    with torch.no_grad():
+        lp_cpu = fn_cpu(*args_cpu).numpy()
+    err = float(np.abs(lp - lp_cpu).max())
+    if not (np.isfinite(lp).all() and err <= GOLDEN_ATOL):
+        raise AssertionError(f"graft_entry.entry() on the card off the CPU's by {err}")
+    dry = [graft_entry.dryrun_multichip(2, device=str(device), backend="gloo")]
+    if torch.cuda.device_count() >= 2:
+        dry.append(graft_entry.dryrun_multichip(torch.cuda.device_count(), device="cuda"))
+    log(f"[14] (e) graft_entry.entry(): log_probability {lp.tolist()} within {err!r} of the "
+        f"CPU's, launches (fwd, bwd, pair_mlp, contract) {entry_launches}; dryrun_multichip: "
+        + "; ".join(f"mesh {d['mesh']} over {d['backend']} (rank 0 on {d['device']}), loss "
+                    f"{d['loss']!r}, launches {d['launches']}" for d in dry))
+    log(f"[14] phase 14 took {time.perf_counter() - t0!r} s")
+    totals = [a + sum(d["launches"][i] for d in dry) for i, a in enumerate(entry_launches)]
+    totals[0] += fwd
+    return dict(zip(MESH_KERNELS, totals))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4264,12 +4426,14 @@ def main() -> int:
         records = [phase_kernels(eng, stamp), phase_bwd_kernel(eng, stamp)]
         records += phase_shared_kernels(eng.params, eng.cfg, device, stamp)
         phase_cache_dtype(device, stamp)
-        serve = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp)}
+        served: dict = {}  # CPU answers of phases 4, 8 and 9, for phase 14
+        serve = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp, answers=served)}
         serve_int8 = {"relation_oracle_fwd": phase_serve_int8(eng, cpu_eng, world, device,
                                                               stamp)}
         t8 = time.perf_counter()
         serve8 = {"relation_oracle_fwd": phase_serve(eng, cpu_eng, world, stamp,
-                                                     SERVE_TERMINALS_MIX, tag="8", seed=2000)}
+                                                     SERVE_TERMINALS_MIX, tag="8", seed=2000,
+                                                     answers=served)}
         t8 = time.perf_counter() - t8
     finally:
         eng.stop()
@@ -4289,13 +4453,14 @@ def main() -> int:
     paths["terminals_eval"] = phase_terminals_eval(device, stamp)
     paths["terminals_train"] = phase_terminals_train(device, stamp)
     log(f"[8] phase 8 took {t8 + time.perf_counter() - t0!r} s, CPU references included")
-    paths["calibrator"] = phase_calibrator(world, device, stamp)
+    paths["calibrator"] = phase_calibrator(world, device, stamp, served)
     paths["serve_int8"] = serve_int8
     paths["curriculum"] = phase_curriculum(device, stamp)
     paths["daemon"] = phase_daemon(device, stamp)
     paths["mesh"] = phase_mesh(device, stamp)
     paths["bf16"] = phase_bf16(device, stamp)
     paths.update(phase_chunk(device, stamp))
+    paths["serving_mesh"] = phase_serving_mesh(world, served, device, stamp)
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

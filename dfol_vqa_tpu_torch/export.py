@@ -142,6 +142,8 @@ def export_serving_set(engine, questions: Sequence[dict], out_dir: str,
     ladders): export is host work, about a second a module, one core each."""
     from dfol_vqa_tpu_torch.serve import _Request
 
+    if engine.mesh is not None:
+        raise ValueError("export is single-device; build the engine without a mesh")
     if batch_sizes is None:
         batch_sizes = _reachable_rungs(engine)
     reps: Dict[BucketSpec, object] = {}

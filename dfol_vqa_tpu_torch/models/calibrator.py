@@ -31,6 +31,7 @@ from torch import nn as tnn
 from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.compiler.program_compiler import OP_FILTER, OP_PAD, OP_SELECT, BucketSpec
 from dfol_vqa_tpu_torch.config import Config
+from dfol_vqa_tpu_torch.types import batch_any
 
 OPS_INDEX = {
     "all_different": 0, "all_same": 1, "and": 2, "choose_attr": 3, "choose_rel": 4,
@@ -102,8 +103,12 @@ class _Ctx:
         return new[0] * g + old[0] * (1 - g), new[1] * g + old[1] * (1 - g)
 
     @staticmethod
-    def any_valid(tok: torch.Tensor) -> torch.Tensor:
-        """1.0 when any row's token is nonzero, as a 0-d device tensor."""
+    def any_valid(tok: torch.Tensor, whole: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """1.0 when any row's token is nonzero, as a 0-d device tensor;
+        ``whole`` is the whole batch's answer where these rows are a block
+        of it (``types.batch_any``)."""
+        if whole is not None:
+            return whole.float()
         return (torch.amax(torch.abs(tok)) > 0).float()
 
     @staticmethod
@@ -113,11 +118,12 @@ class _Ctx:
     def mod(self, h_fwd: torch.Tensor, h_bwd: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.calib.out(torch.cat([h_fwd, h_bwd], dim=-1)))
 
-    def side(self, op_name: str, aux: torch.Tensor) -> State:
+    def side(self, op_name: str, aux: torch.Tensor, whole: Optional[torch.Tensor] = None
+             ) -> State:
         """The select side of a relate: a fresh forward state, kept only
         when some row selects a token."""
         new = self.lstm("fwd", self.feat(op_name, 0.0, aux), self.zeros())
-        return self.maybe(new, self.zeros(), self.any_valid(aux))
+        return self.maybe(new, self.zeros(), self.any_valid(aux, whole))
 
     def slot(self, b: int, si: int):
         a = self.arrays
@@ -136,14 +142,15 @@ def _forward_branch(ctx: _Ctx, b: int, grid) -> Tuple[State, List[Optional[dict]
         tok, aux, _, m = ctx.slot(b, si)
         if opc == OP_SELECT:
             new = ctx.lstm("fwd", ctx.feat("select", 0.0, tok), ctx.zeros())
-            carry = ctx.maybe(new, ctx.zeros(), ctx.any_valid(tok))
+            carry = ctx.maybe(new, ctx.zeros(),
+                              ctx.any_valid(tok, batch_any(ctx.arrays, "nz", "arg_tok", (b, si))))
             fwd.append({"h": carry[0]})
         elif opc == OP_FILTER:
             new = ctx.lstm("fwd", ctx.feat("filter", 0.0, tok), carry)
             carry = ctx.gate(new, carry, m)
             fwd.append({"h": new[0]})
         else:  # OP_RELATE
-            side = ctx.side("relate", aux)
+            side = ctx.side("relate", aux, batch_any(ctx.arrays, "nz", "arg_aux", (b, si)))
             agg = (side[0] + carry[0], side[1] + carry[1])
             new = ctx.lstm("fwd", ctx.feat("relate", 1.0, tok), agg)
             carry = ctx.gate(new, carry, m)
@@ -230,7 +237,7 @@ def compute_modulations(calib: CalibratorParams, interp, world, arrays,
         bcarries = [ctx.lstm("bwd", f, ctx.zeros())] * 2
     elif term == "verify_rel":
         # a relate-style terminal
-        side = ctx.side(term, arrays["last_aux"])
+        side = ctx.side(term, arrays["last_aux"], batch_any(arrays, "nz", "last_aux"))
         f_rel = ctx.feat(term, 1.0, arrays["last_tok"])
         h_fwd = ctx.lstm("fwd", f_rel, (side[0] + carries[0][0], side[1] + carries[0][1]))[0]
         terminal["subject"] = ctx.mod(h_fwd, zero_h)
@@ -240,7 +247,7 @@ def compute_modulations(calib: CalibratorParams, interp, world, arrays,
         bcarries = [new]
     elif term == "choose_rel":
         # a relate per option, from the same select side and carry
-        side = ctx.side(term, arrays["last_aux"])
+        side = ctx.side(term, arrays["last_aux"], batch_any(arrays, "nz", "last_aux"))
         K = toks.shape[1]
         agg = tuple((side[i] + carries[0][i])[:, None].expand(-1, K, -1) for i in range(2))
         f_rel = ctx.feat(term, 1.0, toks)

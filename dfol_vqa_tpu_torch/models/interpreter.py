@@ -29,6 +29,7 @@ the attentions the executor carries.
 from __future__ import annotations
 
 import copy
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,7 +50,7 @@ from dfol_vqa_tpu_torch.models.featurizer import featurize_objects
 from dfol_vqa_tpu_torch.ops.cells import filter_update, normalize_over_options, relate_update
 from dfol_vqa_tpu_torch.nn import Linear
 from dfol_vqa_tpu_torch import logic
-from dfol_vqa_tpu_torch.types import QuestionType, VariableSet, World
+from dfol_vqa_tpu_torch.types import QuestionType, VariableSet, World, batch_any
 
 QUERY_OPS = ("query_attr", "choose_attr", "choose_rel", "compare")
 
@@ -93,22 +94,27 @@ def spec_needs_relations(spec: BucketSpec) -> bool:
 # ------------------------------------------------------------------- gathers
 
 
-def _apply_negation_exact(ll: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+def _apply_negation_exact(ll: torch.Tensor, neg: torch.Tensor,
+                          any_neg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """When ANY token in the batch is negated, lpn(ll, is_neg, 1) is applied
     to every row — an exp/log round trip for the others too; with none
-    negated, no transform. A device-side select: no host sync."""
+    negated, no transform. A device-side select: no host sync. ``any_neg``
+    is the whole batch's answer where these rows are a block of it
+    (``types.batch_any``)."""
     shaped = neg.reshape(neg.shape + (1,) * (ll.ndim - neg.ndim))
-    any_neg = torch.amax(neg) > 0
+    if any_neg is None:
+        any_neg = torch.amax(neg) > 0
     return torch.where(any_neg, logic.log_parametric_not(ll, shaped, 1.0), ll)
 
 
-def _gather_attr(world: World, tok: torch.Tensor) -> torch.Tensor:
+def _gather_attr(world: World, tok: torch.Tensor,
+                 any_neg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """attr_ll (U, V+1, O) + img_index, tok (B,) signed -> (B, O), negation
     applied: one (O,)-row gather per question."""
     U, Vp1, O = world.attr_ll.shape
     flat = world.img_index.long() * Vp1 + torch.abs(tok.long())
     ll = world.attr_ll.reshape(U * Vp1, O)[flat].float()
-    return _apply_negation_exact(ll, (tok < 0).float())
+    return _apply_negation_exact(ll, (tok < 0).float(), any_neg)
 
 
 def _gather_attr_options(world: World, toks: torch.Tensor) -> torch.Tensor:
@@ -118,15 +124,17 @@ def _gather_attr_options(world: World, toks: torch.Tensor) -> torch.Tensor:
     return world.attr_ll.reshape(U * Vp1, O)[flat].float()
 
 
-def _apply_option_negation(ll: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
-    return _apply_negation_exact(ll, (toks < 0).float())
+def _apply_option_negation(ll: torch.Tensor, toks: torch.Tensor,
+                           any_neg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _apply_negation_exact(ll, (toks < 0).float(), any_neg)
 
 
-def _gather_rel(rel_ll: torch.Tensor, idx: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+def _gather_rel(rel_ll: torch.Tensor, idx: torch.Tensor, tok: torch.Tensor,
+                any_neg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """rel_ll (B, R, O, O), idx (B,), tok (B,) signed -> (B, O, O)."""
     B = rel_ll.shape[0]
     ll = rel_ll[torch.arange(B, device=rel_ll.device), idx.long()].float()
-    return _apply_negation_exact(ll, (tok < 0).float())
+    return _apply_negation_exact(ll, (tok < 0).float(), any_neg)
 
 
 def _gather_rel_options(rel_ll: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -183,16 +191,18 @@ def _relate_core(subj, obj, ll, obj_mask, gates: Gates = None):
     return relate_update(subj, obj, ll, ones, ones, obj_mask, gates=_relate_gates(gates))
 
 
-def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None, mods: Mods = None):
+def _relate_step(world: World, att, aux, s, ll_rel, gates: Gates = None, mods: Mods = None,
+                 aux_neg: Optional[torch.Tensor] = None):
     """Select the new set (token ``aux``, 0 = everything), relate it with the
     running set ``att`` through ``ll_rel``, and keep the new side: the
     subject when ``s == 1``, else the object. ``ll_rel (B, K, O, O)`` fans
     both sets out over K options (``choose_rel``). The calibrator's
     ``select`` mods apply to the selected set where ``aux != 0``, its
     ``subject`` and ``object`` mods ((B, 4), or (B, K, 4) on a fan-out) to
-    the related sets before the side is kept."""
+    the related sets before the side is kept. ``aux_neg``: the whole
+    batch's negation flag of ``aux`` (``types.batch_any``)."""
     picked = (aux != 0)[:, None]
-    x = torch.where(picked, _gather_attr(world, aux), 0.0)
+    x = torch.where(picked, _gather_attr(world, aux, aux_neg), 0.0)
     if mods is not None and mods.get("select") is not None:
         x = torch.where(picked, _modulate(x, mods["select"]), x)
     subj = s * x + (1.0 - s) * att
@@ -212,6 +222,17 @@ def per_question_kernel_route(cfg: Config, device: torch.device) -> bool:
     kernels (``ops/relation_oracle.rel_cache_kernel``): ``tpu.use_pallas``,
     a CUDA device and F == 1; the plain ``oracle.rel_cache`` otherwise."""
     return cfg.tpu.use_pallas and device.type == "cuda" and cfg.oracle_output_dim == 1
+
+
+_CACHE_LOCK = threading.Lock()  # guards every Interpreter's device cache
+
+
+def device_key(device) -> torch.device:
+    """``device`` with its index: a bare "cuda" is the current card."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 class Interpreter:
@@ -254,43 +275,49 @@ class Interpreter:
             self._emb_matrix = np.asarray(m[:, :self.cfg.word_embedding_dim], np.float32)
         return self._emb_matrix
 
+    def _on_device(self, name: str, device, make):
+        """The cached ``make(device)`` of ``name`` on ``device``, made once
+        per device. "cuda" and "cuda:<current>" share an entry, and the
+        get-or-fill is atomic, so the threads of an engine that serves
+        several devices share the cache."""
+        key = (name, device_key(device))
+        with _CACHE_LOCK:
+            hit = self._index_cache.get(key)
+            if hit is None:
+                hit = self._index_cache[key] = make(key[1])
+        return hit
+
     def embedding_on(self, device) -> torch.Tensor:
         """``embedding_matrix`` on ``device``, moved there once."""
-        key = ("embedding", str(device))
-        if key not in self._index_cache:
-            self._index_cache[key] = torch.as_tensor(self.embedding_matrix, device=device)
-        return self._index_cache[key]
+        return self._on_device("embedding", device,
+                               lambda d: torch.as_tensor(self.embedding_matrix, device=d))
 
     def with_embedding(self, embedding: torch.Tensor) -> "Interpreter":
         """A shallow copy whose ``embedding_on`` returns ``embedding`` on its
         device (a step input in place of the cached matrix, so that an
         exported step does not carry it)."""
         view = copy.copy(self)
-        view._index_cache = {("embedding", str(embedding.device)): embedding}
+        view._index_cache = {("embedding", device_key(embedding.device)): embedding}
         return view
 
     def _index(self, name: str, device) -> torch.Tensor:
         """The ontology's 0-based attribute (``name="attribute"``) or
         relation (``"relation"``) token columns, kept on the host and moved
         to ``device`` once."""
-        key = (name, str(device))
-        if key not in self._index_cache:
-            cols = np.asarray(getattr(self.ont, f"_{name}_index"), np.int64)
-            self._index_cache[key] = torch.as_tensor(cols, device=device)
-        return self._index_cache[key]
+        return self._on_device(name, device, lambda d: torch.as_tensor(
+            np.asarray(getattr(self.ont, f"_{name}_index"), np.int64), device=d))
 
     def _rel_gather_on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """``_rel_gather_map`` as int64 tensors on ``device``, moved there
         once (a step that a CUDA graph captures copies nothing from the
         host); normal tensors even when first asked for under
         ``torch.inference_mode()``, since training saves them for backward."""
-        key = ("rel_gather", str(device))
-        if key not in self._index_cache:
+        def make(d):
             with torch.inference_mode(False):
-                self._index_cache[key] = tuple(
-                    torch.as_tensor(np.asarray(a, np.int64), device=device)
-                    for a in self._rel_gather_map)
-        return self._index_cache[key]
+                return tuple(torch.as_tensor(np.asarray(a, np.int64), device=d)
+                             for a in self._rel_gather_map)
+
+        return self._on_device("rel_gather", device, make)
 
     @property
     def _rel_gather_map(self):
@@ -384,15 +411,16 @@ class Interpreter:
             mods = slot_mods[si] if slot_mods is not None else None
             m = arrays["op_mask"][:, branch, si]
             tok = arrays["arg_tok"][:, branch, si]
+            tok_neg = batch_any(arrays, "neg", "arg_tok", (branch, si))
             if opc in (OP_SELECT, OP_FILTER):
-                new = filter_update(att, _gather_attr(world, tok), _filter_gate(gates))
+                new = filter_update(att, _gather_attr(world, tok, tok_neg), _filter_gate(gates))
                 if mods is not None:
                     new = _modulate(new, mods.get("filter"))
             else:  # OP_RELATE
-                ll_rel = _gather_rel(world.rel_ll, arrays["rel_idx"][:, branch, si], tok)
+                ll_rel = _gather_rel(world.rel_ll, arrays["rel_idx"][:, branch, si], tok, tok_neg)
                 new = _relate_step(world, att, arrays["arg_aux"][:, branch, si],
                                    arrays["arg_flag"][:, branch, si][:, None], ll_rel, gates,
-                                   mods)
+                                   mods, batch_any(arrays, "neg", "arg_aux", (branch, si)))
             upd = ((tok != 0).float() * m)[:, None]
             att = upd * new + (1.0 - upd) * att
             if trace is not None:
@@ -402,11 +430,12 @@ class Interpreter:
     # ------------------------------------------------------------- terminals
 
     def _filter_fanout(self, world, att, options, opt_mask, normalize: bool,
-                       gates: Gates = None, mods: Optional[torch.Tensor] = None):
+                       gates: Gates = None, mods: Optional[torch.Tensor] = None,
+                       opt_neg: Optional[torch.Tensor] = None):
         """Fan-out filter over a (B, K) option axis; ``mods`` (B, K, 4)."""
         ll = _gather_attr_options(world, options)
         ll = normalize_over_options(ll, opt_mask, enabled=normalize and self.cfg.normalize_oracle)
-        ll = _apply_option_negation(ll, options)
+        ll = _apply_option_negation(ll, options, opt_neg)
         return _modulate(filter_update(att[:, None, :], ll, _filter_gate(gates)), mods)
 
     def _terminal(self, world: World, arrays, spec: BucketSpec, atts, hard: bool,
@@ -420,6 +449,7 @@ class Interpreter:
         term = spec.terminal_op
         mask = world.obj_mask
         options, opt_mask = arrays["options"], arrays["opt_mask"]
+        opt_neg = batch_any(arrays, "neg", "options")
         tmods_get = (lambda _: None) if tmods is None else tmods.get
 
         def ones(x):
@@ -427,7 +457,7 @@ class Interpreter:
 
         def fanout(att, normalize=True, key="fanout"):
             return self._filter_fanout(world, att, options, opt_mask, normalize, gates,
-                                       tmods_get(key))
+                                       tmods_get(key), opt_neg)
 
         def any_option(lp_k):  # OR over the option fan-out
             return logic.log_not(torch.sum(logic.log_not(lp_k) * opt_mask, dim=1))
@@ -453,15 +483,18 @@ class Interpreter:
         if term == "choose_rel":
             ll = _gather_rel_options(world.rel_ll, arrays["opt_rel_idx"])  # (B, K, O, O)
             ll = normalize_over_options(ll, opt_mask, enabled=cfg.normalize_oracle)
-            ll = _apply_option_negation(ll, options)
+            ll = _apply_option_negation(ll, options, opt_neg)
             chosen = _relate_step(world, atts[0], arrays["last_aux"],
-                                  arrays["last_flag"][:, None], ll, gates, tmods)
+                                  arrays["last_flag"][:, None], ll, gates, tmods,
+                                  batch_any(arrays, "neg", "last_aux"))
             return _log_probability(chosen, ones(chosen), mask, hard)
 
         if term == "verify_rel":
-            ll = _gather_rel(world.rel_ll, arrays["last_rel_idx"], arrays["last_tok"])
+            ll = _gather_rel(world.rel_ll, arrays["last_rel_idx"], arrays["last_tok"],
+                             batch_any(arrays, "neg", "last_tok"))
             final = _relate_step(world, atts[0], arrays["last_aux"],
-                                 arrays["last_flag"][:, None], ll, gates, tmods)
+                                 arrays["last_flag"][:, None], ll, gates, tmods,
+                                 batch_any(arrays, "neg", "last_aux"))
             return _log_probability(final, ones(final), mask, hard)
 
         if term in ("and", "or"):
@@ -488,7 +521,7 @@ class Interpreter:
         if term == "compare":
             # both branches filtered by the attribute, a log-softmax over the
             # two, and the is_less flip
-            ll = _gather_attr(world, arrays["last_tok"])
+            ll = _gather_attr(world, arrays["last_tok"], batch_any(arrays, "neg", "last_tok"))
             a1 = _modulate(filter_update(atts[0], ll, _filter_gate(gates)), tmods_get("branch0"))
             a2 = _modulate(filter_update(atts[1], ll, _filter_gate(gates)), tmods_get("branch1"))
             lp = torch.log_softmax(torch.stack([_log_probability(a1, ones(a1), mask, hard),
@@ -500,7 +533,7 @@ class Interpreter:
             # each statement filters a fresh entity set; read at its object
             ll = _gather_attr_options(world, options)  # (B, K, O)
             ll = normalize_over_options(ll, opt_mask, enabled=cfg.normalize_oracle)
-            ll = _apply_option_negation(ll, options)
+            ll = _apply_option_negation(ll, options, opt_neg)
             att_k = filter_update(torch.zeros_like(ll), ll, _filter_gate(gates))
             return att_k.gather(2, arrays["stmt_obj"].long()[:, :, None])[..., 0]
 
@@ -517,7 +550,7 @@ class Interpreter:
             P = scores.shape[1]
             sc = scores.gather(2, tok0[:, None, :].expand(B, P, K)).transpose(1, 2)  # (B, K, P)
             sc = normalize_over_options(sc, opt_mask, enabled=cfg.normalize_oracle)
-            sc = _apply_option_negation(sc, options) * opt_mask[:, None, :]
+            sc = _apply_option_negation(sc, options, opt_neg) * opt_mask[:, None, :]
             O = mask.shape[-1]
             # index_put without accumulate: a pair listed twice writes the
             # same value twice (same pair, same scores), and the pad slots'

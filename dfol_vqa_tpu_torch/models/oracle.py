@@ -47,7 +47,8 @@ class Embedding(tnn.Module):
     interpreter's extra channels: ``w (E, V_pad, F-1)``, ``b (V_pad,
     F-1)``); token code v scores column v-1. The oracle reads the head
     through ``logits`` and ``rows`` only, so a device mesh's model axis can
-    put a vocabulary slice in its place (``parallel/mesh.VocabSlice``)."""
+    put a vocabulary slice in its place (``parallel/mesh.VocabSlice`` on a
+    training rank, ``parallel/mesh.VocabShards`` in a serving process)."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor):
         super().__init__()
@@ -59,15 +60,22 @@ class Embedding(tnn.Module):
         channels), the operands at ``cfg``'s compute dtype when ``cfg`` is
         given (the attribute head), float32 otherwise (listed pairs, as in
         JAX)."""
-        c = (lambda x: cast(x, cfg)) if cfg is not None else (lambda x: x)
-        if self.w.ndim == 2:
-            return torch.matmul(c(h), c(self.w)) + self.b
-        return torch.einsum("...e,evk->...vk", c(h), c(self.w)) + self.b
+        return head_logits(h, self.w, self.b, cfg)
 
     def rows(self, tok0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """0-based token columns (any shape S) -> (the weight columns as rows
         S + (E,) (S + (E, F-1)), the biases S (S + (F-1,)))."""
         return self.w.movedim(1, 0)[tok0], self.b[tok0]
+
+
+def head_logits(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                cfg: Optional[Config] = None) -> torch.Tensor:
+    """``Embedding.logits`` of the columns ``w``, ``b`` (the whole head or a
+    vocabulary slice of it)."""
+    c = (lambda x: cast(x, cfg)) if cfg is not None else (lambda x: x)
+    if w.ndim == 2:
+        return torch.matmul(c(h), c(w)) + b
+    return torch.einsum("...e,evk->...vk", c(h), c(w)) + b
 
 
 LOGIC_GATES = ("filter", "relate0", "relate1")

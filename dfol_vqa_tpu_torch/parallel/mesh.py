@@ -1,5 +1,5 @@
-"""Device mesh for training and evaluation: the data axis, the model axis and
-FSDP, one process per device.
+"""Device meshes: for training and evaluation the data axis, the model axis
+and FSDP, one process per device; for serving a mesh in one process.
 
 Port of ``dfol_vqa_tpu/parallel/mesh.py``. The JAX package jits one step
 under GSPMD over a ``jax.sharding.Mesh`` with axes ``('data',)`` or
@@ -41,6 +41,14 @@ collectives JAX's compiler inserts are written out here and in
 
 ``prod(tpu.mesh_shape)`` must equal the number of processes; nothing falls
 back to one device.
+
+Serving (JAX's ``ServingEngine(mesh=...)``) is one process that drives
+every device of a ``LocalMesh`` (``make_local_mesh``), with no process
+group: one parameter replica per data row (``serving_replicas``), the
+vocabulary head split over a row's model devices by the same
+``param_sharding`` rule (``VocabShards``, which copies between devices
+where ``VocabSlice`` runs collectives), and a served batch's rows split
+over the data rows by JAX's ``batch_sharding`` rule (``serving_blocks``).
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import torch
 import torch.distributed as dist
 
 from dfol_vqa_tpu_torch.config import Config
-from dfol_vqa_tpu_torch.models.oracle import Embedding, OracleParams
+from dfol_vqa_tpu_torch.models.oracle import Embedding, OracleParams, head_logits
 
 AXES = ("data", "model")
 RENDEZVOUS_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -459,3 +467,143 @@ def shard_params(mesh: Mesh, params: OracleParams) -> ShardedParams:
     """Rank 0's ``params`` on every rank (broadcast in place, as DDP does at
     construction), split as ``param_sharding`` says."""
     return ShardedParams(mesh, broadcast_params(params))
+
+
+# ------------------------------------------------------ serving, one process
+
+
+def _existing_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index (a bare "cuda" is the
+    current card); raises unless this process has it."""
+    d = torch.device(device)
+    if d.type == "cpu":
+        return d
+    if d.type != "cuda":
+        raise ValueError(f"a serving mesh holds cpu or cuda devices, not {d}")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    index = d.index if d.index is not None else (torch.cuda.current_device() if n else 0)
+    if index >= n:
+        raise ValueError(f"mesh device {d} does not exist: this process sees {n} CUDA "
+                         f"device(s)")
+    return torch.device("cuda", index)
+
+
+class LocalMesh:
+    """A ``('data',)`` or ``('data', 'model')`` mesh of devices in one
+    process, for serving (``ServingEngine(mesh=...)``): ``devices[d][m]`` is
+    the device at data row ``d`` and model column ``m``. A device may repeat
+    (a logical mesh of one card, or of "cpu"), as JAX's virtual devices do.
+    ``fsdp`` is off, as JAX serves (``serve.py:304``), so ``param_sharding``
+    places the leaves as JAX's serving mesh does."""
+
+    fsdp = False
+
+    def __init__(self, devices: Sequence[Sequence[torch.device]], axis_names: Sequence[str]):
+        self.devices = tuple(tuple(row) for row in devices)
+        self.axis_names = tuple(axis_names)
+        self.n_data = len(self.devices)
+        self.n_model = len(self.devices[0])
+
+
+def make_local_mesh(mesh_shape: Sequence[int], axis_names: Optional[Sequence[str]] = None,
+                    devices: Optional[Sequence] = None) -> LocalMesh:
+    """A ``LocalMesh`` of ``mesh_shape`` over ``devices`` (default: every
+    card of this process), reshaped row-major into (data, model) as JAX's
+    ``make_mesh`` reshapes its device array. Raises when a device does not
+    exist or the shape does not cover ``len(devices)``; nothing falls back
+    to one device."""
+    shape = tuple(int(n) for n in mesh_shape)
+    names = tuple(axis_names) if axis_names is not None else AXES[:len(shape)]
+    if not 1 <= len(shape) <= 2 or names != AXES[:len(shape)]:
+        raise ValueError(f"mesh axes {names} for mesh_shape={shape}: the axes are ('data',) "
+                         f"or ('data', 'model')")
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [_existing_device(d) for d in devices]
+    if min(shape) < 1 or math.prod(shape) != len(devices):
+        raise ValueError(f"mesh_shape={shape} covers {math.prod(shape)} devices, but "
+                         f"{len(devices)} were given")
+    n_model = shape[1] if len(shape) > 1 else 1
+    return LocalMesh([devices[r * n_model:(r + 1) * n_model] for r in range(shape[0])], names)
+
+
+def serving_blocks(mesh: LocalMesh, batch_size: int) -> Optional[List[Tuple[int, int]]]:
+    """JAX's ``batch_sharding`` rule for a served batch in one process: the
+    rows ``[start, stop)`` of each data row, ``n_data`` contiguous blocks,
+    when ``n_data`` (> 1) divides ``batch_size``; None otherwise, and the
+    batch runs whole on one data row (JAX computes such a batch replicated
+    on every device, with the same answers)."""
+    n = mesh.n_data
+    if n == 1 or batch_size % n:
+        return None
+    size = batch_size // n
+    return [(i * size, (i + 1) * size) for i in range(n)]
+
+
+def _own(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
+
+
+class VocabShards(Embedding):
+    """A concept head split along the vocabulary over one data row's model
+    devices, in one process: shard ``i`` holds the columns ``[i * V_pad /
+    n, (i + 1) * V_pad / n)`` of the head as the parameters ``w<i>``,
+    ``b<i>`` on device ``i``. ``logits`` copies ``h`` to each shard's device
+    and concatenates the shards' logits along V on ``h``'s device; ``rows``
+    gathers each token's column from the shard that holds it. The serving
+    counterpart of ``VocabSlice``, with copies between devices in place of
+    its collectives; it splits the trainable interpreter's ``(E, V_pad,
+    F-1)`` head too."""
+
+    def __init__(self, emb: Embedding, devices: Sequence[torch.device]):
+        torch.nn.Module.__init__(self)
+        self.n = len(devices)
+        self.size = emb.b.shape[0] // self.n
+        self.v_from_end = emb.b.ndim  # V's place from the end of a logits tensor
+        with torch.no_grad():
+            for i, d in enumerate(devices):
+                cols = slice(i * self.size, (i + 1) * self.size)
+                self.register_parameter(f"w{i}",
+                                        torch.nn.Parameter(emb.w[:, cols].to(d, copy=True)))
+                self.register_parameter(f"b{i}",
+                                        torch.nn.Parameter(emb.b[cols].to(d, copy=True)))
+
+    def shards(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        return [(getattr(self, f"w{i}"), getattr(self, f"b{i}")) for i in range(self.n)]
+
+    def logits(self, h: torch.Tensor, cfg: Optional[Config] = None) -> torch.Tensor:
+        parts = [head_logits(h.to(w.device), w, b, cfg).to(h.device) for w, b in self.shards()]
+        return torch.cat(parts, dim=-self.v_from_end)
+
+    def rows(self, tok0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Shard 0's rows, each replaced by the row of the shard that holds
+        its token: exactly one shard holds each."""
+        w_rows = b_rows = None
+        for i, (w, b) in enumerate(self.shards()):
+            local = tok0 - i * self.size
+            own = (local >= 0) & (local < self.size)
+            idx = torch.where(own, local, 0).to(w.device)
+            wr, br = w.movedim(1, 0)[idx].to(tok0.device), b[idx].to(tok0.device)
+            if w_rows is None:
+                w_rows, b_rows = wr, br
+            else:
+                w_rows = torch.where(_own(own, wr), wr, w_rows)
+                b_rows = torch.where(_own(own, br), br, b_rows)
+        return w_rows, b_rows
+
+
+def serving_replicas(mesh: LocalMesh, params: OracleParams) -> List[OracleParams]:
+    """One copy of ``params`` per data row of ``mesh``, on the row's lead
+    (model 0) device, its concept heads ``VocabShards`` over the row's model
+    devices where ``param_sharding`` splits them over ``model``; every other
+    leaf whole, as JAX replicates it."""
+    placement = param_sharding(params, mesh)
+    replicas = []
+    for row in mesh.devices:
+        rep = copy.deepcopy(params).to(row[0])
+        for top in ("embedding", "embedding_extra"):
+            emb = getattr(rep, top)
+            if emb is not None and placement[top + ".b"].model_dim is not None:
+                setattr(rep, top, VocabShards(emb, row))
+        replicas.append(rep)
+    return replicas

@@ -30,15 +30,35 @@ pool reads the answer flags back — the completion barrier — and resolves
 the futures, so consecutive groups overlap on the device. ``trace``
 answers one question at batch rung 1 with its hop-by-hop attentions.
 
-Not ported yet (ROADMAP queue 6): serving over a device mesh
-(``ServingEngine(mesh=...)``); training and evaluation run on one
-(``parallel/mesh.py``).
+**Serving over a device mesh** (``mesh=parallel.mesh.make_local_mesh(...)``,
+JAX's ``ServingEngine(mesh=...)``), one process driving every device of
+the mesh, no process group:
+
+* Each data row of the mesh holds one replica of the parameters on its
+  lead (model 0) device (``mesh.serving_replicas``). On a model axis the
+  concept heads are split along the vocabulary over the row's model
+  devices when the model size divides V_pad (``param_sharding``, JAX's
+  rule; ``mesh.VocabShards``); every other leaf is whole on the lead.
+* A group at batch rung B runs as ``n_data`` row blocks of B / n_data,
+  one per data row, when ``n_data`` divides B (``mesh.serving_blocks``,
+  JAX's ``batch_sharding``); otherwise whole on one data row, the rows
+  taking turns. A block carries its batch's reductions over the question
+  axis (``types.batch_flags``), so every row computes what the whole
+  batch computes for it. The blocks are enqueued one after another; CUDA
+  launches are asynchronous, so on several cards they run side by side.
+  The completion pool reads each block's flags back and joins them in row
+  order.
+* ``warmup`` runs every (spec, block shape) on every data row; ``trace``
+  runs on one data row with the split head. Exported steps
+  (``executables``) are single-device and refused with a mesh, as
+  ``export_serving_set`` refuses a mesh engine.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import threading
 import time
@@ -59,6 +79,8 @@ from dfol_vqa_tpu_torch.compiler.program_compiler import (
     CompiledBatch,
     ProgramCompiler,
     _pad_ladder,
+    pack_arrays,
+    pack_meta,
 )
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
@@ -66,6 +88,8 @@ from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.data.transfer import to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter, decode_answer_flags
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
+from dfol_vqa_tpu_torch.parallel.mesh import serving_blocks, serving_replicas
+from dfol_vqa_tpu_torch.types import batch_flags
 
 # ------------------------------------------------------- parameters as inputs
 
@@ -195,6 +219,26 @@ def concat_batches(spec: BucketSpec, cbs: Sequence[CompiledBatch]
     return dataclasses.replace(spec, batch_size=B), dataclasses.replace(cbs[0], **updates)
 
 
+def take_rows(lb: LoadedBatch, start: int, stop: int) -> LoadedBatch:
+    """Rows ``[start, stop)`` of a per-question batch (no ``img_index``):
+    every array and list of the compiled batch along its question axis, pad
+    rows (``question_mask = 0``) kept as they are, and the whole batch's
+    reductions over that axis (``types.batch_flags``) in its arrays."""
+    cb, B = lb.compiled, lb.spec.batch_size
+    updates: Dict[str, object] = {}
+    for f in dataclasses.fields(CompiledBatch):
+        v = getattr(cb, f.name)
+        if isinstance(v, (np.ndarray, list)) and len(v) == B:
+            updates[f.name] = v[start:stop]
+    part = LoadedBatch(dataclasses.replace(lb.spec, batch_size=stop - start),
+                       dataclasses.replace(cb, **updates), lb.objects[start:stop],
+                       lb.obj_mask[start:stop])
+    part.arrays.update(batch_flags(lb.arrays))
+    part.meta = pack_meta(part.arrays)
+    part.packed = pack_arrays(part.arrays, part.meta)
+    return part
+
+
 # ------------------------------------------------------------------- engine
 
 
@@ -226,7 +270,9 @@ class _Request:
 
 class ServingEngine:
     """Continuous-batching online inference on one device (``device``,
-    default the card: CPU callers pass ``device="cpu"``).
+    default the card: CPU callers pass ``device="cpu"``), or over the
+    devices of ``mesh`` (a ``parallel.mesh.LocalMesh``; the module
+    docstring says how).
 
     ``submit`` returns a Future[ServeResult]; a dispatcher thread groups
     requests per canonical spec and flushes on size/deadline.
@@ -242,7 +288,8 @@ class ServingEngine:
         params: OracleParams,
         features=None,
         *,
-        device="cuda",
+        device=None,
+        mesh=None,
         max_batch: int = 16,
         max_delay_ms: float = 10.0,
         batch_ladder: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
@@ -259,8 +306,12 @@ class ServingEngine:
             raise ValueError(
                 f"max_batch={max_batch} exceeds the top batch-ladder rung "
                 f"{max(batch_ladder)}; extend batch_ladder instead")
+        if mesh is not None and device is not None:
+            raise ValueError("give the engine a device or a mesh, not both")
+        if mesh is not None and executables:
+            raise ValueError("exported steps are single-device; build the engine without a "
+                             "mesh to serve them")
         self.cfg = cfg
-        self.device = torch.device(device)
         self.interp = Interpreter(cfg, ontology)
         self.compiler = ProgramCompiler(
             ontology,
@@ -268,9 +319,19 @@ class ServingEngine:
             rel_slots=cfg.tpu.rel_table_size,
             option_pad_ladder=cfg.tpu.option_pad_ladder,
         )
-        # a copy: Module.to() moves in place, and callers may serve the same
-        # weights from engines on two devices
-        self.params = copy.deepcopy(params).to(self.device)
+        self.mesh = mesh
+        self._turn = itertools.count()  # the data row of the next whole group
+        if mesh is None:
+            self.device = torch.device("cuda" if device is None else device)
+            # a copy: Module.to() moves in place, and callers may serve the
+            # same weights from engines on two devices
+            self.params = copy.deepcopy(params).to(self.device)
+            self._replicas = None
+        else:
+            self._replicas = serving_replicas(mesh, params)
+            # data row 0's lead device and replica; every replica has its
+            # structure, so steps bind any replica's tensors through it
+            self.device, self.params = mesh.devices[0][0], self._replicas[0]
         self.features = features
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
@@ -305,6 +366,7 @@ class ServingEngine:
             "compiled_steps": 0,  # live steps made (eager Interpreter.forward)
             "aot_steps": 0,  # steps served from loaded torch.export programs
             "trace_steps": 0,  # live trace steps made
+            "parts": 0,  # device runs: a group's row blocks on a mesh, else its batch
             "latencies_ms": deque(maxlen=100_000),
         }
         self._stats_lock = threading.Lock()
@@ -387,13 +449,20 @@ class ServingEngine:
                 reps[key] = _Request(q, objs[0], mask[0], cb)
         t0 = time.perf_counter()
         before = self._steps_made()
+        runs = 0
         for key, r in reps.items():
             for B in batch_sizes:
-                self._execute(key, [r], pad_to=B)
+                # a rung that the data rows split runs on all of them at
+                # once; a whole one once on each
+                whole = self.mesh is not None and serving_blocks(self.mesh, B) is None
+                for row in range(self.mesh.n_data) if whole else [None]:
+                    self._execute(key, [r], pad_to=B, row=row)
+                    runs += 1
             if traces:
-                self.trace(r.question, r.objects, r.obj_mask)
-        return {"specs": len(reps), "batch_sizes": list(batch_sizes),
-                "runs": len(reps) * (len(batch_sizes) + int(traces)),
+                for row in range(self.mesh.n_data) if self.mesh is not None else [None]:
+                    self.trace(r.question, r.objects, r.obj_mask, row=row)
+                    runs += 1
+        return {"specs": len(reps), "batch_sizes": list(batch_sizes), "runs": runs,
                 "steps": self._steps_made() - before, "seconds": time.perf_counter() - t0}
 
     def _steps_made(self) -> int:
@@ -464,13 +533,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------ execution
 
-    def _constants(self) -> Dict[str, torch.Tensor]:
-        """The step's last input: device tensors that are not parameters,
-        passed in so that an exported step does not carry them (the
-        calibrator's (V+1, D) GloVe matrix)."""
+    def _constants(self, device) -> Dict[str, torch.Tensor]:
+        """The step's last input: tensors on ``device`` that are not
+        parameters, passed in so that an exported step does not carry them
+        (the calibrator's (V+1, D) GloVe matrix)."""
         if self.params.calibrator is None:
             return {}
-        return {"embedding": self.interp.embedding_on(self.device)}
+        return {"embedding": self.interp.embedding_on(device)}
 
     def _run_forward(self, params, objects, obj_mask, arrays, consts, spec, return_trace):
         interp = self.interp
@@ -534,17 +603,41 @@ class ServingEngine:
     def _trace_step(self, spec: BucketSpec, meta):
         return self._step((spec, meta, "trace"), self._make_trace_step, "trace_steps")
 
-    def _inputs(self, lb: LoadedBatch):
-        """A batch's step inputs on the engine's device."""
-        _, objects, obj_mask, arrays = to_device_batch(lb, self.device, self.transfer_dtype)
-        return (param_tensors(self.params), objects, obj_mask,
-                {k: arrays[k] for k in sorted(arrays)}, self._constants())
+    def _replica(self, row: int) -> Tuple[torch.device, OracleParams]:
+        """(lead device, parameters) of data row ``row``: the engine's own on
+        one device."""
+        if self._replicas is None:
+            return self.device, self.params
+        return self.mesh.devices[row][0], self._replicas[row]
 
-    def trace(self, question: dict, objects=None, obj_mask=None) -> dict:
+    def _inputs(self, lb: LoadedBatch, row: int = 0):
+        """A batch's step inputs on data row ``row``'s lead device (the
+        engine's device without a mesh)."""
+        device, params = self._replica(row)
+        _, objects, obj_mask, arrays = to_device_batch(lb, device, self.transfer_dtype)
+        return (param_tensors(params), objects, obj_mask,
+                {k: arrays[k] for k in sorted(arrays)}, self._constants(device))
+
+    def _parts(self, lb: LoadedBatch, row: Optional[int] = None
+               ) -> List[Tuple[int, LoadedBatch]]:
+        """(data row, rows) of each device run of a batch: the batch itself
+        on one device; on a mesh its row blocks, one per data row, or the
+        whole batch on data row ``row`` (default: the rows in turn) when
+        ``n_data`` does not divide it."""
+        if self.mesh is None:
+            return [(0, lb)]
+        blocks = serving_blocks(self.mesh, lb.spec.batch_size)
+        if blocks is None:
+            return [(next(self._turn) % self.mesh.n_data if row is None else row, lb)]
+        return [(i, take_rows(lb, a, b)) for i, (a, b) in enumerate(blocks)]
+
+    def trace(self, question: dict, objects=None, obj_mask=None,
+              row: Optional[int] = None) -> dict:
         """Hop-by-hop reasoning trace for ONE question, synchronously, at
         batch rung 1: ``viz.trace_to_dict``'s entry (ops, tokens and the
         object attentions per hop, the log-probability) plus the decoded
-        ``answers``. Runs on the caller's thread, with its own steps."""
+        ``answers``. Runs on the caller's thread, with its own steps; on a
+        mesh, on data row ``row`` (default: the rows in turn)."""
         from dfol_vqa_tpu_torch.viz import trace_to_dict
 
         t = question["program"]["last_op"]["operator"]
@@ -556,9 +649,10 @@ class ServingEngine:
         key, cb = self._prepare(question)
         r = _Request(question, np.asarray(objects), np.asarray(obj_mask), cb)
         lb, _ = self._assemble(key, [r], pad_to=1)
+        ((row, lb),) = self._parts(lb, row)
         step = self._trace_step(lb.spec, lb.meta)
         with torch.inference_mode():
-            out = step(*self._inputs(lb))
+            out = step(*self._inputs(lb, row))
         out = {"log_probability": out["log_probability"].cpu().numpy(),
                "answer_flags": out["answer_flags"].cpu().numpy(),
                "trace": [[a.cpu().numpy() for a in br] for br in out["trace"]]}
@@ -578,19 +672,24 @@ class ServingEngine:
         obj_mask = np.stack([r.obj_mask for r in group] + [group[0].obj_mask] * pad)
         return LoadedBatch(spec, cb, objects, obj_mask), pad
 
-    def _dispatch(self, key: BucketSpec, group: List[_Request], pad_to=None):
-        """Assemble + enqueue one group; the flags stay on the device.
-        Returns (spec, cb, device_flags, pad)."""
+    def _dispatch(self, key: BucketSpec, group: List[_Request], pad_to=None,
+                  row: Optional[int] = None):
+        """Assemble + enqueue one group, each of its parts (``_parts``) on
+        its device; the flags stay there. Returns (spec, cb, the parts'
+        device flags in row order, pad)."""
         lb, pad = self._assemble(key, group, pad_to)
-        step = self._eval_step(lb.spec, lb.meta)
+        flags = []
         with torch.inference_mode():
-            flags = step(*self._inputs(lb))
+            for r, part in self._parts(lb, row):
+                step = self._eval_step(part.spec, part.meta)
+                flags.append(step(*self._inputs(part, r)))
         return lb.spec, lb.compiled, flags, pad
 
-    def _execute(self, key: BucketSpec, group: List[_Request], pad_to=None):
+    def _execute(self, key: BucketSpec, group: List[_Request], pad_to=None,
+                 row: Optional[int] = None):
         """Synchronous dispatch + readback (warmup path)."""
-        spec, cb, flags_d, pad = self._dispatch(key, group, pad_to)
-        return spec, cb, flags_d.cpu().numpy(), pad
+        spec, cb, flags_d, pad = self._dispatch(key, group, pad_to, row)
+        return spec, cb, _read_flags(flags_d), pad
 
     def _complete(self, group, spec, cb, flags_d, pad):
         """Readback + future resolution for one in-flight group (completion
@@ -602,11 +701,12 @@ class ServingEngine:
 
     def _complete_inner(self, group, spec, cb, flags_d, pad):
         try:
-            flags = flags_d.cpu().numpy()  # the completion barrier
+            flags = _read_flags(flags_d)  # the completion barrier
             t_done = time.perf_counter()
             decoded = decode_answer_flags(flags, spec, cb)
             with self._stats_lock:
                 self.stats["batches"] += 1
+                self.stats["parts"] += len(flags_d)
                 self.stats["padded_rows"] += pad
                 for r in group:
                     self.stats["latencies_ms"].append((t_done - r.t0) * 1e3)
@@ -633,6 +733,11 @@ class ServingEngine:
         finally:
             if not submitted:
                 self._inflight.release()
+
+
+def _read_flags(parts: Sequence[torch.Tensor]) -> np.ndarray:
+    """The parts' device flags read back and joined in row order."""
+    return np.concatenate([f.cpu().numpy() for f in parts])
 
 
 # --------------------------------------------------------------- demo build
@@ -663,14 +768,14 @@ def build_demo_engine(tiny: bool = False, objects: int = 24, max_batch: int = 32
                       seg_ladder: Optional[Sequence[int]] = None,
                       fill_ladder: Optional[Sequence[int]] = None,
                       device="cuda", params: Optional[OracleParams] = None,
-                      executables=None, start: bool = True):
+                      executables=None, start: bool = True, mesh=None):
     """Demo engine over the planted world, as the JAX package builds it.
 
     Weights are random from ``seed`` (drawn on the CPU, so every device gets
     the same ones) unless ``params`` is given; ``tiny`` sends float32
     objects, production dims send bf16. The engine runs on ``device``
-    (default the card), from the loaded ``executables`` where given.
-    Returns (cfg, ontology, world, engine)."""
+    (default the card), or over ``mesh`` when given, from the loaded
+    ``executables`` where given. Returns (cfg, ontology, world, engine)."""
     from dfol_vqa_tpu_torch.data.planted import PlantedWorld
 
     cfg = demo_config(tiny, objects)
@@ -688,8 +793,8 @@ def build_demo_engine(tiny: bool = False, objects: int = 24, max_batch: int = 32
     if fill_ladder is not None:
         extra["fill_ladder"] = tuple(fill_ladder)
     eng = ServingEngine(
-        cfg, ont, params, features=world, device=device,
-        max_batch=max_batch, max_delay_ms=max_delay_ms,
+        cfg, ont, params, features=world, device=None if mesh is not None else device,
+        mesh=mesh, max_batch=max_batch, max_delay_ms=max_delay_ms,
         transfer_dtype=None if tiny else "bfloat16",
         max_pending=max_pending, executables=executables, start=start,
         **extra,

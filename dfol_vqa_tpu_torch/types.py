@@ -13,6 +13,7 @@ import dataclasses
 from enum import IntEnum
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dfol_vqa_tpu_torch import logic
@@ -76,3 +77,37 @@ class VariableSet:
         else:
             agg = logic.masked_sum(inner, mask, axis=-1)
         return logic.log_parametric_not(agg, self.quantifier, 1.0)
+
+
+# The executor's reductions over the question axis: a negated token anywhere
+# in a column turns on the lpn round trip for every row
+# (``interpreter._apply_negation_exact``), and the calibrator keeps a select
+# state when any row selects (``calibrator._Ctx.any_valid``). JAX reduces
+# over the whole batch, also where a mesh shards its rows. A row block that a
+# serving mesh runs apart from the rest of its batch carries the batch's
+# reductions in its arrays (``batch_flags``), and reduces as the batch does.
+FLAG_FIELDS = ("arg_tok", "arg_aux", "last_tok", "last_aux", "options")
+
+
+def batch_flags(arrays) -> dict:
+    """For each signed token field of a batch's host arrays, per column of
+    its axes after the question axis: whether any row is negative
+    (``"neg:<field>"``) or nonzero (``"nz:<field>"``), as int32 (the
+    packing's item size)."""
+    out = {}
+    for name in FLAG_FIELDS:
+        v = arrays[name]
+        out[f"neg:{name}"] = (v < 0).any(axis=0).astype(np.int32)
+        out[f"nz:{name}"] = (v != 0).any(axis=0).astype(np.int32)
+    return out
+
+
+def batch_any(arrays, kind: str, field: str, index: tuple = ()) -> Optional[torch.Tensor]:
+    """The whole batch's ``batch_flags`` reduction ``kind`` ("neg" or "nz")
+    of ``field`` at ``index`` (over every column it leaves), a 0-d bool
+    tensor; None when ``arrays`` carries no flags (a whole batch, which
+    reduces its own rows)."""
+    flags = arrays.get(f"{kind}:{field}")
+    if flags is None:
+        return None
+    return torch.any(flags[index] > 0)

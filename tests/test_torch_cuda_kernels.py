@@ -436,3 +436,74 @@ def test_cuda_serving_artifact_serves_through_the_kernel(cuda, tmp_path, monkeyp
     assert got == want and trace["hops"]
     assert ro.LAUNCHES > before
     assert eng.stats["compiled_steps"] == 0 and eng.stats["aot_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_serves_as_one_card(cuda):
+    """A (2, 2) logical mesh of cuda:0 (``make_local_mesh``: two replicas,
+    the head split over two model columns, groups split over the data
+    rows) answers as the single-card engine does, kernel 1 launching once
+    per relating part."""
+    from dfol_vqa_tpu_torch import serve
+    from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
+    from dfol_vqa_tpu_torch.parallel.mesh import VocabShards, make_local_mesh
+
+    demo = dict(tiny=True, seed=0, max_batch=8)
+    _, _, world, one = serve.build_demo_engine(device=cuda, **demo)
+    qs = [q for q in (world.generate_family("exist", 8, length=2, seed=5, neg_prob=0.3)
+                      + world.generate_family("verify_rel", 4, length=1, seed=6))
+          if spec_needs_relations(one._prepare(q)[0])]  # the relating ones
+    assert len(qs) >= 4
+    try:
+        want = [r.answers for r in one.answer_many(qs)]
+    finally:
+        one.stop()
+    mesh = make_local_mesh((2, 2), devices=["cuda:0"] * 4)
+    _, _, _, eng = serve.build_demo_engine(mesh=mesh, **demo)
+    try:
+        assert all(isinstance(p.embedding, VocabShards) for p in eng._replicas)
+        before, parts = ro.LAUNCHES, eng.stats["parts"]
+        got = [r.answers for r in eng.answer_many(qs)]
+        assert ro.LAUNCHES - before == eng.stats["parts"] - parts > 0
+    finally:
+        eng.stop()
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_cuda_relation_oracle_on_every_card_from_another_thread(cuda, ontology):
+    """Kernel 1 on each card present, launched from a thread whose current
+    device is cuda:0 (a mesh engine's dispatcher enqueues on every card)."""
+    import threading
+
+    cfg = Config(box_features_dim=32, oracle_input_dim=16, word_embedding_dim=300,
+                 featurizer_layers_config=[], attribute_network_layers_config=[8],
+                 relation_network_layers_config=[256], dropout=0.0)
+    rng = np.random.default_rng(3)
+    host = [rng.uniform(size=(4, 24, cfg.attr_input_dim)).astype(np.float32),
+            rng.uniform(size=(4, 24, 4)).astype(np.float32),
+            rng.integers(1, 2300, (4, 8)).astype(np.int32)]
+    errors = []
+
+    def run(index):
+        try:
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", index)
+            tp = om.init_oracle_params(cfg, ontology, torch.Generator().manual_seed(0), dev)
+            ins = [torch.from_numpy(a).to(dev) for a in host]
+            before = ro.LAUNCHES
+            with torch.inference_mode():
+                got = ro.rel_cache_kernel(tp, *ins, cfg)
+                want = ro.rel_cache_kernel_reference(tp, *ins)
+            torch.cuda.synchronize(dev)
+            assert got.device == dev and ro.LAUNCHES == before + 1
+            assert_matches(got, want)
+        except BaseException as e:  # re-raised on the test's thread
+            errors.append((index, e))
+
+    for index in range(torch.cuda.device_count()):
+        t = threading.Thread(target=run, args=(index,))
+        t.start()
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors

@@ -80,7 +80,9 @@ def test_port_file_imports_nothing_of_jax(path):
                                     "dfol_vqa_tpu_torch.export",
                                     "dfol_vqa_tpu_torch.http_frontend",
                                     "dfol_vqa_tpu_torch.viz",
-                                    "dfol_vqa_tpu_torch.utils.profiling"])
+                                    "dfol_vqa_tpu_torch.utils.profiling",
+                                    "dfol_vqa_tpu_torch.graft_entry",
+                                    "dfol_vqa_tpu_torch.parallel.launch"])
 def test_port_module_loads_no_jax(module):
     code = ("import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
@@ -99,6 +101,12 @@ def test_experiment_modules_are_scanned():
 def test_serving_modules_are_scanned():
     for name in ("export.py", "http_frontend.py", "viz.py", os.path.join("utils", "profiling.py"),
                  os.path.join("utils", "__init__.py")):
+        assert os.path.join("dfol_vqa_tpu_torch", name) in PORT_FILES
+
+
+def test_entry_and_mesh_modules_are_scanned():
+    for name in ("graft_entry.py", os.path.join("parallel", "mesh.py"),
+                 os.path.join("parallel", "launch.py")):
         assert os.path.join("dfol_vqa_tpu_torch", name) in PORT_FILES
 
 
