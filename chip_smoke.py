@@ -188,15 +188,16 @@ Phases, each reported on its own line(s):
    (``phase_serving_mesh``): (a) the demo engine at production widths on
    logical meshes of the card, ``(2,)``, ``(4,)``, ``(2, 2)`` and ``(4,
    2)`` (``parallel/mesh.make_local_mesh``; each data row a replica, the
-   concept head split over the model axis, a group's rows split in blocks
-   over the data axis), warmed up on every data row, serving phase 4's 64
-   and phase 8's 68 requests: answers equal to the CPU engine's (and so to
-   the single-card engine's), kernel 1 once per relating part and never
-   for the others; (b) the first JAX golden through a ``(2, 2)`` tiny mesh
-   engine; (c) the ``cur7`` calibrator engine on ``(2, 2)`` against phase
-   9's CPU answers, its GloVe constant on each replica's device; (d) with
-   two cards or more, requests/s of a mesh over every card against one
-   card in turns (else printed as not measured); (e)
+   concept head split over the model axis, each group whole on one data
+   row, the rows in turn), warmed up on every data row, serving phase 4's
+   64 and phase 8's 68 requests: answers equal to the CPU engine's (and so
+   to the single-card engine's), kernel 1 once per relating group and
+   never for the others; (b) the first JAX golden through a ``(2, 2)``
+   tiny mesh engine; (c) the ``cur7`` calibrator engine on ``(2, 2)``
+   against phase 9's CPU answers, its GloVe constant on each replica's
+   device; (d) with two cards or more, the meshes ``(n,)``, ``(n/2, 2)``
+   and ``(1, n)`` over the n cards held to (a)'s checks, and requests/s of
+   each against one card in turns (else printed as not measured); (e)
    ``graft_entry.entry()`` on the card against the CPU from the same
    weights (within ``GOLDEN_ATOL``) and ``graft_entry.dryrun_multichip(2)``
    as two gloo ranks on the card (over NCCL on every card where there are
@@ -4237,9 +4238,9 @@ def mesh_serve_check(eng, qs, want, what: str) -> tuple:
     """Serve ``qs`` on the mesh engine ``eng``, the relating requests first
     and then the others; the answers must equal ``want`` (the CPU engine's,
     which the single-card engine's equal), and kernel 1 must launch once per
-    relating part (a group's row block, or the whole group when the data
-    axis does not divide its rung: ``stats["parts"]``) and never for the
-    others. Returns (kernel 1's launches, relating parts, seconds)."""
+    relating group (``stats["batches"]``; each group runs whole on one data
+    row) and never for the others. Returns (kernel 1's launches, relating
+    groups, seconds)."""
     from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
     from dfol_vqa_tpu_torch.ops import relation_oracle as ro
 
@@ -4249,27 +4250,31 @@ def mesh_serve_check(eng, qs, want, what: str) -> tuple:
     t0 = time.perf_counter()
     for rel in (True, False):
         idx = [i for i, r in enumerate(relating) if r == rel]
-        parts = eng.stats["parts"]
+        groups = eng.stats["batches"]
         ro.LAUNCHES = 0
         for i, res in zip(idx, eng.answer_many([qs[i] for i in idx])):
             got[i] = res.answers
-        counts[rel] = (ro.LAUNCHES, eng.stats["parts"] - parts)
+        counts[rel] = (ro.LAUNCHES, eng.stats["batches"] - groups)
     seconds = time.perf_counter() - t0
     if got != want:
         bad = sum(a != b for a, b in zip(got, want))
         raise AssertionError(f"{what}: {bad}/{len(qs)} answers differ from the CPU engine's")
-    (launches, parts), (others, _) = counts[True], counts[False]
-    if launches != parts or parts <= 0 or others != 0:
+    (launches, groups), (others, _) = counts[True], counts[False]
+    if launches != groups or groups <= 0 or others != 0:
         raise AssertionError(f"{what}: the relation_oracle kernel launched {launches} times for "
-                             f"{parts} relating parts, and {others} times for the others")
-    return launches, parts, seconds
+                             f"{groups} relating groups, and {others} times for the others")
+    return launches, groups, seconds
 
 
-def mesh_scaling(world, stamp: str) -> None:
-    """(d): requests/s of a mesh over every card against the single-card
-    engine, in turns, on bursts of phase 4's mix at ``max_batch=32``; only
-    where this process sees two cards or more (logical devices of one card
-    would measure nothing)."""
+def mesh_scaling(world, mixes: dict, served: dict, stamp: str) -> int:
+    """(d), only where this process sees two cards or more (logical devices
+    of one card would measure nothing): the meshes ``(n,)``, ``(n/2, 2)``
+    (n even) and ``(1, n)`` (n > 2) over the n cards, warmed up, serve
+    ``mixes`` (phases 4 and 8's requests) as the CPU engine did
+    (``served``), kernel 1 once per relating group (``mesh_serve_check``);
+    then requests/s of each mesh against the single-card engine, in turns,
+    on bursts of phase 4's mix at ``max_batch=32``. Returns kernel 1's
+    launches in the checks."""
     from dfol_vqa_tpu_torch.parallel.mesh import make_local_mesh
     from dfol_vqa_tpu_torch.serve import build_demo_engine
 
@@ -4277,17 +4282,28 @@ def mesh_scaling(world, stamp: str) -> None:
     if n < 2:
         log(f"[14] (d) scaling over cards not measured: this machine has {n} card(s) ({stamp}); "
             f"the logical meshes of (a) share one card and would measure nothing")
-        return
+        return 0
     cards = [torch.device("cuda", i) for i in range(n)]
-    shapes = [(n,)] + ([(n // 2, 2)] if n % 2 == 0 else [])
+    shapes = ([(n,)] + ([(n // 2, 2)] if n % 2 == 0 else [])
+              + ([(1, n)] if n > 2 else []))
     qs = [q for b in range(SCALING_BURSTS) for q in serve_questions(world, seed=5000 + 100 * b)]
     engines = {"one card": build_demo_engine(device=cards[0], max_batch=32, seed=0)[3]}
     for shape in shapes:
         engines[f"mesh {shape}"] = build_demo_engine(
             mesh=make_local_mesh(shape, devices=cards), max_batch=32, seed=0)[3]
+    fwd = 0
     try:
         for eng in engines.values():
-            eng.warmup(qs)
+            eng.warmup(qs + mixes["8"])
+        for shape in shapes:
+            for tag, mix in mixes.items():
+                launches, groups, secs = mesh_serve_check(
+                    engines[f"mesh {shape}"], mix, served[tag],
+                    f"mesh {shape} over {n} cards, phase {tag}'s requests")
+                fwd += launches
+                log(f"[14] (d) mesh {shape} over {n} cards, phase {tag}'s {len(mix)} in "
+                    f"{secs!r} s: answers == CPU engine, kernel 1 once per relating group "
+                    f"({groups}) ({stamp})")
         rates: dict = {k: [] for k in engines}
         answers = {}
         for name in list(engines) + list(engines)[::-1]:  # in turns
@@ -4302,6 +4318,7 @@ def mesh_scaling(world, stamp: str) -> None:
     finally:
         for eng in engines.values():
             eng.stop()
+    return fwd
 
 
 def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
@@ -4310,7 +4327,7 @@ def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
     meshes ``MESH_SERVE_SHAPES`` of the card (warmed up on every data row):
     phase 4's 64 and phase 8's 68 requests, answers equal to the CPU
     engine's (``served``, which phases 4 and 8 held equal to the single-card
-    engine's), kernel 1 once per relating part; (b) the first JAX golden
+    engine's), kernel 1 once per relating group; (b) the first JAX golden
     through a (2, 2) tiny mesh engine; (c) the ``cur7`` calibrator engine
     on (2, 2) against phase 9's CPU answers, its GloVe constant on each
     replica's device; (d) scaling over real cards (``mesh_scaling``); (e)
@@ -4334,13 +4351,13 @@ def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
             info = eng.warmup(mixes["4"] + mixes["8"])
             runs = []
             for tag, qs in mixes.items():
-                launches, parts, secs = mesh_serve_check(eng, qs, served[tag],
-                                                         f"mesh {shape}, phase {tag}'s requests")
+                launches, groups, secs = mesh_serve_check(eng, qs, served[tag],
+                                                          f"mesh {shape}, phase {tag}'s requests")
                 fwd += launches
-                runs.append(f"phase {tag}'s {len(qs)} in {secs!r} s, {parts} relating parts")
+                runs.append(f"phase {tag}'s {len(qs)} in {secs!r} s, {groups} relating groups")
             log(f"[14] (a) mesh {shape} of {device}: warmup {info['runs']} runs of "
                 f"{info['specs']} specs in {info['seconds']!r} s; " + "; ".join(runs)
-                + f"; answers == CPU engine == single card, kernel 1 once per relating part "
+                + f"; answers == CPU engine == single card, kernel 1 once per relating group "
                 f"({stamp})")
         finally:
             eng.stop()
@@ -4355,7 +4372,7 @@ def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
                         mesh=make_local_mesh((2, 2), devices=[device] * 4))
     try:
         eng.warmup(mixes["4"])
-        launches, parts, _ = mesh_serve_check(eng, mixes["4"], served["9"], "cur7 on (2, 2)")
+        launches, groups, _ = mesh_serve_check(eng, mixes["4"], served["9"], "cur7 on (2, 2)")
         fwd += launches
         for row in range(eng.mesh.n_data):
             lead, _ = eng._replica(row)
@@ -4366,8 +4383,8 @@ def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
     finally:
         eng.stop()
     log(f"[14] (c) cur7 calibrator engine on (2, 2): phase 4's requests == phase 9's CPU "
-        f"answers, {parts} relating parts, GloVe constant cached as {keys}")
-    mesh_scaling(world, stamp)
+        f"answers, {groups} relating groups, GloVe constant cached as {keys}")
+    fwd += mesh_scaling(world, mixes, served, stamp)
     fn, args = graft_entry.entry(device=device)
     fn_cpu, args_cpu = graft_entry.entry(device="cpu")
     before = graphs.launch_counts()
@@ -4379,7 +4396,7 @@ def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
     err = float(np.abs(lp - lp_cpu).max())
     if not (np.isfinite(lp).all() and err <= GOLDEN_ATOL):
         raise AssertionError(f"graft_entry.entry() on the card off the CPU's by {err}")
-    dry = [graft_entry.dryrun_multichip(2, device=str(device), backend="gloo")]
+    dry = [graft_entry.dryrun_multichip(2, device=str(device))]
     if torch.cuda.device_count() >= 2:
         dry.append(graft_entry.dryrun_multichip(torch.cuda.device_count(), device="cuda"))
     log(f"[14] (e) graft_entry.entry(): log_probability {lp.tolist()} within {err!r} of the "

@@ -15,9 +15,8 @@ package's):
   ``model``), else over ``(n,)``, through the training mesh of
   ``parallel/mesh.py``: one process per rank, which this function spawns
   itself with a file rendezvous (``parallel/launch.run_processes``), as
-  JAX's dry run provisions its own devices. The ranks run on the CPU over
-  gloo unless ``DFOL_DRYRUN_REAL=1`` (or ``device="cuda"``) puts rank r on
-  card r over NCCL, as JAX's flag selects real devices.
+  JAX's dry run provisions its own devices. Rank r runs on card r over
+  NCCL; ``device="cpu"`` runs the ranks on the CPU over gloo.
 
     python -m dfol_vqa_tpu_torch.graft_entry N
 """
@@ -29,7 +28,6 @@ import os
 import shutil
 import sys
 import tempfile
-from typing import Optional
 
 import numpy as np
 import torch
@@ -125,7 +123,8 @@ def _dryrun_rank(job_path: str) -> None:
     state = shard_params(mesh, params)
     opt = build_optimizer(cfg, params, state)
     trainer = VQATrainer(cfg, interp, mesh=mesh)
-    count = int(sum(mesh.host_sum([batch.batch_size])))
+    # the global count and the global batch's flags (types.batch_flags)
+    ((batch, count),) = next(trainer.mesh_groups([batch], 1))
     before = graphs.launch_counts() if mesh.device.type == "cuda" else [0, 0, 0, 0]
     generator = torch.Generator(mesh.device).manual_seed(mesh.seed(0))
     loss = trainer.train_step(state, opt, batch, generator, count=count)
@@ -150,18 +149,16 @@ def _dryrun_rank(job_path: str) -> None:
     dist.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, device: Optional[str] = None,
-                     backend: Optional[str] = None, timeout: float = DRYRUN_TIMEOUT) -> dict:
+def dryrun_multichip(n_devices: int, device: str = "cuda",
+                     timeout: float = DRYRUN_TIMEOUT) -> dict:
     """One sharded training step and one sharded eval dispatch over
     ``n_devices`` ranks (``dryrun_layout``), each rank a process of its own.
-    ``device``: "cpu" (default; gloo), "cuda" (rank r on card r, NCCL; the
-    default under ``DFOL_DRYRUN_REAL=1``) or one card, e.g. "cuda:0", that
-    every rank shares (``backend`` "gloo"). Asserts a finite loss, finite
+    ``device``: "cuda" (rank r on card r, NCCL; raises with fewer than
+    ``n_devices`` cards), one card that every rank shares, e.g. "cuda:0"
+    (gloo), or "cpu" (gloo). Asserts a finite loss, finite
     log-probabilities and the global batch's answer flags, prints JAX's
     ``dryrun_multichip ok`` line and returns rank 0's report (with every
     rank's kernel launches under ``launches``)."""
-    if device is None:
-        device = "cuda" if os.environ.get("DFOL_DRYRUN_REAL") == "1" else "cpu"
     if device == "cuda" and torch.cuda.device_count() < n_devices:
         raise RuntimeError(f"dryrun_multichip({n_devices}) on real devices sees only "
                            f"{torch.cuda.device_count()} card(s)")
@@ -170,7 +167,7 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None,
     work = tempfile.mkdtemp(prefix="dfol_dryrun_")
     try:
         job = {"world": n_devices, "device": device, "out": work,
-               "backend": backend or ("nccl" if device == "cuda" else "gloo"),
+               "backend": "nccl" if device == "cuda" else "gloo",
                "init": "file://" + os.path.join(work, "rdv")}
         commands = []
         for rank in range(n_devices):

@@ -47,8 +47,8 @@ every device of a ``LocalMesh`` (``make_local_mesh``), with no process
 group: one parameter replica per data row (``serving_replicas``), the
 vocabulary head split over a row's model devices by the same
 ``param_sharding`` rule (``VocabShards``, which copies between devices
-where ``VocabSlice`` runs collectives), and a served batch's rows split
-over the data rows by JAX's ``batch_sharding`` rule (``serving_blocks``).
+where ``VocabSlice`` runs collectives); each served group runs whole on
+one data row, the rows in turn (``serve.py``).
 """
 
 from __future__ import annotations
@@ -525,19 +525,6 @@ def make_local_mesh(mesh_shape: Sequence[int], axis_names: Optional[Sequence[str
                          f"{len(devices)} were given")
     n_model = shape[1] if len(shape) > 1 else 1
     return LocalMesh([devices[r * n_model:(r + 1) * n_model] for r in range(shape[0])], names)
-
-
-def serving_blocks(mesh: LocalMesh, batch_size: int) -> Optional[List[Tuple[int, int]]]:
-    """JAX's ``batch_sharding`` rule for a served batch in one process: the
-    rows ``[start, stop)`` of each data row, ``n_data`` contiguous blocks,
-    when ``n_data`` (> 1) divides ``batch_size``; None otherwise, and the
-    batch runs whole on one data row (JAX computes such a batch replicated
-    on every device, with the same answers)."""
-    n = mesh.n_data
-    if n == 1 or batch_size % n:
-        return None
-    size = batch_size // n
-    return [(i * size, (i + 1) * size) for i in range(n)]
 
 
 def _own(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

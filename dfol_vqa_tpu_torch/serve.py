@@ -39,19 +39,15 @@ the mesh, no process group:
   concept heads are split along the vocabulary over the row's model
   devices when the model size divides V_pad (``param_sharding``, JAX's
   rule; ``mesh.VocabShards``); every other leaf is whole on the lead.
-* A group at batch rung B runs as ``n_data`` row blocks of B / n_data,
-  one per data row, when ``n_data`` divides B (``mesh.serving_blocks``,
-  JAX's ``batch_sharding``); otherwise whole on one data row, the rows
-  taking turns. A block carries its batch's reductions over the question
-  axis (``types.batch_flags``), so every row computes what the whole
-  batch computes for it. The blocks are enqueued one after another; CUDA
-  launches are asynchronous, so on several cards they run side by side.
-  The completion pool reads each block's flags back and joins them in row
-  order.
-* ``warmup`` runs every (spec, block shape) on every data row; ``trace``
-  runs on one data row with the split head. Exported steps
-  (``executables``) are single-device and refused with a mesh, as
-  ``export_serving_set`` refuses a mesh engine.
+* Each group runs whole on one data row, the rows taking turns. JAX
+  splits a batch's rows over ``data`` where the data size divides the
+  batch and computes it replicated otherwise; the answers are the same
+  either way. CUDA launches are asynchronous, so on several cards
+  consecutive groups run side by side.
+* ``warmup`` runs every (spec, rung) on every data row; ``trace`` runs on
+  one data row with the split head. Exported steps (``executables``) are
+  single-device and refused with a mesh, as ``export_serving_set``
+  refuses a mesh engine.
 """
 
 from __future__ import annotations
@@ -79,8 +75,6 @@ from dfol_vqa_tpu_torch.compiler.program_compiler import (
     CompiledBatch,
     ProgramCompiler,
     _pad_ladder,
-    pack_arrays,
-    pack_meta,
 )
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
@@ -88,8 +82,7 @@ from dfol_vqa_tpu_torch.ontology import GQAOntology
 from dfol_vqa_tpu_torch.data.transfer import to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter, decode_answer_flags
 from dfol_vqa_tpu_torch.models.oracle import OracleParams
-from dfol_vqa_tpu_torch.parallel.mesh import serving_blocks, serving_replicas
-from dfol_vqa_tpu_torch.types import batch_flags
+from dfol_vqa_tpu_torch.parallel.mesh import serving_replicas
 
 # ------------------------------------------------------- parameters as inputs
 
@@ -219,26 +212,6 @@ def concat_batches(spec: BucketSpec, cbs: Sequence[CompiledBatch]
     return dataclasses.replace(spec, batch_size=B), dataclasses.replace(cbs[0], **updates)
 
 
-def take_rows(lb: LoadedBatch, start: int, stop: int) -> LoadedBatch:
-    """Rows ``[start, stop)`` of a per-question batch (no ``img_index``):
-    every array and list of the compiled batch along its question axis, pad
-    rows (``question_mask = 0``) kept as they are, and the whole batch's
-    reductions over that axis (``types.batch_flags``) in its arrays."""
-    cb, B = lb.compiled, lb.spec.batch_size
-    updates: Dict[str, object] = {}
-    for f in dataclasses.fields(CompiledBatch):
-        v = getattr(cb, f.name)
-        if isinstance(v, (np.ndarray, list)) and len(v) == B:
-            updates[f.name] = v[start:stop]
-    part = LoadedBatch(dataclasses.replace(lb.spec, batch_size=stop - start),
-                       dataclasses.replace(cb, **updates), lb.objects[start:stop],
-                       lb.obj_mask[start:stop])
-    part.arrays.update(batch_flags(lb.arrays))
-    part.meta = pack_meta(part.arrays)
-    part.packed = pack_arrays(part.arrays, part.meta)
-    return part
-
-
 # ------------------------------------------------------------------- engine
 
 
@@ -320,7 +293,7 @@ class ServingEngine:
             option_pad_ladder=cfg.tpu.option_pad_ladder,
         )
         self.mesh = mesh
-        self._turn = itertools.count()  # the data row of the next whole group
+        self._turn = itertools.count()  # the data row of the next group (``_row``)
         if mesh is None:
             self.device = torch.device("cuda" if device is None else device)
             # a copy: Module.to() moves in place, and callers may serve the
@@ -366,7 +339,6 @@ class ServingEngine:
             "compiled_steps": 0,  # live steps made (eager Interpreter.forward)
             "aot_steps": 0,  # steps served from loaded torch.export programs
             "trace_steps": 0,  # live trace steps made
-            "parts": 0,  # device runs: a group's row blocks on a mesh, else its batch
             "latencies_ms": deque(maxlen=100_000),
         }
         self._stats_lock = threading.Lock()
@@ -451,15 +423,11 @@ class ServingEngine:
         before = self._steps_made()
         runs = 0
         for key, r in reps.items():
-            for B in batch_sizes:
-                # a rung that the data rows split runs on all of them at
-                # once; a whole one once on each
-                whole = self.mesh is not None and serving_blocks(self.mesh, B) is None
-                for row in range(self.mesh.n_data) if whole else [None]:
+            for row in range(self.mesh.n_data if self.mesh is not None else 1):
+                for B in batch_sizes:
                     self._execute(key, [r], pad_to=B, row=row)
                     runs += 1
-            if traces:
-                for row in range(self.mesh.n_data) if self.mesh is not None else [None]:
+                if traces:
                     self.trace(r.question, r.objects, r.obj_mask, row=row)
                     runs += 1
         return {"specs": len(reps), "batch_sizes": list(batch_sizes), "runs": runs,
@@ -618,18 +586,12 @@ class ServingEngine:
         return (param_tensors(params), objects, obj_mask,
                 {k: arrays[k] for k in sorted(arrays)}, self._constants(device))
 
-    def _parts(self, lb: LoadedBatch, row: Optional[int] = None
-               ) -> List[Tuple[int, LoadedBatch]]:
-        """(data row, rows) of each device run of a batch: the batch itself
-        on one device; on a mesh its row blocks, one per data row, or the
-        whole batch on data row ``row`` (default: the rows in turn) when
-        ``n_data`` does not divide it."""
+    def _row(self, row: Optional[int]) -> int:
+        """The data row of the next device run: ``row`` where given, else
+        the rows in turn (0 without a mesh)."""
         if self.mesh is None:
-            return [(0, lb)]
-        blocks = serving_blocks(self.mesh, lb.spec.batch_size)
-        if blocks is None:
-            return [(next(self._turn) % self.mesh.n_data if row is None else row, lb)]
-        return [(i, take_rows(lb, a, b)) for i, (a, b) in enumerate(blocks)]
+            return 0
+        return next(self._turn) % self.mesh.n_data if row is None else row
 
     def trace(self, question: dict, objects=None, obj_mask=None,
               row: Optional[int] = None) -> dict:
@@ -649,10 +611,9 @@ class ServingEngine:
         key, cb = self._prepare(question)
         r = _Request(question, np.asarray(objects), np.asarray(obj_mask), cb)
         lb, _ = self._assemble(key, [r], pad_to=1)
-        ((row, lb),) = self._parts(lb, row)
         step = self._trace_step(lb.spec, lb.meta)
         with torch.inference_mode():
-            out = step(*self._inputs(lb, row))
+            out = step(*self._inputs(lb, self._row(row)))
         out = {"log_probability": out["log_probability"].cpu().numpy(),
                "answer_flags": out["answer_flags"].cpu().numpy(),
                "trace": [[a.cpu().numpy() for a in br] for br in out["trace"]]}
@@ -674,22 +635,19 @@ class ServingEngine:
 
     def _dispatch(self, key: BucketSpec, group: List[_Request], pad_to=None,
                   row: Optional[int] = None):
-        """Assemble + enqueue one group, each of its parts (``_parts``) on
-        its device; the flags stay there. Returns (spec, cb, the parts'
-        device flags in row order, pad)."""
+        """Assemble + enqueue one group on data row ``row`` (``_row``); the
+        flags stay on its device. Returns (spec, cb, device_flags, pad)."""
         lb, pad = self._assemble(key, group, pad_to)
-        flags = []
+        step = self._eval_step(lb.spec, lb.meta)
         with torch.inference_mode():
-            for r, part in self._parts(lb, row):
-                step = self._eval_step(part.spec, part.meta)
-                flags.append(step(*self._inputs(part, r)))
+            flags = step(*self._inputs(lb, self._row(row)))
         return lb.spec, lb.compiled, flags, pad
 
     def _execute(self, key: BucketSpec, group: List[_Request], pad_to=None,
                  row: Optional[int] = None):
         """Synchronous dispatch + readback (warmup path)."""
         spec, cb, flags_d, pad = self._dispatch(key, group, pad_to, row)
-        return spec, cb, _read_flags(flags_d), pad
+        return spec, cb, flags_d.cpu().numpy(), pad
 
     def _complete(self, group, spec, cb, flags_d, pad):
         """Readback + future resolution for one in-flight group (completion
@@ -701,12 +659,11 @@ class ServingEngine:
 
     def _complete_inner(self, group, spec, cb, flags_d, pad):
         try:
-            flags = _read_flags(flags_d)  # the completion barrier
+            flags = flags_d.cpu().numpy()  # the completion barrier
             t_done = time.perf_counter()
             decoded = decode_answer_flags(flags, spec, cb)
             with self._stats_lock:
                 self.stats["batches"] += 1
-                self.stats["parts"] += len(flags_d)
                 self.stats["padded_rows"] += pad
                 for r in group:
                     self.stats["latencies_ms"].append((t_done - r.t0) * 1e3)
@@ -733,11 +690,6 @@ class ServingEngine:
         finally:
             if not submitted:
                 self._inflight.release()
-
-
-def _read_flags(parts: Sequence[torch.Tensor]) -> np.ndarray:
-    """The parts' device flags read back and joined in row order."""
-    return np.concatenate([f.cpu().numpy() for f in parts])
 
 
 # --------------------------------------------------------------- demo build

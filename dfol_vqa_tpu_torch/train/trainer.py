@@ -54,8 +54,11 @@ checkpoints fall at those boundaries; the steps of a chunk run eagerly,
 one step at a time, with no padded steps and no CUDA graph (gloo cannot be
 captured, and each step's exchange of sizes and keys is a host
 collective).
-Evaluation under the mesh runs each chunk eagerly too, sums the error
-counts over the data axis and gathers predictions and hardset entries in
+Every batch under the mesh carries its global batch's reductions over the
+question axis (``types.batch_flags``, exchanged with the keys), so a rank
+computes its rows as one device computes them in the global batch.
+Evaluation under the mesh takes one batch at a time in lockstep, sums the
+error counts over the data axis and gathers predictions and hardset entries in
 the order one device would hold them (``interleave``). Rank 0 alone
 writes files: checkpoints (the whole leaves, gathered), predictions,
 hardsets, ``losses.npy``; it alone reads a checkpoint back and broadcasts
@@ -77,6 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dfol_vqa_tpu_torch.compiler.program_compiler import pack_arrays, pack_meta
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.data.features import FeatureSource
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
@@ -91,7 +95,7 @@ from dfol_vqa_tpu_torch.parallel.mesh import Mesh, ShardedParams, broadcast_para
 from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train.graphs import GraphCache, param_key
 from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer
-from dfol_vqa_tpu_torch.types import QuestionType
+from dfol_vqa_tpu_torch.types import QuestionType, batch_flags
 
 # per-terminal-op metric buckets (reference trainer.py:64-83)
 OP_INDEX = OrderedDict(
@@ -128,6 +132,16 @@ def global_group_key(parts: Sequence[tuple]) -> tuple:
     U = len({im for p in parts for im in p[3]})
     u_pad = next((v for v in U_PAD_LADDER if U <= v), U)
     return (spec, shapes, rest, u_pad)
+
+
+def with_global_flags(batch: LoadedBatch, parts: Sequence[dict]) -> LoadedBatch:
+    """``batch`` (a data rank's rows) carrying, in its arrays, its global
+    batch's reductions over the question axis: the OR of the data ranks'
+    ``types.batch_flags`` ``parts``."""
+    batch.arrays.update({k: np.bitwise_or.reduce([p[k] for p in parts]) for k in parts[0]})
+    batch.meta = pack_meta(batch.arrays)
+    batch.packed = pack_arrays(batch.arrays, batch.meta)
+    return batch
 
 
 def pad_chunk(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -317,18 +331,24 @@ class VQATrainer:
         chunks one device would take for the global batches. Every rank
         takes as many steps as the longest shard, a rank whose shard has
         run out with None. Each step the ranks exchange their batch's
-        ``mesh_group_key`` and size (one host collective); a chunk closes
-        where the global key changes or at ``chunk`` steps."""
+        ``mesh_group_key``, size and ``types.batch_flags`` (one host
+        collective); a chunk closes where the global key changes or at
+        ``chunk`` steps. Each batch carries its global batch's flags
+        (``with_global_flags``), so the executor's reductions over the
+        question axis see every data rank's rows, as JAX's do."""
         it = iter(loader)
         buf: List[Tuple[Optional[LoadedBatch], int]] = []
         key = None
         while True:
             batch = next(it, None)
             parts = [p for p in self.mesh.gather_objects(
-                None if batch is None else (batch.batch_size, mesh_group_key(batch)))
+                None if batch is None
+                else (batch.batch_size, mesh_group_key(batch), batch_flags(batch.arrays)))
                 if p is not None]
             if not parts:
                 break
+            if batch is not None:
+                with_global_flags(batch, [p[2] for p in parts])
             step_key = global_group_key([p[1] for p in parts])
             if buf and step_key != key:
                 yield buf
@@ -517,9 +537,21 @@ class VQATrainer:
 
         The eval graphs belong to one parameter tree: evaluating another
         drops them, and the trainer holds the tree they read, so its tensors
-        keep their addresses while the graphs live."""
+        keep their addresses while the graphs live.
+
+        Under the mesh the ranks take the batches in lockstep
+        (``mesh_groups``, one batch at a time), each with its global batch's
+        flags, and run each with ``Interpreter.forward``."""
         if isinstance(params, ShardedParams):
             params = params.gather()
+        if self.mesh is not None:
+            for ((batch, _),) in self.mesh_groups(loader, 1):
+                if batch is not None:
+                    _, objects, obj_mask, arrays = to_device_batch(batch, self.device)
+                    with torch.inference_mode():
+                        yield batch, self.interp.forward(params, objects, obj_mask, arrays,
+                                                         batch.spec)
+            return
         owner = (params, param_key(params))
         if self._eval_params is None or self._eval_params[0] is not params or \
                 self._eval_params[1] != owner[1]:

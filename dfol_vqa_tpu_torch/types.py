@@ -83,9 +83,10 @@ class VariableSet:
 # in a column turns on the lpn round trip for every row
 # (``interpreter._apply_negation_exact``), and the calibrator keeps a select
 # state when any row selects (``calibrator._Ctx.any_valid``). JAX reduces
-# over the whole batch, also where a mesh shards its rows. A row block that a
-# serving mesh runs apart from the rest of its batch carries the batch's
-# reductions in its arrays (``batch_flags``), and reduces as the batch does.
+# over the whole batch, also where a mesh shards its rows. A training mesh's
+# data rank holds a shard of each global batch; its batch carries the global
+# batch's reductions in its arrays (``batch_flags`` of every rank, ORed by
+# ``trainer.with_global_flags``), and reduces as the global batch does.
 FLAG_FIELDS = ("arg_tok", "arg_aux", "last_tok", "last_aux", "options")
 
 

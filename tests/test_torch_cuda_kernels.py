@@ -441,9 +441,9 @@ def test_cuda_serving_artifact_serves_through_the_kernel(cuda, tmp_path, monkeyp
 @pytest.mark.cuda
 def test_cuda_mesh_engine_serves_as_one_card(cuda):
     """A (2, 2) logical mesh of cuda:0 (``make_local_mesh``: two replicas,
-    the head split over two model columns, groups split over the data
-    rows) answers as the single-card engine does, kernel 1 launching once
-    per relating part."""
+    the head split over two model columns, each group whole on one data
+    row) answers as the single-card engine does, kernel 1 launching once
+    per relating group."""
     from dfol_vqa_tpu_torch import serve
     from dfol_vqa_tpu_torch.models.interpreter import spec_needs_relations
     from dfol_vqa_tpu_torch.parallel.mesh import VocabShards, make_local_mesh
@@ -462,9 +462,9 @@ def test_cuda_mesh_engine_serves_as_one_card(cuda):
     _, _, _, eng = serve.build_demo_engine(mesh=mesh, **demo)
     try:
         assert all(isinstance(p.embedding, VocabShards) for p in eng._replicas)
-        before, parts = ro.LAUNCHES, eng.stats["parts"]
+        before, groups = ro.LAUNCHES, eng.stats["batches"]
         got = [r.answers for r in eng.answer_many(qs)]
-        assert ro.LAUNCHES - before == eng.stats["parts"] - parts > 0
+        assert ro.LAUNCHES - before == eng.stats["batches"] - groups > 0
     finally:
         eng.stop()
     assert got == want

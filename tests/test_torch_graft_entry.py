@@ -6,9 +6,10 @@ against the JAX package's ``__graft_entry__.py``, on the CPU.
   same loader batch, and from JAX's weights (``convert.params_from_numpy``)
   log-probabilities within 1e-5 of JAX's jitted ``fn``.
 * ``dryrun_multichip(2)`` (``('data',)``) and ``(4)`` (``('data',
-  'model')``, FSDP over ``data``): one training step and one eval
-  dispatch in gloo processes the call spawns itself, each with
-  ``DRYRUN_TIMEOUT`` seconds, printing JAX's ``ok`` line.
+  'model')``, FSDP over ``data``) with ``device="cpu"``: one training
+  step and one eval dispatch in gloo processes the call spawns itself,
+  each with ``DRYRUN_TIMEOUT`` seconds, printing JAX's ``ok`` line. Its
+  default is the cards, one per rank over NCCL.
 """
 
 import jax
@@ -47,7 +48,7 @@ def test_entry_matches_jax():
 
 @pytest.mark.parametrize("n,mesh", [(2, "{'data': 2}"), (4, "{'data': 2, 'model': 2}")])
 def test_dryrun_multichip(n, mesh, capsys):
-    rep = graft_entry.dryrun_multichip(n, timeout=DRYRUN_TIMEOUT)
+    rep = graft_entry.dryrun_multichip(n, device="cpu", timeout=DRYRUN_TIMEOUT)
     out = capsys.readouterr().out
     assert f"dryrun_multichip ok: mesh={mesh} loss=" in out and "eval_logp_mean=" in out
     assert rep["backend"] == "gloo" and rep["device"] == "cpu"
@@ -62,8 +63,8 @@ def test_dryrun_layout_is_jax():
         ((2, 2), ("data", "model")), ((4, 2), ("data", "model"))]
 
 
-def test_dryrun_on_missing_cards_raises(monkeypatch):
-    monkeypatch.setenv("DFOL_DRYRUN_REAL", "1")
+def test_dryrun_on_missing_cards_raises():
+    """The default device is the cards: no CPU fallback."""
     if torch.cuda.device_count() >= 64:
         pytest.skip("a host with 64 cards")
     with pytest.raises(RuntimeError, match="sees only"):

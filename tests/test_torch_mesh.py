@@ -26,12 +26,18 @@ mean over ranks would show. Global batch 8, per data rank 4.
   device's on the trained parameters: the error vector and counts, the
   prediction list, the hardset files; only rank 0 wrote files. The FSDP
   checkpoint loads on one device and in the JAX package.
+* ``test_mesh_step_reduces_over_the_global_batch``: two ``('data',)``
+  ranks whose rows differ in what the executor reduces over the question
+  axis (negated tokens, selects, with the calibrator on), each step held
+  against JAX's unsharded step as above: every rank carries its global
+  batch's flags (``trainer.with_global_flags``).
 * ``torchrun ... gqa_experiment -c`` trains over two CPU processes as
   one process trains, also over two repetitions that each reload ``last``.
 * The host-sharded loader covers every question once; a mesh shape that
   does not cover the processes raises.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -300,3 +306,53 @@ def test_mesh_shape_against_the_world_raises(tmp_path):
     assert pmesh.distributed_requested(cfg)
     with pytest.raises(ValueError, match="multiple"):
         pmesh.batch_sharding(type("M", (), {"n_data": 3, "data_rank": 0})(), 8)
+
+
+def test_mesh_step_reduces_over_the_global_batch(tmp_path):
+    """Rank 0's rows (even positions: the loader shards by stride) negate
+    their filters and select real nouns; rank 1's (odd positions) negate
+    nothing and select with the wildcard (token 0). JAX reduces over the
+    global batch: the lpn round trip of negation runs on every row, and the
+    calibrator keeps a select state for every row. Two ``('data',)`` ranks,
+    the calibrator on, two steps, each held against JAX's unsharded step on
+    the union batch as ``test_mesh_steps_match_jax`` holds them."""
+    ont = TOntology()
+    cfg = dataclasses.replace(tiny_config(), activate_attention_transfer=True,
+                              attention_transfer_state_dim=8)
+    neg = synthetic.generate_questions(ont, 8, terminal="exist", length=2, seed=7,
+                                       neg_prob=1.0)
+    wild = synthetic.generate_questions(ont, 8, terminal="exist", length=2, seed=8,
+                                        wildcard_prob=1.0)
+    qs = [q for pair in zip(neg, wild) for q in pair]
+    for i, q in enumerate(qs):
+        q["question_id"] = f"flags-{i}"
+        q["imageId"] = ont._images[i % 500]
+    sets = [qs]
+    batches = union_batches(cfg, ont, sets)
+    assert len(batches) == 2
+    for lb in batches:  # the global batch negates and selects; rank 1's rows do neither
+        assert (lb.arrays["arg_tok"][1::2] >= 0).all() and (lb.arrays["arg_tok"] < 0).any()
+        assert (lb.arrays["arg_tok"][1::2, :, 0] == 0).all()
+        assert (lb.arrays["arg_tok"][0::2, :, 0] != 0).any()
+    path = str(tmp_path / "train.json")
+    with open(path, "w") as f:
+        json.dump(sets, f)
+    jparams = JInterpreter(JConfig.from_yaml(chip_smoke.config_dict(cfg)), ont).init_params(
+        jax.random.PRNGKey(5))
+    weights = str(tmp_path / "weights.npz")
+    np.savez(weights, **flatten(jax.tree.map(np.asarray, jparams)))
+    job = {"name": "flags", "config": chip_smoke.config_dict(cfg), "features": FEATURES,
+           "datasets": path, "weights": weights, "batch": BATCH, "steps": 100,
+           "device": "cpu", "rtol": GRAD_RTOL, "mesh_shape": [2], "mesh_axes": ["data"],
+           "fsdp": False}
+    work = str(tmp_path / "run")
+    res = chip_smoke.run_mesh_job(job, 2, work, CHILD_TIMEOUT)
+    records = chip_smoke.read_records(os.path.join(work, "records.npz"))
+    assert len(records) == 2
+    for t, (rec, lb) in enumerate(zip(records, batches)):
+        want_loss, want_grads, out = jax_loss_grads(cfg, ont, rec["before"], lb)
+        chip_smoke.check_mesh_step(cfg, rec, want_loss, want_grads, GRAD_RTOL, f"flags step {t}")
+        lp = np.asarray(out["log_probability"])
+        chip_smoke.check_mesh_flags(res[0]["flags"][t],
+                                    chip_smoke.answer_rows(lb, np.asarray(out["answer_flags"])),
+                                    chip_smoke.tie_rows(lb, lp), f"flags step {t}")

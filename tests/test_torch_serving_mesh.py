@@ -12,9 +12,12 @@ its single device). Tiny widths, the JAX init's weights bridged by
 Tolerances: answers equal; ``trace`` log-probabilities and attentions within
 1e-5 of JAX's; a split head's ``rows`` bitwise equal to the whole head's (a
 gather), its ``logits`` within 1e-6 (a column block of a product may be
-summed by another kernel, which can move a float32 sum by an ULP); a row
-block's forward bitwise equal to the whole batch's rows without the
-calibrator, within 1e-6 with it (its LSTM products at another row count).
+summed by another kernel, which can move a float32 sum by an ULP). Each
+served group runs whole on one data row. A training mesh's data rank holds
+a shard of each global batch and carries the global batch's reductions
+over the question axis (``trainer.with_global_flags``): a shard's forward
+is bitwise equal to the global batch's rows without the calibrator,
+within 1e-6 with it (its LSTM products at another row count).
 """
 
 import dataclasses
@@ -42,9 +45,9 @@ from dfol_vqa_tpu_torch.models.oracle import Embedding
 from dfol_vqa_tpu_torch.parallel.mesh import (
     VocabShards,
     make_local_mesh,
-    serving_blocks,
     serving_replicas,
 )
+from dfol_vqa_tpu_torch.train.trainer import with_global_flags
 from dfol_vqa_tpu_torch.types import batch_any, batch_flags
 from tests.test_torch_calibrator import randomize_head
 from tests.test_torch_serving import new_family_stream, stream
@@ -88,8 +91,8 @@ def test_mesh_engine_answers_equal_jax(single, shape):
         assert [r.answers for r in got] == want
         assert [r.answers for r in got] == [r.answers for r in teng.answer_many(qs)]
         assert all(r.batch_size in eng.batch_ladder for r in got)
-        # a group of a rung that n_data divides runs as n_data blocks
-        assert eng.stats["batches"] < eng.stats["parts"] <= shape[0] * eng.stats["batches"]
+        # every group ran whole on one data row, the rows in turn
+        assert next(eng._turn) == eng.stats["batches"] > shape[0]
         heads = [type(p.embedding) for p in eng._replicas]
         assert len(heads) == shape[0]
         assert set(heads) == {VocabShards if len(shape) > 1 else Embedding}
@@ -152,8 +155,9 @@ def test_model_axis_that_does_not_divide_keeps_the_head_whole(single, shape):
 
 @pytest.mark.parametrize("shape", [(4,), (3,)], ids=["4", "3"])
 def test_rung_the_data_axis_does_not_divide_runs_whole(single, shape):
-    """Groups at rungs 1 and 2 on a data axis of 4 (every rung on 3) run
-    whole on one data row, the rows in turn, with unchanged answers."""
+    """Groups at rungs 1 and 2, which a data axis of 4 or 3 does not
+    divide, run whole on one data row, the rows in turn, with unchanged
+    answers (as every group does)."""
     jeng, _, world, params, _, _ = single
     qs = world.generate_family("exist", 6, length=1, seed=12)
     want = [r.answers for r in jeng.answer_many(qs)]
@@ -162,12 +166,10 @@ def test_rung_the_data_axis_does_not_divide_runs_whole(single, shape):
         got = [eng.submit(q).result(timeout=120) for q in qs]
         assert [r.answers for r in got] == want
         assert {r.batch_size for r in got} <= {1, 2}
-        assert eng.stats["parts"] == eng.stats["batches"] == len(qs)
+        assert eng.stats["batches"] == len(qs)
         assert next(eng._turn) == len(qs)  # every group took its turn
     finally:
         eng.stop()
-    assert serving_blocks(cpu_mesh(shape), 8) == (None if shape == (3,) else
-                                                  [(0, 2), (2, 4), (4, 6), (6, 8)])
 
 
 def test_warmup_runs_every_block_shape_on_every_row(single):
@@ -175,9 +177,9 @@ def test_warmup_runs_every_block_shape_on_every_row(single):
     eng = mesh_engine((4,), params, max_batch=8)
     try:
         info = eng.warmup(qs[:3], traces=True)
-        # rungs 1, 2 whole on each of 4 rows; 4, 8 split once; traces on each row
+        # every rung and the trace on each of 4 rows
         assert info["batch_sizes"] == [1, 2, 4, 8]
-        assert info["runs"] == info["specs"] * (2 * 4 + 2 + 4)
+        assert info["runs"] == info["specs"] * (4 * 4 + 4)
         steps = eng._steps_made()
         for r in eng.answer_many(qs[:3]):
             assert r.answers
@@ -294,11 +296,25 @@ def test_concurrent_submitters_on_a_mesh_all_answered(single):
         eng.stop()
 
 
+def take_rows(lb: LoadedBatch, start: int, stop: int) -> LoadedBatch:
+    """Rows ``[start, stop)`` of a per-question batch (no ``img_index``):
+    every array and list of the compiled batch along its question axis."""
+    cb, B = lb.compiled, lb.spec.batch_size
+    updates = {f.name: getattr(cb, f.name)[start:stop] for f in dataclasses.fields(cb)
+               if isinstance(getattr(cb, f.name), (np.ndarray, list))
+               and len(getattr(cb, f.name)) == B}
+    return LoadedBatch(dataclasses.replace(lb.spec, batch_size=stop - start),
+                       dataclasses.replace(cb, **updates), lb.objects[start:stop],
+                       lb.obj_mask[start:stop])
+
+
 @pytest.mark.parametrize("calibrator", [False, True], ids=["plain", "calibrator"])
 @pytest.mark.parametrize("family,hops", [("exist", 2), ("verify_rel", 2), ("query_attr", 1),
                                          ("choose_rel", 1)])
 def test_row_blocks_compute_the_whole_batch(single, family, hops, calibrator):
-    """``take_rows`` blocks (pad rows included) give the whole batch's rows."""
+    """Contiguous shards of a batch (pad rows included), each carrying the
+    OR of every shard's flags (``with_global_flags``, as a training mesh's
+    data ranks do), give the whole batch's rows."""
     _, _, world, params, _, _ = single
     cfg = serve.demo_config(tiny=True)
     if calibrator:
@@ -320,8 +336,11 @@ def test_row_blocks_compute_the_whole_batch(single, family, hops, calibrator):
             return model.forward(params, o, m, a, b.spec)
 
     whole = run(lb)
-    for a, b in ((0, 4), (4, 8), (6, 8)):
-        part = serve.take_rows(lb, a, b)
+    blocks = ((0, 4), (4, 8), (6, 8))
+    parts = [take_rows(lb, a, b) for a, b in blocks]
+    flags = [batch_flags(p.arrays) for p in parts[:2]]  # (0, 4) and (4, 8) cover the batch
+    for (a, b), part in zip(blocks, parts):
+        with_global_flags(part, flags)
         assert part.compiled.question_ids == cb.question_ids[a:b]
         np.testing.assert_array_equal(part.compiled.question_mask, cb.question_mask[a:b])
         got = run(part)
@@ -335,10 +354,10 @@ def test_row_blocks_compute_the_whole_batch(single, family, hops, calibrator):
 
 
 def test_block_reduces_as_its_batch(single):
-    """A block without a negated token whose batch has one applies the lpn
-    round trip as JAX does on the whole batch (log-likelihoods below the
-    float32 clamp of -46 move), and the calibrator keeps a select state
-    that another block's rows ask for."""
+    """A shard without a negated token whose global batch has one applies
+    the lpn round trip as JAX does on the whole batch (log-likelihoods below
+    the float32 clamp of -46 move), and the calibrator keeps a select state
+    that another shard's rows ask for."""
     ll = torch.tensor([[-60.0, -1.0], [-70.0, -0.5], [-2.0, -80.0], [-3.0, -0.1]])
     tok = np.array([[3], [4], [-5], [6]], np.int32)  # one column; row 2 negated
     flags = batch_flags({f: tok if f == "arg_tok" else np.zeros((4, 1), np.int32)
