@@ -8,6 +8,12 @@ Replaces the reference's DataLoader + collator stack (trainer.py:603-607,
 batch_gqa_boxfeatures_pipeline.py): compiles each question batch with the
 AOT ProgramCompiler, joins dense padded object features, and prefetches on a
 background thread so host IO overlaps device compute.
+
+Each batch's work is three spans (``utils/profiling``) on the thread that
+produces it: ``loader.programs`` (the program rows), ``loader.scenes``
+(``FeatureSource.batch_unique``) and ``loader.batch`` (``LoadedBatch``).
+With ``num_workers > 0`` they run in the worker processes, whose spans the
+process that trains does not record.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from dfol_vqa_tpu_torch.compiler.program_compiler import (
 )
 from dfol_vqa_tpu_torch.data.dataset import ProgramDataset, iter_batches, iter_index_batches
 from dfol_vqa_tpu_torch.data.features import FeatureSource
+from dfol_vqa_tpu_torch.utils.profiling import span
 
 # trailing non-feature columns of an object row: image w,h + bbox x,y,w,h
 # (featurizer.py docstring; reference batch_gqa_boxfeatures_pipeline.py:71)
@@ -257,16 +264,20 @@ class BatchLoader:
             for i, (di, indices) in enumerate(batches):
                 if i % n != k:
                     continue
-                spec, cb = pre[di].gather(indices, self._batch_size)
-                if self._shuffle_choose:
-                    # per-batch rng (seed, i): loader workers shard batches
-                    # by index, so a shared stream would desync them from
-                    # the single-process sequence
-                    shuffle_choose_options(spec, cb, np.random.default_rng((seed, i)))
-                objects, obj_mask, img_index = self._features.batch_unique(
-                    cb.image_ids, self._O
-                )
-                yield LoadedBatch(spec, cb, objects, obj_mask, img_index)
+                with span("loader.programs"):
+                    spec, cb = pre[di].gather(indices, self._batch_size)
+                    if self._shuffle_choose:
+                        # per-batch rng (seed, i): loader workers shard batches
+                        # by index, so a shared stream would desync them from
+                        # the single-process sequence
+                        shuffle_choose_options(spec, cb, np.random.default_rng((seed, i)))
+                with span("loader.scenes"):
+                    objects, obj_mask, img_index = self._features.batch_unique(
+                        cb.image_ids, self._O
+                    )
+                with span("loader.batch"):
+                    batch = LoadedBatch(spec, cb, objects, obj_mask, img_index)
+                yield batch
             return
         for i, (questions, n_pad) in enumerate(iter_batches(
             self._datasets,
@@ -278,11 +289,15 @@ class BatchLoader:
         )):
             if i % n != k:
                 continue
-            spec, cb = self._compiler.compile(questions, keep_original=self._keep_original)
-            if n_pad:
-                cb.question_mask[-n_pad:] = 0.0
-            objects, obj_mask, img_index = self._features.batch_unique(cb.image_ids, self._O)
-            yield LoadedBatch(spec, cb, objects, obj_mask, img_index)
+            with span("loader.programs"):
+                spec, cb = self._compiler.compile(questions, keep_original=self._keep_original)
+                if n_pad:
+                    cb.question_mask[-n_pad:] = 0.0
+            with span("loader.scenes"):
+                objects, obj_mask, img_index = self._features.batch_unique(cb.image_ids, self._O)
+            with span("loader.batch"):
+                batch = LoadedBatch(spec, cb, objects, obj_mask, img_index)
+            yield batch
 
     def _iter_multiprocess(self) -> Iterator[LoadedBatch]:
         import multiprocessing as mp

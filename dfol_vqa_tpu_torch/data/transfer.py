@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from dfol_vqa_tpu_torch.data.loader import GEOM_DIM
+from dfol_vqa_tpu_torch.utils.profiling import span
 
 TRANSFER_DTYPES = (None, "bfloat16", "int8")
 
@@ -190,7 +191,8 @@ def _threaded(produce, size: int) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("transfer.wait"):
+            item = q.get()
         if item is sentinel:
             break
         yield item
@@ -214,7 +216,11 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
     finished (an event per set). A group of one is copied by
     ``to_device_batch`` on the consumer's thread when the consumer takes
     it, its tensors given the leading axis as views: for one batch the
-    stacking, staging and second stream cost more than they save."""
+    stacking, staging and second stream cost more than they save.
+
+    Spans (``utils/profiling``): ``transfer.stage`` around each group's
+    copy, on the thread that makes it; ``transfer.wait`` while the consumer
+    waits for the worker."""
     if transfer_dtype not in TRANSFER_DTYPES:
         raise ValueError(f"transfer_dtype must be one of {TRANSFER_DTYPES}, "
                          f"got {transfer_dtype!r}")
@@ -229,8 +235,9 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
             if len(group) == 1:
                 yield group, None, None
                 continue
-            t = _stack_to_device(group, device, transfer_dtype,
-                                 ring[i % len(ring)] if cuda else None, stream)
+            with span("transfer.stage", batches=len(group)):
+                t = _stack_to_device(group, device, transfer_dtype,
+                                     ring[i % len(ring)] if cuda else None, stream)
             i += 1
             ready = None
             if cuda:
@@ -240,7 +247,8 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
 
     for group, t, ready in _threaded(produce, size):
         if t is None:
-            _, objects, obj_mask, arrays = to_device_batch(group[0], device, transfer_dtype)
+            with span("transfer.stage", batches=1):
+                _, objects, obj_mask, arrays = to_device_batch(group[0], device, transfer_dtype)
             yield group, objects[None], obj_mask[None], {k: v[None] for k, v in arrays.items()}
             continue
         if ready is not None:

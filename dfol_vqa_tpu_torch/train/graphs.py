@@ -21,6 +21,9 @@ version. On a CUDA device:
 * every later call copies its inputs into those buffers on the current
   stream, replays the graph and returns clones of its static outputs.
 
+``last_route`` says which of these the last ``run`` took: "eager" (no
+capture), "warm", "capture" or "replay".
+
 All graphs of a cache share one memory pool. A graph's static outputs may
 lie where another graph keeps its temporaries, so they are cloned right
 after each replay, before any other graph replays. A capture or replay
@@ -99,6 +102,7 @@ class GraphCache:
         self._pool = None
         self._stream = None  # the capture stream, made at the first capture
         self.capture_seconds: List[float] = []
+        self.last_route: Optional[str] = None  # how the last ``run`` ran ``fn``
 
     @property
     def graphs(self) -> List[_Graph]:
@@ -120,13 +124,18 @@ class GraphCache:
         element the kind that ``drop`` takes) and ``generator`` is the one
         ``fn`` draws dropout masks from, if any."""
         if not self.capture:
+            self.last_route = "eager"
             return list(fn(*inputs))
         entry = self._entries.get(key)
         if entry is None:
             self._entries[key] = _WARM
+            self.last_route = "warm"
             return list(fn(*inputs))
         if entry is _WARM:
             entry = self._capture(key, fn, inputs, generator)
+            self.last_route = "capture"
+        else:
+            self.last_route = "replay"
         for static, x in zip(entry.inputs, inputs):
             static.copy_(x)
         entry.graph.replay()

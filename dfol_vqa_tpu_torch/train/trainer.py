@@ -96,6 +96,7 @@ from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train.graphs import GraphCache, param_key
 from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer
 from dfol_vqa_tpu_torch.types import QuestionType, batch_flags
+from dfol_vqa_tpu_torch.utils.profiling import span
 
 # per-terminal-op metric buckets (reference trainer.py:64-83)
 OP_INDEX = OrderedDict(
@@ -366,23 +367,30 @@ class VQATrainer:
                       ) -> Iterator[Tuple[List[torch.Tensor], List[int]]]:
         """Trains an epoch over ``loader`` group by group; yields each
         group's (step losses on the device, real questions per step) after
-        its last step."""
+        its last step. Each group's dispatch is a ``train.step`` span
+        (``utils/profiling``), each lockstep step under the mesh one."""
         chunk = max(1, self.cfg.tpu.train_chunk)
         if self.mesh is not None:
             for group in self.mesh_groups(loader, chunk):
-                yield ([self.train_step(state, opt, batch, generator, count)
-                        for batch, count in group], [count for _, count in group])
+                losses = []
+                for batch, count in group:
+                    with span("train.step", steps=1, route="eager"):
+                        losses.append(self.train_step(state, opt, batch, generator, count))
+                yield losses, [count for _, count in group]
             return
         for group, objects, obj_mask, arrays in chunk_prefetch(loader, chunk, self.device):
             if len(group) == 1:
-                loss = self._grads(state, objects[0], obj_mask[0],
-                                   {k: v[0] for k, v in arrays.items()}, group[0].spec,
-                                   generator)
-                opt.step()
+                with span("train.step", steps=1, route="eager"):
+                    loss = self._grads(state, objects[0], obj_mask[0],
+                                       {k: v[0] for k, v in arrays.items()}, group[0].spec,
+                                       generator)
+                    opt.step()
                 yield [loss], [group[0].batch_size]
             else:
-                losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
-                                           generator)
+                with span("train.step", steps=len(group)) as s:
+                    losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
+                                               generator)
+                    s.tags["route"] = self.graphs.last_route
                 yield list(losses), [b.batch_size for b in group]
 
     def train(
@@ -479,10 +487,11 @@ class VQATrainer:
                                                        last_export_path_base,
                                                        best_export_path_base)
                     if step_losses:
-                        ls = torch.stack(step_losses)
-                        if mesh is not None:
-                            dist.all_reduce(ls, group=mesh.data_group)
-                        ls = readback([ls])[0]
+                        with span("train.readback"):
+                            ls = torch.stack(step_losses)
+                            if mesh is not None:
+                                dist.all_reduce(ls, group=mesh.data_group)
+                            ls = readback([ls])[0]
                         losses[epoch, rep] = float(ls @ np.asarray(sizes, np.float64)) / max(
                             sum(sizes), 1)
                     if validation_loader is not None:

@@ -16,11 +16,13 @@ JAX package (CPU, tiny widths).
 * ``viz.trace_to_dict`` on one batch, and ``viz.visualize_loop``'s
   ``traces.json`` from one npz through both trainers;
 * ``oracle.full_caches`` and ``oracle.static_attr_cache``;
-* ``utils.profiling``: ``StepTimer``, ``annotate`` and ``profile_trace``.
+* ``utils.profiling``: ``span`` with and without a profiler, and
+  ``profile_trace`` (its ``dfol.*`` range in ``key_averages`` and the trace).
 """
 
 import dataclasses
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -218,16 +220,16 @@ def test_static_attr_cache_matches_jax():
 
 
 def test_profiling_utils(tmp_path):
-    t = profiling.StepTimer(warmup=1)
-    for _ in range(4):
-        with t:
-            with profiling.annotate("noop"):
-                torch.ones(4) @ torch.ones(4)
-    assert t.steps == 3
-    assert np.isfinite(t.mean()) and np.isfinite(t.median()) and t.median() >= 0
+    profiling.clear()
+    with profiling.span("noop", k=1):  # no profiler: recorded all the same
+        torch.ones(4) @ torch.ones(4)
     with profiling.profile_trace(str(tmp_path / "prof")) as prof:
-        with profiling.annotate("matmul-span"):
+        with profiling.span("matmul-span"):
             torch.ones((8, 8)) @ torch.ones((8, 8))
-    assert any(e.key == "matmul-span" for e in prof.key_averages())
+    assert any(e.key == "dfol.matmul-span" for e in prof.key_averages())
+    assert not any(e.key == "dfol.noop" for e in prof.key_averages())
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert any(ev.get("name") == "matmul-span" for ev in trace["traceEvents"])
+    assert any(ev.get("name") == "dfol.matmul-span" for ev in trace["traceEvents"])
+    assert [(r[0], r[1], r[4]) for r in profiling.recorded()] == [
+        ("noop", threading.get_ident(), {"k": 1}), ("matmul-span", threading.get_ident(), {})]
+    assert all(0 <= r[3] - r[2] < 10**10 for r in profiling.recorded())
