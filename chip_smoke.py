@@ -201,7 +201,19 @@ Phases, each reported on its own line(s):
    ``graft_entry.entry()`` on the card against the CPU from the same
    weights (within ``GOLDEN_ATOL``) and ``graft_entry.dryrun_multichip(2)``
    as two gloo ranks on the card (over NCCL on every card where there are
-   two or more), its ranks' launches counted.
+   two or more), its ranks' launches counted;
+15. the loader's page-locked object blocks (``phase_pinned``; alone:
+   ``python3 -c "import chip_smoke as c; c.phase_pinned()"``): (a) a
+   ``VQATrainer.train`` at production widths over five batches of one
+   file at ``train_chunk=4`` (a group of 4 and one of 1): every batch's
+   ``block`` page-locked, each ``transfer.stage`` span's ``pinned`` equal
+   to its ``batches``; (b) a batch dropped right after the non-blocking
+   copy of its block (queued behind a 1 s spin kernel), then four gathers
+   of other scenes into blocks of the same size while the copy waits: the
+   device tensor equals the dropped batch's bytes, and no new gather got
+   its block before the copy ran; the same copy from a ``torch.from_numpy``
+   view of the block, which the allocator cannot see, is printed as the
+   control; the pinned allocator's counts (``torch.cuda.host_memory_stats``).
 
 Then one JSON line with each kernel's launches (summed over the main runs
 of phases 4 (both transfers), 6, 7, 8, 9, 10, 11, 12, 13 and 14, each
@@ -2490,6 +2502,23 @@ CURRICULUM_EPOCH_SCALE = 0.01  # every stage at the JAX script's floor of 2 epoc
 CURRICULUM_COMPARE_STEPS = 2  # stage 0's first steps (batch 1000) held against the CPU's
 
 
+def bulk_features(source):
+    """A feature source's scenes made once, in bulk: the planted world
+    draws an image's features anew on every read, where a GQA feature file
+    is read as stored."""
+    from dfol_vqa_tpu_torch.data.features import FeatureSource
+
+    class BulkFeatures(FeatureSource):
+        def __init__(self):
+            self.box_dim = source.box_dim
+            self._rows = {im: source.image(im) for im in source.image_ids}
+
+        def image(self, image_id: str):
+            return self._rows[image_id]
+
+    return BulkFeatures()
+
+
 def stage_steps_check(ont, cfg, params_cpu, loader, device) -> str:
     """Stage 0's first ``CURRICULUM_COMPARE_STEPS`` training steps at batch
     1000, card vs CPU under phase 7's gates (``card_vs_cpu_steps``), with
@@ -2559,7 +2588,6 @@ def phase_curriculum(device, stamp: str) -> dict:
 
     from dfol_vqa_tpu_torch.config import Config
     from dfol_vqa_tpu_torch.data import evalset
-    from dfol_vqa_tpu_torch.data.features import FeatureSource
     from dfol_vqa_tpu_torch.experiments import curriculum as cur
     from dfol_vqa_tpu_torch.experiments import gqa_experiment
     from dfol_vqa_tpu_torch.experiments.experiment import GQAObjectBoxExperiment
@@ -2575,18 +2603,6 @@ def phase_curriculum(device, stamp: str) -> dict:
     ont = GQAOntology()
     world = evalset.demo_world(ont)  # phase 7's training world
     seed = 0
-
-    class BulkFeatures(FeatureSource):
-        """A feature source's scenes made once, in bulk: the planted world
-        draws an image's features anew on every read, where a GQA feature
-        file is read as stored."""
-
-        def __init__(self, source):
-            self.box_dim = source.box_dim
-            self._rows = {im: source.image(im) for im in source.image_ids}
-
-        def image(self, image_id: str):
-            return self._rows[image_id]
 
     class CountedExperiment(cur.PlantedCurriculumExperiment):
         """Every loader wrapped in a ``RouteCounter``: training batches of 80
@@ -2625,7 +2641,7 @@ def phase_curriculum(device, stamp: str) -> dict:
         made = cur.prepare_datasets(world, ont, root, CURRICULUM_SCALE,
                                     f"scale={CURRICULUM_SCALE} world=demo", fmt="json",
                                     sizes=full, workers=CURRICULUM_WRITERS)
-        features = BulkFeatures(world)
+        features = bulk_features(world)
         log(f"[10] planted datasets (4 splits x 13 families x 3 lengths, scale "
             f"{CURRICULUM_SCALE}, stage 0's files {sorted(full)} at "
             f"{CURRICULUM_STAGE0_BATCH} questions, JSON-lines program files, "
@@ -4409,6 +4425,98 @@ def phase_serving_mesh(world, served: dict, device, stamp: str) -> dict:
     return dict(zip(MESH_KERNELS, totals))
 
 
+def phase_pinned(device=None, stamp: str = None) -> None:
+    """Phase 15 (module docstring): the loader's page-locked object blocks
+    on the training route, and a block's reuse held back until its copy
+    has read it."""
+    from dfol_vqa_tpu_torch.data import evalset, trainset
+    from dfol_vqa_tpu_torch.data.loader import can_pin
+    from dfol_vqa_tpu_torch.data.transfer import to_device_batch
+    from dfol_vqa_tpu_torch.models.interpreter import Interpreter
+    from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from dfol_vqa_tpu_torch.train.trainer import VQATrainer
+    from dfol_vqa_tpu_torch.utils import profiling
+
+    device = device or torch.device("cuda", 0)
+    stamp = stamp or card()
+    if not can_pin():
+        raise AssertionError("the loader cannot page-lock memory on the card's host")
+    ont = GQAOntology()
+    cfg = trainset.demo_train_config()
+    cfg.epoch_num, cfg.tpu.train_chunk = 1, 4
+    world = evalset.demo_world(ont)
+    files = trainset.train_datasets(world, (("exist", 2, 5 * cfg.train_batch_size),), seed=5)
+    seen = []
+
+    class Seen:
+        def __init__(self, loader):
+            self.loader = loader
+
+        def __len__(self):
+            return len(self.loader)
+
+        def __iter__(self):
+            for b in self.loader:
+                seen.append(b.block is not None and b.block.is_pinned())
+                yield b
+
+    interp = Interpreter(cfg, ont)
+    params = interp.init_params(torch.Generator().manual_seed(0), device)
+    profiling.clear()
+    VQATrainer(cfg, interp, device=device).train(
+        Seen(trainset.train_loader(cfg, ont, world, files, seed=1)), None, params)
+    stages = [r[4] for r in profiling.recorded() if r[0] == "transfer.stage"]
+    if seen != [True] * 5 or sorted(s["batches"] for s in stages) != [1, 4] or \
+            any(s["pinned"] != s["batches"] for s in stages):
+        raise AssertionError(f"[15] training route: blocks page-locked {seen}, "
+                             f"transfer.stage tags {stages}")
+    log(f"[15] training route: 5 batches, every block page-locked; transfer.stage {stages}")
+
+    # (b) a block dropped while its copy waits behind a spin kernel; the
+    # allocator's cache emptied first, so that a block it wrongly took back
+    # would be the first it hands out again
+    O = cfg.tpu.max_object_num
+    features = bulk_features(world)
+    ids = list(world.image_ids)
+    first, others = ids[:48], [ids[16 + k:64] + ids[:k] for k in range(8)]
+    empty_cache = getattr(torch._C, "_host_emptyCache", None)
+
+    def dropped_copy(view: bool):
+        if empty_cache is not None:
+            empty_cache()
+        g = features.gather_unique(first, O, pinned=True)
+        want = torch.from_numpy(g.objects.copy())
+        src = torch.from_numpy(g.objects) if view else g.pinned
+        if not src.is_pinned():
+            raise AssertionError("[15] the gather's block is not page-locked")
+        ptr = g.pinned.data_ptr()
+        torch.cuda._sleep(10_000_000_000)  # ~5 s at 1.98 GHz: the copy waits behind it
+        on_card = src.to(device, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        del g, src
+        later = [features.gather_unique(o, O, pinned=True) for o in others]
+        if copied.query():
+            raise AssertionError("[15] the copy ran before the later gathers ended")
+        reused = sum(x.pinned.data_ptr() == ptr for x in later)
+        torch.cuda.synchronize()
+        return torch.equal(on_card.cpu(), want), reused
+
+    with torch.cuda.device(device):
+        equal, reused = dropped_copy(view=False)
+        if not equal or reused:
+            raise AssertionError(f"[15] a dropped block was handed out before its copy: "
+                                 f"device tensor equal {equal}, block reused {reused} times")
+        control = dropped_copy(view=True)
+    stats = {k: v for k, v in torch.cuda.host_memory_stats().items()
+             if k.startswith(("allocations.", "allocated_bytes.", "reserved_bytes.",
+                              "num_host_alloc"))}
+    log(f"[15] dropped batch: device tensor equal to its bytes, block held until the copy "
+        f"ran; control (copy from a from_numpy view): equal {control[0]}, block reused "
+        f"{control[1]} times; cache emptied first: {empty_cache is not None}; pinned host "
+        f"memory {stats}; {stamp}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU", file=sys.stderr)
@@ -4478,6 +4586,7 @@ def main() -> int:
     paths["bf16"] = phase_bf16(device, stamp)
     paths.update(phase_chunk(device, stamp))
     paths["serving_mesh"] = phase_serving_mesh(world, served, device, stamp)
+    phase_pinned(device, stamp)
     # each path's counts were set to 0 just before its main run and read just after
     for rec in records:
         rec["launches"] = sum(run.get(rec["name"], 0) for run in paths.values())

@@ -10,6 +10,16 @@ Dense-padded replacement for BatchGQABoxFeaturesCollator's feature join
 x,y,w,h]`` (bbox converted to width/height form as upstream, …:60-61) plus a
 float validity mask, instead of the reference's ragged concat +
 object_batch_index.
+
+``gather_unique`` writes a batch's scene block once: each scene's rows,
+zeros over the rows it leaves empty and over the padded scenes, and the
+int8 transfer's scale of each row taken from the rows just written. With
+``pinned`` the block is a tensor of PyTorch's caching pinned-host allocator
+(``pinned_empty``), which the batch keeps (``LoadedBatch.block``) and the
+copy to the card reads directly (``data/transfer.py``); ``objects`` is a
+numpy view of it for every host consumer. Without, it is a numpy array.
+The loader asks for ``pinned`` where its process can page-lock memory
+(``data/loader.can_pin``).
 """
 
 from __future__ import annotations
@@ -17,9 +27,47 @@ from __future__ import annotations
 import json
 import zlib
 from os.path import join
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+# trailing non-feature columns of an object row: image w,h + bbox x,y,w,h
+# (featurizer.py docstring; reference batch_gqa_boxfeatures_pipeline.py:71)
+GEOM_DIM = 6
+SCALE_FLOOR = 1e-12  # the int8 scale of an all-zero row
+PAD_LADDER = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def row_scale(rows: np.ndarray) -> np.ndarray:
+    """The int8 transfer's per-row scale (``transfer.quantize_objects``):
+    the largest |x| of a row's feature columns over 127, at least
+    ``SCALE_FLOOR``. It covers ONLY the feature columns: the 6 geometry
+    columns (image w/h + bbox) sit at pixel scale (~hundreds), and a shared
+    scale would quantize the O(1) features to zero; geometry rides
+    unquantized instead (``arrays["obj_geom"]``). The largest |x| is taken
+    as the larger of the row's largest value and minus its smallest, which
+    is the same number, without an |x| copy of the rows."""
+    feats = rows[..., :-GEOM_DIM]
+    peak = np.abs(np.maximum(feats.max(axis=-1), -feats.min(axis=-1)))
+    return np.maximum(peak / 127.0, SCALE_FLOOR).astype(np.float32)
+
+
+def pinned_empty(shape) -> torch.Tensor:
+    """An uninitialised float32 host tensor from PyTorch's caching
+    pinned-host allocator: a block freed after a non-blocking copy of it
+    returns to the allocator only once that copy has finished."""
+    return torch.empty(shape, dtype=torch.float32, pin_memory=True)
+
+
+class SceneBlock(NamedTuple):
+    """A batch's deduplicated scenes (``FeatureSource.gather_unique``)."""
+
+    objects: np.ndarray  # (U_pad, O, D+6)
+    mask: np.ndarray  # (U_pad, O)
+    img_index: np.ndarray  # (B,) each question's row of ``objects``
+    scale: np.ndarray  # (U_pad, O) ``row_scale`` of each object row
+    pinned: Optional[torch.Tensor]  # the page-locked tensor ``objects`` views, or None
 
 
 class FeatureSource:
@@ -45,14 +93,22 @@ class FeatureSource:
         sources with open file handles must reopen them per process."""
 
     def batch_unique(
-        self, image_ids: List[str], O: int, pad_ladder=(4, 8, 16, 32, 64, 128, 256, 512, 1024)
+        self, image_ids: List[str], O: int, pad_ladder=PAD_LADDER
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Deduplicated scene batch: (uniq (U_pad, O, D+6), uniq_mask
-        (U_pad, O), img_index (B,)).
+        (U_pad, O), img_index (B,)) of ``gather_unique``.
 
         GQA averages ~10 questions per image, so loading each unique image
         once cuts both host->device bytes and per-object oracle FLOPs. U is
         padded up a ladder to bound jit signatures."""
+        g = self.gather_unique(image_ids, O, pad_ladder)
+        return g.objects, g.mask, g.img_index
+
+    def gather_unique(self, image_ids: List[str], O: int, pad_ladder=PAD_LADDER,
+                      pinned: bool = False) -> SceneBlock:
+        """``batch_unique``'s block written in one pass, with each row's
+        ``row_scale`` (module docstring); in page-locked memory with
+        ``pinned``."""
         uniq: dict = {}
         idx = np.zeros(len(image_ids), np.int32)
         for i, im in enumerate(image_ids):
@@ -65,14 +121,20 @@ class FeatureSource:
             if U <= v:
                 U_pad = v
                 break
-        objs = np.zeros((U_pad, O, self.box_dim + 6), np.float32)
+        shape = (U_pad, O, self.box_dim + GEOM_DIM)
+        block = pinned_empty(shape) if pinned else None
+        objs = block.numpy() if block is not None else np.empty(shape, np.float32)
         mask = np.zeros((U_pad, O), np.float32)
+        scale = np.full((U_pad, O), SCALE_FLOOR, np.float32)
         for im, u in uniq.items():
             row, n = self.image(im)
             n = min(n, O)
             objs[u, :n] = row[:n]
+            objs[u, n:] = 0.0
             mask[u, :n] = 1.0
-        return objs, mask, idx
+            scale[u, :n] = row_scale(objs[u, :n])
+        objs[U:] = 0.0
+        return SceneBlock(objs, mask, idx, scale, block)
 
 
 class GQAHdf5Features(FeatureSource):

@@ -11,9 +11,19 @@ background thread so host IO overlaps device compute.
 
 Each batch's work is three spans (``utils/profiling``) on the thread that
 produces it: ``loader.programs`` (the program rows), ``loader.scenes``
-(``FeatureSource.batch_unique``) and ``loader.batch`` (``LoadedBatch``).
+(``FeatureSource.gather_unique``) and ``loader.batch`` (``LoadedBatch``).
 With ``num_workers > 0`` they run in the worker processes, whose spans the
 process that trains does not record.
+
+Where a batch's object block lives: where the process that trains
+produces its batches itself (a prefetch thread, or none) and can page-lock
+memory (``can_pin``: a card, and not a process forked after CUDA started),
+the gather writes the block straight into PyTorch's caching pinned-host
+allocator and the batch keeps that tensor (``LoadedBatch.block``), which
+``data/transfer.py`` copies to the card with no host copy first. Worker
+processes, and processes without a card, gather into numpy arrays. The
+gather's one pass also gives each row's int8 scale (``obj_scale``), so the
+block is not read again on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import queue
 import threading
 
 import numpy as np
+import torch
 from typing import Iterator, List, Sequence
 
 from dfol_vqa_tpu_torch.compiler.program_compiler import (
@@ -33,38 +44,39 @@ from dfol_vqa_tpu_torch.compiler.program_compiler import (
     pack_meta,
 )
 from dfol_vqa_tpu_torch.data.dataset import ProgramDataset, iter_batches, iter_index_batches
-from dfol_vqa_tpu_torch.data.features import FeatureSource
+from dfol_vqa_tpu_torch.data.features import GEOM_DIM, FeatureSource, row_scale
 from dfol_vqa_tpu_torch.utils.profiling import span
 
-# trailing non-feature columns of an object row: image w,h + bbox x,y,w,h
-# (featurizer.py docstring; reference batch_gqa_boxfeatures_pipeline.py:71)
-GEOM_DIM = 6
+
+def can_pin() -> bool:
+    """Whether this process can page-lock a batch's object block: it sees
+    a card, and it is not a child forked after its parent started CUDA."""
+    return not torch.cuda._is_in_bad_fork() and torch.cuda.is_available()
 
 
 class LoadedBatch:
     __slots__ = ("spec", "compiled", "objects", "obj_mask", "arrays", "meta",
-                 "packed", "obj_scale")
+                 "packed", "obj_scale", "block")
 
     def __init__(self, spec: BucketSpec, compiled: CompiledBatch, objects, obj_mask,
-                 img_index=None):
+                 img_index=None, obj_scale=None, block=None):
         self.spec = spec
         self.compiled = compiled
         self.objects = objects  # (U_pad, O, D+6) unique-image scenes
         self.obj_mask = obj_mask  # (U_pad, O)
+        # the page-locked tensor ``objects`` views (FeatureSource.gather_unique),
+        # kept alive for the copy that reads it, or None
+        self.block = block
         self.arrays = batch_arrays(compiled)
         if img_index is not None:
             self.arrays["img_index"] = img_index
         # per-object-row quantization scale for the optional int8 feature
-        # transfer (device_prefetch.quantize_objects); rides the packed
-        # buffer so device-side dequant uses the exact host scale. The scale
-        # covers ONLY the 2048 RCNN feature columns — the 6 geometry columns
-        # (image w/h + bbox) sit at pixel scale (~hundreds), and a shared
-        # scale would quantize the O(1) features to zero; geometry instead
-        # rides the packed buffer unquantized (it is 6 of 2054 columns).
+        # transfer (transfer.quantize_objects; features.row_scale), so that
+        # device-side dequant uses the exact host scale; ``obj_scale`` where
+        # the gather already took it. The geometry rides unquantized in
+        # ``obj_geom`` (it is 6 of 2054 columns).
         obj_f32 = np.asarray(objects, np.float32)
-        self.obj_scale = np.maximum(
-            np.max(np.abs(obj_f32[..., :-GEOM_DIM]), axis=-1) / 127.0, 1e-12
-        ).astype(np.float32)
+        self.obj_scale = row_scale(obj_f32) if obj_scale is None else obj_scale
         self.arrays["obj_scale"] = self.obj_scale
         self.arrays["obj_geom"] = obj_f32[..., -GEOM_DIM:]
         # one-buffer transfer form (pack_meta docstring)
@@ -241,11 +253,12 @@ class BatchLoader:
             ]
         return self._precompiled
 
-    def _produce(self) -> Iterator[LoadedBatch]:
-        return self._produce_shard(0, 1)
+    def _produce(self, pinned: bool) -> Iterator[LoadedBatch]:
+        return self._produce_shard(0, 1, pinned)
 
-    def _produce_shard(self, k: int, n: int) -> Iterator[LoadedBatch]:
-        """Batches i with i % n == k of the epoch's deterministic sequence.
+    def _produce_shard(self, k: int, n: int, pinned: bool = False) -> Iterator[LoadedBatch]:
+        """Batches i with i % n == k of the epoch's deterministic sequence,
+        their object blocks page-locked with ``pinned``.
 
         Skipped batches cost only index iteration (no compile/gather), so n
         workers split the host work ~evenly."""
@@ -272,11 +285,9 @@ class BatchLoader:
                         # the single-process sequence
                         shuffle_choose_options(spec, cb, np.random.default_rng((seed, i)))
                 with span("loader.scenes"):
-                    objects, obj_mask, img_index = self._features.batch_unique(
-                        cb.image_ids, self._O
-                    )
+                    g = self._features.gather_unique(cb.image_ids, self._O, pinned=pinned)
                 with span("loader.batch"):
-                    batch = LoadedBatch(spec, cb, objects, obj_mask, img_index)
+                    batch = LoadedBatch(spec, cb, *g)
                 yield batch
             return
         for i, (questions, n_pad) in enumerate(iter_batches(
@@ -294,9 +305,9 @@ class BatchLoader:
                 if n_pad:
                     cb.question_mask[-n_pad:] = 0.0
             with span("loader.scenes"):
-                objects, obj_mask, img_index = self._features.batch_unique(cb.image_ids, self._O)
+                g = self._features.gather_unique(cb.image_ids, self._O, pinned=pinned)
             with span("loader.batch"):
-                batch = LoadedBatch(spec, cb, objects, obj_mask, img_index)
+                batch = LoadedBatch(spec, cb, *g)
             yield batch
 
     def _iter_multiprocess(self) -> Iterator[LoadedBatch]:
@@ -367,8 +378,9 @@ class BatchLoader:
         if self._num_workers > 0:
             yield from self._iter_multiprocess()
             return
+        pinned = can_pin()
         if self._prefetch <= 0:
-            yield from self._produce()
+            yield from self._produce(pinned)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self._prefetch)
         _SENTINEL = object()
@@ -376,7 +388,7 @@ class BatchLoader:
 
         def worker():
             try:
-                for item in self._produce():
+                for item in self._produce(pinned):
                     q.put(item)
             except BaseException as e:  # propagate to consumer
                 err.append(e)

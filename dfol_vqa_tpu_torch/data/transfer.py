@@ -9,7 +9,19 @@ batches (``group_key``: the same spec, meta and object shape, at most
 ``chunk`` of them), stacks each group of two or more on the host into
 pinned staging buffers and copies it as one transfer per tensor on a copy
 stream of its own, on a worker thread; a group of one goes through
-``to_device_batch`` when the consumer takes it. It feeds the trainer's
+``to_device_batch`` when the consumer takes it.
+
+Who pins what: a batch whose loader gathered its objects into page-locked
+memory (``LoadedBatch.block``, ``data/loader.can_pin``) sends them as they
+are, float32, straight from that tensor: alone, one copy from the block;
+in a group, one copy from each batch's block into its slice of the group's
+device tensor. Handing the copy the allocator's own tensor lets PyTorch's
+caching pinned-host allocator record the copy, so a block whose batch is
+dropped is not handed out again before its copy has read it. Everything
+else is pinned here: a tensor not already pinned is copied into pinned
+memory (``pin_memory``) before its copy, and a group's other tensors, and
+its objects where a batch has no block or ``transfer_dtype`` makes new
+ones, go through the staging buffers. It feeds the trainer's
 steps (``train/trainer.py``). The JAX package's ``device_prefetch`` (one
 batch at a time, ``size`` ahead) has no counterpart: ``chunk_prefetch`` at
 ``chunk=1`` takes its place.
@@ -37,7 +49,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dfol_vqa_tpu_torch.data.loader import GEOM_DIM
+from dfol_vqa_tpu_torch.data.features import GEOM_DIM
 from dfol_vqa_tpu_torch.utils.profiling import span
 
 TRANSFER_DTYPES = (None, "bfloat16", "int8")
@@ -63,7 +75,7 @@ def quantize_objects(objects, obj_scale):
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
     return t.to(device)
 
 
@@ -111,11 +123,20 @@ def group_batches(loader, chunk: int) -> Iterator[list]:
 
 def _host_objects(batch, transfer_dtype: Optional[str]) -> torch.Tensor:
     """A batch's objects on the host as ``transfer_dtype`` sends them,
-    prepared with the batch's own int8 scale."""
+    prepared with the batch's own int8 scale: in float32, the gather's
+    own block where the batch has one."""
     if transfer_dtype == "int8":
         return torch.from_numpy(quantize_objects(batch.objects, batch.obj_scale))
-    t = torch.from_numpy(np.ascontiguousarray(batch.objects))
+    block = getattr(batch, "block", None)
+    t = block if block is not None else torch.from_numpy(np.ascontiguousarray(batch.objects))
     return t.to(torch.bfloat16) if transfer_dtype == "bfloat16" else t
+
+
+def _from_block(batch, transfer_dtype: Optional[str]) -> bool:
+    """Whether the batch's objects go to the card from its page-locked
+    gather block, with no host copy."""
+    block = getattr(batch, "block", None)
+    return transfer_dtype is None and block is not None and block.is_pinned()
 
 
 def _stack_parts(group, transfer_dtype: Optional[str]) -> List[Tuple[str, list]]:
@@ -153,10 +174,13 @@ class _Staging:
 
 
 def _stack_to_device(group, device: torch.device, transfer_dtype: Optional[str],
-                     staging: Optional[_Staging], stream) -> Dict[str, torch.Tensor]:
+                     staging: Optional[_Staging], stream, direct: bool
+                     ) -> Dict[str, torch.Tensor]:
     """A group's tensors stacked on a leading axis, on ``device``: through
     ``staging`` and ``stream`` (one non-blocking copy per tensor) for a
-    CUDA device, ``torch.stack`` on the CPU."""
+    CUDA device, ``torch.stack`` on the CPU. With ``direct`` (every
+    batch's objects come from its page-locked block, ``_from_block``), each
+    block is copied into its slice on ``stream`` instead of staged."""
     out = {}
     if device.type != "cuda":
         for name, parts in _stack_parts(group, transfer_dtype):
@@ -164,6 +188,12 @@ def _stack_to_device(group, device: torch.device, transfer_dtype: Optional[str],
         return out
     with torch.cuda.stream(stream):
         for name, parts in _stack_parts(group, transfer_dtype):
+            if name == "objects" and direct:
+                out[name] = torch.empty((len(parts),) + tuple(parts[0].shape),
+                                        dtype=parts[0].dtype, device=device)
+                for dst, block in zip(out[name], parts):
+                    dst.copy_(block, non_blocking=True)
+                continue
             host = staging.fill(name, parts)
             out[name] = torch.empty(host.shape, dtype=host.dtype, device=device)
             out[name].copy_(host, non_blocking=True)
@@ -219,8 +249,10 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
     stacking, staging and second stream cost more than they save.
 
     Spans (``utils/profiling``): ``transfer.stage`` around each group's
-    copy, on the thread that makes it; ``transfer.wait`` while the consumer
-    waits for the worker."""
+    copy, on the thread that makes it, its tag ``pinned`` the number of
+    the group's batches whose objects went from their gather block with no
+    host copy (``_from_block``; 0 off the card); ``transfer.wait`` while
+    the consumer waits for the worker."""
     if transfer_dtype not in TRANSFER_DTYPES:
         raise ValueError(f"transfer_dtype must be one of {TRANSFER_DTYPES}, "
                          f"got {transfer_dtype!r}")
@@ -235,9 +267,10 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
             if len(group) == 1:
                 yield group, None, None
                 continue
-            with span("transfer.stage", batches=len(group)):
+            direct = cuda and all(_from_block(b, transfer_dtype) for b in group)
+            with span("transfer.stage", batches=len(group), pinned=len(group) * direct):
                 t = _stack_to_device(group, device, transfer_dtype,
-                                     ring[i % len(ring)] if cuda else None, stream)
+                                     ring[i % len(ring)] if cuda else None, stream, direct)
             i += 1
             ready = None
             if cuda:
@@ -247,7 +280,8 @@ def chunk_prefetch(loader, chunk: int, device, size: int = 2,
 
     for group, t, ready in _threaded(produce, size):
         if t is None:
-            with span("transfer.stage", batches=1):
+            pinned = int(cuda and _from_block(group[0], transfer_dtype))
+            with span("transfer.stage", batches=1, pinned=pinned):
                 _, objects, obj_mask, arrays = to_device_batch(group[0], device, transfer_dtype)
             yield group, objects[None], obj_mask[None], {k: v[None] for k, v in arrays.items()}
             continue

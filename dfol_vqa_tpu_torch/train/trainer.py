@@ -68,7 +68,6 @@ it (``load``).
 from __future__ import annotations
 
 import copy
-import inspect
 import json
 import logging
 import os
@@ -82,7 +81,7 @@ import torch.distributed as dist
 
 from dfol_vqa_tpu_torch.compiler.program_compiler import pack_arrays, pack_meta
 from dfol_vqa_tpu_torch.config import Config
-from dfol_vqa_tpu_torch.data.features import FeatureSource
+from dfol_vqa_tpu_torch.data.features import PAD_LADDER
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
 from dfol_vqa_tpu_torch.data.transfer import chunk_prefetch, to_device_batch
 from dfol_vqa_tpu_torch.models.interpreter import (
@@ -109,8 +108,6 @@ OP_INDEX = OrderedDict(
 )
 ERROR_DIM = len(OP_INDEX) + 1
 
-# the loader's padding of a batch's unique images (FeatureSource.batch_unique)
-U_PAD_LADDER = inspect.signature(FeatureSource.batch_unique).parameters["pad_ladder"].default
 U_KEYS = ("obj_geom", "obj_scale")  # program tensors whose leading axis is U_pad
 
 
@@ -131,7 +128,7 @@ def global_group_key(parts: Sequence[tuple]) -> tuple:
     meta's U entries and offsets follow from U_pad)."""
     spec, shapes, rest, _ = parts[0]
     U = len({im for p in parts for im in p[3]})
-    u_pad = next((v for v in U_PAD_LADDER if U <= v), U)
+    u_pad = next((v for v in PAD_LADDER if U <= v), U)
     return (spec, shapes, rest, u_pad)
 
 

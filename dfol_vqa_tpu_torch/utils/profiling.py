@@ -25,8 +25,10 @@ The spans of the training path (``data/loader.py``, ``data/transfer.py``,
     program rows, its scene block and its ``LoadedBatch``, on the loader's
     producer thread (with ``num_workers > 0`` they run in the worker
     processes and are not recorded here);
-  * ``transfer.stage`` (tag ``batches``): a group's copy to the device, on
-    the transfer worker (groups of two or more) or on the consumer (one);
+  * ``transfer.stage`` (tags ``batches``, ``pinned``: how many of them sent
+    their objects from the loader's page-locked block, with no host copy):
+    a group's copy to the device, on the transfer worker (groups of two or
+    more) or on the consumer (one);
   * ``transfer.wait``: the consumer of ``chunk_prefetch`` blocked on its
     worker;
   * ``train.step`` (tags ``steps``, ``route``: "eager", "warm", "capture"
