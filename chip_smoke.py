@@ -112,7 +112,8 @@ Phases, each reported on its own line(s):
    question terminal evaluated soft at O=100/batch 80 as in phase 8, and
    three training steps per route as in phase 7 (one saturated batch
    within ``CALIB_SATURATED_STEP_RTOL``; every calibrator leaf with a
-   nonzero gradient, the frozen oracle bitwise unchanged) with the
+   nonzero gradient, the frozen oracle out of autograd, with no gradient
+   and no backward kernel, and bitwise unchanged) with the
    bare ms/step beside phase 7's configuration on the same batches; the
    trainable interpreter (F = 4, operator modules [8], their final layers
    at random) on one shared-route eval batch and one per-question step,
@@ -1770,12 +1771,17 @@ def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_lau
     element, within ``adam_bound`` of the CPU's; the kernels' launches over
     the card's steps (``launch_counts`` order) must be ``want_launches``.
     Returns {"launches", "losses", "text", "params" (the card's after the
-    steps), "grads" (the card's, per step)}."""
+    steps), "grads" (the card's, per step), "no_grad" (the checkpoint keys
+    of the card's leaves that end the steps without a gradient)}. Both
+    sides require gradients of the trainable leaves only, as the trainer
+    does (``optim.require_grads``)."""
     from dfol_vqa_tpu_torch.models.interpreter import Interpreter
-    from dfol_vqa_tpu_torch.train.optim import Optimizer
+    from dfol_vqa_tpu_torch.train.optim import Optimizer, require_grads
     from dfol_vqa_tpu_torch.train.trainer import VQATrainer
 
     p_gpu, p_cpu = copy.deepcopy(params_cpu).to(device), copy.deepcopy(params_cpu)
+    require_grads(p_gpu, cfg)
+    require_grads(p_cpu, cfg)
     gpu = VQATrainer(cfg, Interpreter(cfg, ont), device=device)
     cpu = VQATrainer(cfg, Interpreter(cfg, ont), device="cpu")
     o_gpu, o_cpu = Optimizer(cfg, p_gpu), Optimizer(cfg, p_cpu)
@@ -1841,7 +1847,9 @@ def card_vs_cpu_steps(cfg, ont, params_cpu, batches, device, what: str, want_lau
             f"by at most {diff / cfg.learning_rate!r} lr, within the Adam bound of those "
             f"gradient gates element by element (largest share of its bound {used[0]!r}, "
             f"{used[1]})")
-    return {"launches": d, "losses": losses, "text": text, "params": p_gpu, "grads": card_grads}
+    no_grad = sorted(n.replace(".", "/") for n, p in p_gpu.named_parameters() if p.grad is None)
+    return {"launches": d, "losses": losses, "text": text, "params": p_gpu, "grads": card_grads,
+            "no_grad": no_grad}
 
 
 def phase_train(device, stamp: str) -> dict:
@@ -2279,13 +2287,15 @@ def bare_step_ms(trainer, params, batches) -> float:
 def phase_calibrator_train(device, stamp: str) -> list:
     """The calibrator configuration (batch 80, O=100) trained on phase 7's
     sets, ``TRAIN_COMPARE_STEPS`` steps per route on the card and the CPU
-    (``card_vs_cpu_steps``: kernels 1 and 2 per per-question relating step,
-    3 and 4 per shared one; the shared route's second step within
+    (``card_vs_cpu_steps``: kernel 1 per per-question relating step, 3 and
+    4 per shared one, and no kernel 2: the frozen pair tail is out of
+    autograd; the shared route's second step within
     ``CALIB_SATURATED_STEP_RTOL``); the first step gives every calibrator leaf a
     nonzero gradient, only the calibrator trains, and the frozen oracle
-    does not move by a bit. Then the bare ms/step of the shuffled set on the
-    card against phase 7's F = 1 configuration on the same batches, timed in
-    turns. Returns the steps' launches (``launch_counts`` order)."""
+    gets no gradient and does not move by a bit. Then the bare ms/step of
+    the shuffled set on the card against phase 7's F = 1 configuration on
+    the same batches, timed in turns. Returns the steps' launches
+    (``launch_counts`` order)."""
     from dfol_vqa_tpu_torch.ontology import GQAOntology
     from dfol_vqa_tpu_torch.data import evalset, trainset
     from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
@@ -2315,7 +2325,7 @@ def phase_calibrator_train(device, stamp: str) -> list:
             U, B = lb.objects.shape[0], len(lb.arrays["img_index"])
             if spec_needs_relations(lb.spec) and (U * 2 <= B) != (route == "shared"):
                 raise AssertionError(f"a relating batch with U={U}, B={B} is off the {route} route")
-        want = [relating, relating, 0, 0] if route == "per_question" else [0, 0, relating, relating]
+        want = [relating, 0, 0, 0] if route == "per_question" else [0, 0, relating, relating]
         t0 = time.perf_counter()
         limits = None
         if route == "shared":
@@ -2328,15 +2338,17 @@ def phase_calibrator_train(device, stamp: str) -> list:
         after = flat_params(rec["params"])
         moved = sorted(k for k in start if k not in calib_keys
                        and not np.array_equal(after[k], start[k]))
-        if zero or moved:
+        with_grad = sorted(set(start) - calib_keys - set(rec["no_grad"]))
+        if zero or moved or with_grad:
             raise AssertionError(f"calibrator {route}: zero gradients {zero}, frozen leaves "
-                                 f"moved {moved}")
+                                 f"moved {moved}, frozen leaves with a gradient {with_grad}")
         total = [a + b for a, b in zip(total, rec["launches"])]
         log(f"[9] calibrator, {route} route, {len(batches)} steps of batch "
             f"{cfg.train_batch_size} card vs CPU plain "
             f"path in {time.perf_counter() - t0!r} s: {rec['text']}; every one of the "
             f"{len(calib_keys)} calibrator leaves has a nonzero gradient, the "
-            f"{len(start) - len(calib_keys)} frozen oracle leaves are bitwise unchanged; launches "
+            f"{len(start) - len(calib_keys)} frozen oracle leaves have no gradient and are "
+            f"bitwise unchanged; launches "
             f"(fwd, bwd, pair_mlp, contract) {rec['launches']} for {relating} relating steps")
 
     cfg1 = trainset.demo_train_config()  # phase 7's F = 1 configuration
@@ -2794,7 +2806,11 @@ def check_stage(cfg, st, root, res, loaded, launches, counters, row) -> None:
     (train,) = train
     pq = train.by_route["per_question"]
     shared = sum(c.relating for c in evals) + train.by_route["shared"]
-    want = [pq, pq, shared, shared]
+    # kernel 2 differentiates the pair tail; a stage that freezes what feeds it
+    # (the calibrator stages) takes it out of autograd
+    tail_trains = not (cfg.freeze_featurizer and cfg.freeze_relation_network
+                       and cfg.freeze_embedding_network)
+    want = [pq, pq if tail_trains else 0, shared, shared]
     if (launches != want or (st["split"] == "bal") != (train.by_route["per_question"] > 0)
             or shared <= 0):
         raise AssertionError(f"stage {i}: launches (fwd, bwd, pair_mlp, contract) {launches}, "

@@ -32,6 +32,7 @@ from dfol_vqa_tpu_torch import nn
 from dfol_vqa_tpu_torch.compiler.program_compiler import OP_FILTER, OP_PAD, OP_SELECT, BucketSpec
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.types import batch_any
+from dfol_vqa_tpu_torch.utils.profiling import span
 
 OPS_INDEX = {
     "all_different": 0, "all_same": 1, "and": 2, "choose_attr": 3, "choose_rel": 4,
@@ -80,6 +81,7 @@ class _Ctx:
         self.B, self.S = B, calib.fwd.w_hh.shape[0]
         self.device = emb.device
         self.onehots = torch.eye(OPS_NUM, device=self.device)
+        self.steps = 0  # LSTM cell calls made
 
     def zeros(self, *lead: int) -> State:
         z = torch.zeros((self.B, *lead, self.S), device=self.device)
@@ -95,6 +97,7 @@ class _Ctx:
         return torch.where((tok != 0)[..., None], f, 0.0)
 
     def lstm(self, which: str, x: torch.Tensor, state: State) -> State:
+        self.steps += 1
         return getattr(self.calib, which)(x, state)
 
     @staticmethod
@@ -206,9 +209,18 @@ def compute_modulations(calib: CalibratorParams, interp, world, arrays,
     """Run both calibration passes; returns the modulations keyed for the
     executor: ``slots[branch][slot]`` role dicts (None for a pad slot, or
     everywhere under ``apply_modulation_everywhere=False``) and the
-    ``terminal`` role dict."""
+    ``terminal`` role dict. Both passes are one ``calib.passes`` span
+    (``utils/profiling``), tagged with the LSTM cell calls it enqueued."""
     B = world.obj_mask.shape[0]
     ctx = _Ctx(calib, interp.embedding_on(world.obj_mask.device), arrays, B)
+    with span("calib.passes") as s:
+        out = _passes(ctx, interp, arrays, spec)
+        s.tags["steps"] = ctx.steps
+    return out
+
+
+def _passes(ctx: _Ctx, interp, arrays, spec: BucketSpec) -> Dict[str, object]:
+    """``compute_modulations``' forward and backward passes."""
     term = spec.terminal_op
 
     carries, fwds = [], []

@@ -18,7 +18,9 @@ and gives frozen leaves a zero update. Here:
   gradient before the moments, which is ``add_decayed_weights`` before
   ``scale_by_adam`` (AdamW's decoupled decay is not);
 * frozen parameters are not given to Adam, so they get neither an update
-  nor decay.
+  nor decay; ``require_grads`` takes them out of autograd, so a step
+  computes no gradient for them (the JAX package's jitted step never reads
+  the frozen leaves' gradients, and XLA drops their computation).
 
 The update is in place on the parameters (JAX returns new arrays). On a
 CUDA device Adam is built with ``capturable=True`` (its step counters and
@@ -73,6 +75,20 @@ def trainable_labels(params: OracleParams, cfg: Config) -> Dict[str, bool]:
         off = frozen[top] or (name == "embedding.b" and cfg.freeze_embedding_bias)
         labels[name] = not off
     return labels
+
+
+def require_grads(params: OracleParams, cfg: Config) -> None:
+    """Each parameter of ``params`` requires a gradient where
+    ``trainable_labels`` says it trains, and only there; a frozen one's
+    ``.grad`` is dropped. The frozen parts' forward then records no graph
+    and saves nothing for a backward, which never reaches them. The trainer
+    sets these flags before it steps (``VQATrainer.train``, ``train_step``),
+    so every call follows its own configuration."""
+    labels = trainable_labels(params, cfg)
+    for name, p in params.named_parameters():
+        p.requires_grad_(labels[name])
+        if not labels[name]:
+            p.grad = None
 
 
 class Optimizer:

@@ -93,7 +93,7 @@ from dfol_vqa_tpu_torch.models.oracle import OracleParams
 from dfol_vqa_tpu_torch.parallel.mesh import Mesh, ShardedParams, broadcast_params, shard_params
 from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train.graphs import GraphCache, param_key
-from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer
+from dfol_vqa_tpu_torch.train.optim import Optimizer, build_optimizer, require_grads
 from dfol_vqa_tpu_torch.types import QuestionType, batch_flags
 from dfol_vqa_tpu_torch.utils.profiling import span
 
@@ -206,6 +206,9 @@ class VQATrainer:
         # chunk steps as CUDA graphs on one card; eager on the CPU and under a mesh
         self.graphs = GraphCache(self.device, capture=mesh is None)
         self.train_graph_stats: Optional[dict] = None  # the graphs' stats at train()'s end
+        # the train.step spans' tags: the parameter elements that require a
+        # gradient and all of them, counted by each train() call
+        self._elems: Dict[str, int] = {}
         self._eval_params: Optional[tuple] = None  # (tree, param_key) the eval graphs read
 
     # ------------------------------------------------------------- utilities
@@ -300,6 +303,7 @@ class VQATrainer:
                    generator: Optional[torch.Generator] = None,
                    count: Optional[int] = None) -> torch.Tensor:
         """``compute_grads``, then one optimizer step; returns the loss.
+        Only the trainable parameters require a gradient (``require_grads``).
 
         Under the mesh ``params`` is the ``ShardedParams``, ``batch`` this
         rank's rows (None: none this step) and ``count`` the step's count of
@@ -307,10 +311,12 @@ class VQATrainer:
         is this rank's sum over that count, and the data axis's sum of them
         the step's loss."""
         if self.mesh is None:
+            require_grads(params, self.cfg)
             loss = self.compute_grads(params, batch, generator)
             opt.step()
             return loss
         working = params.gather()
+        require_grads(working, self.cfg)
         if batch is None:
             for p in working.parameters():
                 p.grad = None
@@ -365,26 +371,28 @@ class VQATrainer:
         """Trains an epoch over ``loader`` group by group; yields each
         group's (step losses on the device, real questions per step) after
         its last step. Each group's dispatch is a ``train.step`` span
-        (``utils/profiling``), each lockstep step under the mesh one."""
+        (``utils/profiling``; tagged with ``train``'s ``_elems``), each
+        lockstep step under the mesh one."""
         chunk = max(1, self.cfg.tpu.train_chunk)
+        elems = self._elems
         if self.mesh is not None:
             for group in self.mesh_groups(loader, chunk):
                 losses = []
                 for batch, count in group:
-                    with span("train.step", steps=1, route="eager"):
+                    with span("train.step", steps=1, route="eager", **elems):
                         losses.append(self.train_step(state, opt, batch, generator, count))
                 yield losses, [count for _, count in group]
             return
         for group, objects, obj_mask, arrays in chunk_prefetch(loader, chunk, self.device):
             if len(group) == 1:
-                with span("train.step", steps=1, route="eager"):
+                with span("train.step", steps=1, route="eager", **elems):
                     loss = self._grads(state, objects[0], obj_mask[0],
                                        {k: v[0] for k, v in arrays.items()}, group[0].spec,
                                        generator)
                     opt.step()
                 yield [loss], [group[0].batch_size]
             else:
-                with span("train.step", steps=len(group)) as s:
+                with span("train.step", steps=len(group), **elems) as s:
                     losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
                                                generator)
                     s.tags["route"] = self.graphs.last_route
@@ -406,7 +414,9 @@ class VQATrainer:
         """``cfg.repetition_num`` x ``cfg.epoch_num`` epochs over
         ``train_loader``, updating ``params`` in place; returns
         (params, errors (ERROR_DIM, epochs, reps), losses (epochs, reps)), as
-        the JAX trainer does.
+        the JAX trainer does. Each call first sets every parameter's
+        ``requires_grad`` from the freeze flags (``optim.require_grads``), so
+        the frozen parts build no graph and get no gradient.
 
         Per repetition ``load_model`` ("best"/"last") reloads that checkpoint
         (a missing file is skipped) and ``reset_step`` zeroes the step; the
@@ -432,6 +442,10 @@ class VQATrainer:
         the trained values back at its end; each rank's generator is seeded
         from (``seed``, its data rank)."""
         cfg, mesh = self.cfg, self.mesh
+        require_grads(params, cfg)  # a mesh's working tree copies the flags
+        self._elems = {"grad_elems": sum(p.numel() for p in params.parameters()
+                                         if p.requires_grad),
+                       "param_elems": sum(p.numel() for p in params.parameters())}
         state = shard_params(mesh, params) if mesh is not None else params
         opt = build_optimizer(cfg, params, state if mesh is not None else None)
         if mesh is None:

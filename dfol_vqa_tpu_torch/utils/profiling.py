@@ -19,7 +19,7 @@
     (``trace.json``, for chrome://tracing or Perfetto) into ``logdir``.
 
 The spans of the training path (``data/loader.py``, ``data/transfer.py``,
-``train/trainer.py``):
+``train/trainer.py``, ``models/calibrator.py``):
 
   * ``loader.programs``, ``loader.scenes``, ``loader.batch``: a batch's
     program rows, its scene block and its ``LoadedBatch``, on the loader's
@@ -32,7 +32,12 @@ The spans of the training path (``data/loader.py``, ``data/transfer.py``,
   * ``transfer.wait``: the consumer of ``chunk_prefetch`` blocked on its
     worker;
   * ``train.step`` (tags ``steps``, ``route``: "eager", "warm", "capture"
-    or "replay", ``GraphCache.last_route``): one group's dispatch;
+    or "replay", ``GraphCache.last_route``; ``grad_elems`` and
+    ``param_elems``: the parameter elements that require a gradient, and
+    all of them): one group's dispatch;
+  * ``calib.passes`` (tag ``steps``: the LSTM cell calls): the
+    calibrator's two passes, wherever Python runs them (an eager step, a
+    capture, an eval or serving forward; a graph replay runs no Python);
   * ``train.readback``: an epoch's step losses read back.
 """
 

@@ -127,8 +127,11 @@ def test_training_records_its_spans_per_group_and_batch():
         return [r for r in rec if r[0] == name]
 
     steps = of("train.step")
-    assert [(r[1], r[4]) for r in steps] == [(me, {"steps": 4, "route": "eager"}),
-                                              (me, {"steps": 1, "route": "eager"})]
+    elems = {"grad_elems": sum(p.numel() for p in params.parameters() if p.requires_grad),
+             "param_elems": sum(p.numel() for p in params.parameters())}
+    assert elems["grad_elems"] == elems["param_elems"] > 0  # every leaf trains
+    assert [(r[1], r[4]) for r in steps] == [(me, {"steps": 4, "route": "eager", **elems}),
+                                              (me, {"steps": 1, "route": "eager", **elems})]
     waits = of("transfer.wait")
     assert len(waits) == len(steps) + 1 and {r[1] for r in waits} == {me}
     # each group's wait ends before its step starts
