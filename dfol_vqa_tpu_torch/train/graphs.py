@@ -1,11 +1,12 @@
 """One CUDA graph per chunk: the card's counterpart of the JAX package's
-fused chunk dispatch (``lax.scan`` over k steps in one executable).
+fused chunk dispatch (``lax.scan`` over k steps in one executable) and of
+its jitted one-step path.
 
 ``GraphCache.run(key, fn, inputs)`` runs ``fn(*inputs)``, a function of
-device tensors that returns a tuple of device tensors (k training steps, or
-k evaluation forwards). On the CPU, or with ``capture=False`` (the trainer
-under a device mesh), it just calls ``fn``: that eager run is the plain
-version. On a CUDA device:
+device tensors that returns a tuple of device tensors (k >= 1 training
+steps, so a lone training step too, or k >= 2 evaluation forwards). On the
+CPU, or with ``capture=False`` (the trainer under a device mesh), it just
+calls ``fn``: that eager run is the plain version. On a CUDA device:
 
 * the first call of a key runs ``fn`` eagerly: the warm-up, which is a real
   chunk (its steps train and its outputs are used) and sets up what the

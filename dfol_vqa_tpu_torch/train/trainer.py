@@ -19,23 +19,25 @@ Chunked dispatch, as in the JAX package (``tpu.train_chunk``,
 ``tpu.eval_chunk``, ``tpu.pad_chunks``): ``data/transfer.chunk_prefetch``
 groups runs of same-bucket batches (at most a chunk of them) and copies
 each group of two or more to the device as one stacked transfer per
-tensor. A group of one batch (copied by ``to_device_batch``) takes the
-one-step path. A group of k >= 2 takes the chunk step:
-k training steps (``_train_chunk``) or k forwards (``_eval_chunked``,
-through ``Interpreter.forward_many``). ``global_step`` advances by a
-group's real length, and mid-epoch validation and saves are checked after
-each group only, as the JAX trainer checks them at dispatch boundaries.
-On a CUDA device each chunk step runs as one CUDA graph per key
-(``train/graphs.py``: the first chunk of a key eagerly, the second
-captured, every later one replayed); on the CPU it runs eagerly, which is
-the plain version. With ``pad_chunks`` the eager chunk pads a short group
-to the full chunk by repeating its last batch, as the JAX package does:
-padded training steps are gated no-ops on the parameters and Adam's state
-(``Optimizer.step(valid=...)``, ``n_valid`` a device tensor), padded
-forwards are dropped. A CUDA graph runs only a group's real steps or
-forwards, one graph per group length (``_chunk_len``): padded steps are
-exact no-ops, so the result is the same, and a capture costs less than
-the padded compute.
+tensor; a group of one batch is copied by ``to_device_batch``. Training
+runs every group, of k >= 1 batches, through the chunk step
+(``_train_chunk``): k training steps, a lone batch's one step never
+padded. Evaluation runs a group of one with ``Interpreter.forward`` and a
+group of k >= 2 as k forwards (``_eval_chunked``, through
+``Interpreter.forward_many``). ``global_step`` advances by a group's real
+length, and mid-epoch validation and saves are checked after each group
+only, as the JAX trainer checks them at dispatch boundaries. On a CUDA
+device each chunk step, a lone training step included, runs as one CUDA
+graph per key (``train/graphs.py``: the first group of a key eagerly, the
+second captured, every later one replayed); on the CPU it runs eagerly,
+which is the plain version. With ``pad_chunks`` the eager chunk pads a
+short group of two or more to the full chunk by repeating its last batch,
+as the JAX package does: padded training steps are gated no-ops on the
+parameters and Adam's state (``Optimizer.step(valid=...)``, ``n_valid`` a
+device tensor), padded forwards are dropped. A CUDA graph runs only a
+group's real steps or forwards, one graph per group length
+(``_chunk_len``): padded steps are exact no-ops, so the result is the
+same, and a capture costs less than the padded compute.
 Evaluation runs under ``torch.inference_mode()``; its outputs stay on the
 device and are read back once, after the last batch (per batch only when
 hardset mining needs the answers). Training keeps each step's loss on the
@@ -203,7 +205,8 @@ class VQATrainer:
         self._hardset: Optional[dict] = None
         self._easyset: Optional[dict] = None
         self._best_error = np.inf
-        # chunk steps as CUDA graphs on one card; eager on the CPU and under a mesh
+        # training groups (lone steps too) and eval chunks as CUDA graphs on one
+        # card; eager on the CPU and under a mesh
         self.graphs = GraphCache(self.device, capture=mesh is None)
         self.train_graph_stats: Optional[dict] = None  # the graphs' stats at train()'s end
         # the train.step spans' tags: the parameter elements that require a
@@ -256,11 +259,12 @@ class VQATrainer:
         return loss.detach()
 
     def _chunk_len(self, n: int, chunk: int) -> int:
-        """The steps or forwards a chunk of ``n`` >= 2 batches runs: with
-        ``pad_chunks`` the ``chunk`` that the eager path pads it to, as the
-        JAX package does; ``n`` without, and in a CUDA graph, which runs the
-        real ones only (one graph per group length)."""
-        if self.cfg.tpu.pad_chunks and not self.graphs.capture:
+        """The steps or forwards a group of ``n`` batches runs: for ``n`` >=
+        2 with ``pad_chunks`` the ``chunk`` that the eager path pads it to,
+        as the JAX package does; ``n`` without, in a CUDA graph, which runs
+        the real ones only (one graph per group length), and for a lone
+        batch, which the JAX package does not pad either."""
+        if n > 1 and self.cfg.tpu.pad_chunks and not self.graphs.capture:
             return max(chunk, n)
         return n
 
@@ -268,31 +272,35 @@ class VQATrainer:
                      objects: torch.Tensor, obj_mask: torch.Tensor,
                      arrays: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator]) -> torch.Tensor:
-        """The steps of a group of k >= 2 batches (stacked tensors), as the
-        JAX package's ``_train_step_chunk`` or, padded (``_chunk_len``), its
+        """The steps of a group of k >= 1 batches (stacked tensors), through
+        ``self.graphs`` (one CUDA graph per key on one card), as the JAX
+        package's ``_train_step_chunk`` or, padded (``_chunk_len``), its
         ``_train_step_chunk_padded``: padded to ``train_chunk`` by repeating
-        the last batch, the steps past the group's length gated no-ops.
+        the last batch, the steps past the group's length gated no-ops. A
+        lone batch runs ``_grads`` and ``opt.step()`` once, as the JAX
+        package's one-step path, never padded.
         Returns the real steps' losses on the device. A padded step runs its
         forward and backward like any other, so with dropout it draws masks
         and advances ``generator`` (JAX keeps its rng on a padded step; the
-        masks differ from JAX's anyway)."""
+        masks differ from JAX's anyway). Steps are padded only where nothing
+        is captured, so ``n_valid`` is no input of a graph."""
         b0 = group[0]
         k = self._chunk_len(len(group), self.cfg.tpu.train_chunk)
         padded = k > len(group)
         names = sorted(arrays)
-        stacked = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
-        n_valid = torch.full((), len(group), dtype=torch.int64, device=self.device)
+        inputs = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
+        if padded:
+            n_valid = torch.full((), len(group), dtype=torch.int64, device=self.device)
 
-        def steps(objects, obj_mask, n_valid, *rest):
+        def steps(objects, obj_mask, *rest):
             losses = []
             for i in range(k):
                 loss = self._grads(params, objects[i], obj_mask[i],
                                    {n: t[i] for n, t in zip(names, rest)}, b0.spec, generator)
                 opt.step(valid=n_valid > i if padded else None)
                 losses.append(loss)
-            return (torch.stack(losses),)
+            return (torch.stack(losses) if k > 1 else losses[0][None],)
 
-        inputs = stacked[:2] + [n_valid] + stacked[2:]
         key = ("train", b0.spec, b0.meta, _shapes(inputs), k, padded, id(opt),
                param_key(params))
         gen = generator if self.cfg.dropout > 0 else None
@@ -371,8 +379,9 @@ class VQATrainer:
         """Trains an epoch over ``loader`` group by group; yields each
         group's (step losses on the device, real questions per step) after
         its last step. Each group's dispatch is a ``train.step`` span
-        (``utils/profiling``; tagged with ``train``'s ``_elems``), each
-        lockstep step under the mesh one."""
+        (``utils/profiling``; tagged with ``train``'s ``_elems`` and the
+        ``route`` the graph cache took), each lockstep step under the mesh
+        one (``route`` "eager")."""
         chunk = max(1, self.cfg.tpu.train_chunk)
         elems = self._elems
         if self.mesh is not None:
@@ -384,19 +393,11 @@ class VQATrainer:
                 yield losses, [count for _, count in group]
             return
         for group, objects, obj_mask, arrays in chunk_prefetch(loader, chunk, self.device):
-            if len(group) == 1:
-                with span("train.step", steps=1, route="eager", **elems):
-                    loss = self._grads(state, objects[0], obj_mask[0],
-                                       {k: v[0] for k, v in arrays.items()}, group[0].spec,
-                                       generator)
-                    opt.step()
-                yield [loss], [group[0].batch_size]
-            else:
-                with span("train.step", steps=len(group), **elems) as s:
-                    losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
-                                               generator)
-                    s.tags["route"] = self.graphs.last_route
-                yield list(losses), [b.batch_size for b in group]
+            with span("train.step", steps=len(group), **elems) as s:
+                losses = self._train_chunk(state, opt, group, objects, obj_mask, arrays,
+                                           generator)
+                s.tags["route"] = self.graphs.last_route
+            yield list(losses), [b.batch_size for b in group]
 
     def train(
         self,

@@ -5,15 +5,19 @@ This file imports no JAX; on the GPU machine it runs without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py -q
 
 Here, without a card, every test skips. At tiny widths (the demo training
-and eval configs, dropout 0), over chunks of four batches:
+and eval configs, dropout 0), over chunks of four batches and lone ones:
 
-* a training chunk replayed from its graph leaves the parameters and
-  Adam's state where the eager path from the same state leaves them (each
-  leaf's change within 3e-4 of its largest change, the chip smoke's
-  ``TRAIN_GRAD_RTOL``; the losses within 1e-5 relative), for the first
-  chunk (eager), the second (captured, then replayed) and the third
-  (replayed), against the eager path padded or not; under ``pad_chunks``
-  a short group's graph runs its real steps only;
+* a training chunk or a lone step replayed from its graph leaves the
+  parameters and Adam's state where the eager path from the same state
+  leaves them (each leaf's change within 3e-4 of its largest change, the
+  chip smoke's ``TRAIN_GRAD_RTOL``; the losses within 1e-5 relative), for
+  the first group (eager), the second (captured, then replayed) and the
+  third (replayed), against the eager path padded or not; under
+  ``pad_chunks`` a short group's graph runs its real steps only;
+* a lone step of the calibrator configuration at dropout 0.1, from one
+  state and one seed, gives the eager step's loss when warm, captured and
+  replayed; two replays from one state without a new seed draw different
+  masks;
 * an evaluation chunk replayed from its graph gives the eager forwards'
   answer flags and matches, log-probabilities within 1e-6; evaluating
   another parameter tree drops the eval graphs of the last one;
@@ -22,6 +26,7 @@ and eval configs, dropout 0), over chunks of four batches:
 """
 
 import copy
+import dataclasses
 
 import pytest
 import torch
@@ -52,17 +57,18 @@ def ontology():
     return GQAOntology()
 
 
-def train_groups(ontology, n_chunks, tail=0):
-    """``n_chunks`` full chunks of one ``exist`` file (the per-question
-    route at tiny widths), then a group of ``tail`` batches."""
-    cfg = trainset.demo_train_config(tiny=True)
+def train_groups(ontology, n_chunks, tail=0, chunk=CHUNK, cfg=None):
+    """``n_chunks`` full groups of ``chunk`` batches of one ``exist`` file
+    (the per-question route at tiny widths), then a group of ``tail``
+    batches; ``cfg`` the demo training config by default."""
+    cfg = cfg or trainset.demo_train_config(tiny=True)
     cfg.tpu.train_chunk = CHUNK
     world = evalset.demo_world(ontology, tiny=True)
-    n = n_chunks * CHUNK + tail
+    n = n_chunks * chunk + tail
     files = trainset.train_datasets(world, (("exist", 2, n * trainset.TINY_BATCH),), seed=3)
     loader = trainset.train_loader(cfg, ontology, world, files, seed=2)
-    groups = list(chunk_prefetch(loader, CHUNK, "cuda"))
-    assert [len(g[0]) for g in groups] == [CHUNK] * n_chunks + ([tail] if tail else [])
+    groups = list(chunk_prefetch(loader, chunk, "cuda"))
+    assert [len(g[0]) for g in groups] == [chunk] * n_chunks + ([tail] if tail else [])
     return cfg, groups
 
 
@@ -78,9 +84,12 @@ def assert_updates_close(got, want, start):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, CHUNK])
 @pytest.mark.parametrize("pad", [True, False])
-def test_train_chunk_replay_equals_eager(cuda, ontology, pad):
-    cfg, groups = train_groups(ontology, 3)
+def test_train_chunk_replay_equals_eager(cuda, ontology, pad, n):
+    """Three groups of ``n`` batches (one key): eager, captured and
+    replayed, replayed; a lone group is never padded."""
+    cfg, groups = train_groups(ontology, 3, chunk=n)
     cfg.tpu.pad_chunks = pad
     params = Interpreter(cfg, ontology).init_params(torch.Generator().manual_seed(0), cuda)
     sides = []
@@ -95,11 +104,54 @@ def test_train_chunk_replay_equals_eager(cuda, ontology, pad):
         start = state_of(sides[1][1], sides[1][2])
         losses = [t._train_chunk(p, opt, group, objects, obj_mask, arrays, None)
                   for t, p, opt in sides]
+        assert losses[0].shape == losses[1].shape == (n,)
         torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=0)
         assert_updates_close(state_of(*sides[0][1:]), state_of(*sides[1][1:]), start)
     stats = sides[0][0].graphs.stats()
     assert stats["graphs"] == 1 and stats["replays"] == 2
     assert sides[1][0].graphs.stats()["graphs"] == 0
+
+
+@pytest.mark.cuda
+def test_lone_calibrator_steps_at_dropout_replay_new_masks(cuda, ontology):
+    """The calibrator configuration (state 8) at dropout 0.1, one lone
+    group: three runs from one state with the generator seeded alike (warm,
+    captured and replayed, replayed) each give the loss of the eager step
+    from that state and seed; two more replays from that state, the
+    generator going on, draw different masks."""
+    cfg = dataclasses.replace(trainset.demo_train_config(tiny=True), dropout=0.1,
+                              activate_attention_transfer=True,
+                              attention_transfer_state_dim=8)
+    cfg, ((group, objects, obj_mask, arrays),) = train_groups(ontology, 1, chunk=1, cfg=cfg)
+    params = Interpreter(cfg, ontology).init_params(torch.Generator().manual_seed(0), cuda)
+    assert params.calibrator is not None
+    sides = []
+    for capture in (True, False):
+        trainer = VQATrainer(cfg, Interpreter(cfg, ontology), device=cuda)
+        trainer.graphs = GraphCache(cuda, capture=capture)
+        p = copy.deepcopy(params)
+        opt = Optimizer(cfg, p)
+        opt.static_grads()
+        sides.append((trainer, p, opt, torch.Generator(device=cuda)))
+    starts = [state_of(p, opt) for _, p, opt, _ in sides]
+
+    def run(side, start, seed=None):
+        trainer, p, opt, gen = side
+        with torch.no_grad():
+            for t, s in zip(list(p.parameters()) + opt._state_tensors(), start):
+                t.copy_(s)
+        if seed is not None:
+            gen.manual_seed(seed)
+        return trainer._train_chunk(p, opt, group, objects, obj_mask, arrays, gen)
+
+    want = run(sides[1], starts[1], seed=0)
+    routes = []
+    for _ in range(3):
+        torch.testing.assert_close(run(sides[0], starts[0], seed=0), want, rtol=1e-5, atol=0)
+        routes.append(sides[0][0].graphs.last_route)
+    assert routes == ["warm", "capture", "replay"]
+    first, second = run(sides[0], starts[0]), run(sides[0], starts[0])
+    assert torch.isfinite(first).all() and not torch.equal(first, second)
 
 
 @pytest.mark.cuda
