@@ -170,9 +170,10 @@ Phases, each reported on its own line(s):
    chunk eager, the second captured and replayed, the third replayed),
    each chunk held against the card's eager per-step path from the same
    state (every leaf's change within ``TRAIN_GRAD_RTOL`` of its largest;
-   bitwise equality reported), the eager chunk's tail padded to 8 leaving
-   every parameter and Adam tensor bitwise where its 3 real steps leave
-   them, kernels 1 and 2 counted once a step, replays included; (b) the same on the deduplicated
+   bitwise equality reported), the eager chunk of the tail (no padded
+   step under ``pad_chunks``) leaving every parameter and Adam tensor
+   bitwise where the per-step path's 3 steps leave them, kernels 1 and 2
+   counted once a step, replays included; (b) the same on the deduplicated
    set (the shared route, kernels 3 and 4); each timed against the eager
    one-step path (ms per step, host enqueue ms per step, idle share; loader
    outside, in turns); (c) the eighth JAX golden
@@ -4075,26 +4076,28 @@ def chunk_train_route(route: str, cfg, ont, world, params_cpu, device, stamp: st
     stats = graphed.graphs.stats()
     if stats["graphs"] != len(groups) or stats["replays"] != chunks - len(groups):
         raise AssertionError(f"{route}: graphs {stats}")
-    # the padded steps, where they run (the eager chunk pads the tail to
-    # CHUNK): every leaf bitwise where the tail's real steps alone leave it
+    # the eager chunk of the short tail under pad_chunks runs its real steps
+    # only: every leaf bitwise where the per-step path leaves it
     group, objects, obj_mask, arrays = groups[-1]
     copy_train_state(p_eager, o_eager, params, opt)
     eager._train_chunk(p_eager, o_eager, group, objects, obj_mask, arrays, None)
-    padded = train_state(p_eager, o_eager)
+    tail = train_state(p_eager, o_eager)
     copy_train_state(p_eager, o_eager, params, opt)
     eager_steps(group, objects, obj_mask, arrays)
-    moved = sum(not torch.equal(a, b) for a, b in zip(padded, train_state(p_eager, o_eager)))
+    moved = sum(not torch.equal(a, b) for a, b in zip(tail, train_state(p_eager, o_eager)))
     if moved:
-        raise AssertionError(f"{route}: {moved} leaves moved by the padded steps of a chunk")
+        raise AssertionError(f"{route}: {moved} leaves of the eager tail chunk differ from the "
+                             "per-step path's")
     log(f"[13] {route} route, {CHUNK_BATCHES} batches of {trainset.PRODUCTION_BATCH} at "
         f"train_chunk={CHUNK} with pad_chunks (groups {CHUNK} and {CHUNK_BATCHES - CHUNK}, a "
         f"graph each), {CHUNK_EPOCHS} passes: {chunks} chunks ({len(groups)} eager, "
         f"{len(groups)} captured, {chunks - 2 * len(groups)} replayed), each against the card's "
         f"eager per-step path from the same state: worst leaf update error {worst!r} of its "
         f"largest change (gate {TRAIN_GRAD_RTOL}), {same} of {leaves} leaf checks bitwise "
-        f"equal; the eager chunk's {CHUNK - len(group)} padded steps moved 0 of {len(padded)} "
-        f"parameters and Adam tensors; launches (fwd, bwd, pair_mlp, contract) {main}, one a "
-        f"step, replays counted; graphs {stats['graphs']}, capture "
+        f"equal; the eager tail chunk of {len(group)} (no padded step) equals the "
+        f"per-step path in all {len(tail)} parameters and Adam tensors; launches (fwd, "
+        f"bwd, pair_mlp, contract) {main}, one a step, replays counted; graphs "
+        f"{stats['graphs']}, capture "
         f"{stats['capture_seconds']} s, pool {stats['pool_bytes']} bytes ({stamp})")
 
     # time: the chunk graphs against the eager one-step path, loader and

@@ -666,10 +666,12 @@ def batch_arrays(batch: CompiledBatch) -> Dict[str, np.ndarray]:
 def pack_meta(arrays: Dict[str, np.ndarray]) -> Tuple:
     """Static packing descriptor: ((key, shape, dtype, offset), ..., total).
 
-    ~17 small program tensors per batch would otherwise cost one host->device
-    RPC each (dominant on tunneled/remote TPU frontends); they are packed
-    into ONE int32 buffer. (The JAX package unpacks it inside jit; the
-    port transfers the arrays one by one and does not use it.)"""
+    The JAX package packs the ~17 small program tensors of a batch into ONE
+    int32 buffer with it (``pack_arrays``), as one host->device RPC each
+    would cost much on tunneled/remote TPU frontends, and unpacks it inside
+    jit. The port transfers the arrays one by one and packs nothing: it
+    keeps the descriptor as the batch's ``meta``, which keys its steps and
+    graphs."""
     meta = []
     off = 0
     for k in sorted(arrays):
@@ -679,15 +681,3 @@ def pack_meta(arrays: Dict[str, np.ndarray]) -> Tuple:
         meta.append((k, tuple(v.shape), str(v.dtype), off))
         off += n
     return tuple(meta) + ((off,),)
-
-
-def pack_arrays(arrays: Dict[str, np.ndarray], meta: Tuple) -> np.ndarray:
-    total = meta[-1][0]
-    out = np.empty((max(total, 1),), np.int32)
-    for k, shape, dtype, off in meta[:-1]:
-        v = arrays[k]
-        n = int(np.prod(shape)) if v.size else 0
-        if n:
-            out[off : off + n] = v.reshape(-1).view(np.int32)
-    return out
-

@@ -40,7 +40,6 @@ from dfol_vqa_tpu_torch.compiler.program_compiler import (
     CompiledBatch,
     ProgramCompiler,
     batch_arrays,
-    pack_arrays,
     pack_meta,
 )
 from dfol_vqa_tpu_torch.data.dataset import ProgramDataset, iter_batches, iter_index_batches
@@ -56,7 +55,7 @@ def can_pin() -> bool:
 
 class LoadedBatch:
     __slots__ = ("spec", "compiled", "objects", "obj_mask", "arrays", "meta",
-                 "packed", "obj_scale", "block")
+                 "obj_scale", "block")
 
     def __init__(self, spec: BucketSpec, compiled: CompiledBatch, objects, obj_mask,
                  img_index=None, obj_scale=None, block=None):
@@ -79,9 +78,8 @@ class LoadedBatch:
         self.obj_scale = row_scale(obj_f32) if obj_scale is None else obj_scale
         self.arrays["obj_scale"] = self.obj_scale
         self.arrays["obj_geom"] = obj_f32[..., -GEOM_DIM:]
-        # one-buffer transfer form (pack_meta docstring)
+        # the arrays' names, shapes and dtypes, which key steps and graphs
         self.meta = pack_meta(self.arrays)
-        self.packed = pack_arrays(self.arrays, self.meta)
 
     @property
     def batch_size(self) -> int:

@@ -27,11 +27,9 @@ CUDA device Adam is built with ``capturable=True`` (its step counters and
 bias corrections stay on the device), so that a CUDA graph can capture
 the step (``train/graphs.py``), and ``static_grads`` gives every trainable
 parameter a gradient buffer that stays at one address for the
-optimizer's life. ``step(valid=...)`` is the gated step of the JAX
-package's padded chunks (``_train_step_chunk_padded``: ``jnp.where(valid,
-new, old)`` over parameters and optimizer state): where the 0-d boolean
-device tensor ``valid`` is false, the parameters, ``exp_avg``,
-``exp_avg_sq`` and Adam's ``step`` keep their values, with no host read.
+optimizer's life. Every step updates: the port runs no padded step, so it
+needs no counterpart of the JAX package's gated step
+(``_train_step_chunk_padded``).
 
 Under a device mesh (``parallel/mesh.py``) the optimizer steps each rank's
 masters (``ShardedParams.masters``: an FSDP leaf's shard, else the leaf),
@@ -42,7 +40,7 @@ sum over the ranks, so it is the norm of the whole gradient.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 import torch.distributed as dist
@@ -120,7 +118,8 @@ class Optimizer:
 
     def _init_state(self) -> None:
         """Adam's state as its first step would create it (zero moments,
-        step 0), so that a gated first step has values to keep."""
+        step 0), so that ``_state_tensors`` has every tensor to give before
+        the first step."""
         for p in self.trainable:
             state = self.adam.state[p]
             if not state:
@@ -130,7 +129,9 @@ class Optimizer:
                 state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
     def _state_tensors(self) -> List[torch.Tensor]:
-        """The parameters, then each one's exp_avg, exp_avg_sq and step."""
+        """The parameters, then each one's exp_avg, exp_avg_sq and step:
+        the tensors a step changes, as callers read and set them (to compare
+        two optimizers, or to start one again from a saved state)."""
         self._init_state()
         out = list(self.trainable)
         for p in self.trainable:
@@ -138,10 +139,9 @@ class Optimizer:
             out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
         return out
 
-    def step(self, valid: Optional[torch.Tensor] = None) -> None:
+    def step(self) -> None:
         if self.adam is None:
             return
-        kept = None if valid is None else [t.clone() for t in self._state_tensors()]
         self.static_grads()
         grads = [p.grad for p in self.trainable]
         if self._norm_weights is None:
@@ -154,10 +154,6 @@ class Optimizer:
         for g in grads:  # optax's form: (g / norm) * clip_norm
             g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
         self.adam.step()
-        if kept is not None:
-            with torch.no_grad():
-                for t, old in zip(self._state_tensors(), kept):
-                    t.copy_(torch.where(valid.to(t.device), t, old))
 
 
 def build_optimizer(cfg: Config, params: OracleParams, sharded=None) -> Optimizer:

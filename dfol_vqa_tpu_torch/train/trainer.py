@@ -16,28 +16,26 @@ U * 2 <= B takes the shared-image relation route, any other the
 per-question route (``Interpreter.build_world``).
 
 Chunked dispatch, as in the JAX package (``tpu.train_chunk``,
-``tpu.eval_chunk``, ``tpu.pad_chunks``): ``data/transfer.chunk_prefetch``
-groups runs of same-bucket batches (at most a chunk of them) and copies
-each group of two or more to the device as one stacked transfer per
-tensor; a group of one batch is copied by ``to_device_batch``. Training
-runs every group, of k >= 1 batches, through the chunk step
-(``_train_chunk``): k training steps, a lone batch's one step never
-padded. Evaluation runs a group of one with ``Interpreter.forward`` and a
-group of k >= 2 as k forwards (``_eval_chunked``, through
-``Interpreter.forward_many``). ``global_step`` advances by a group's real
+``tpu.eval_chunk``): ``data/transfer.chunk_prefetch`` groups runs of
+same-bucket batches (at most a chunk of them) and copies each group of two
+or more to the device as one stacked transfer per tensor; a group of one
+batch is copied by ``to_device_batch``. Training runs every group, of
+k >= 1 batches, through the chunk step (``_train_chunk``): its k steps.
+Evaluation runs a group of one with ``Interpreter.forward`` and a group of
+k >= 2 as k forwards (``_eval_chunked``, through
+``Interpreter.forward_many``). ``global_step`` advances by a group's
 length, and mid-epoch validation and saves are checked after each group
 only, as the JAX trainer checks them at dispatch boundaries. On a CUDA
 device each chunk step, a lone training step included, runs as one CUDA
 graph per key (``train/graphs.py``: the first group of a key eagerly, the
-second captured, every later one replayed); on the CPU it runs eagerly,
-which is the plain version. With ``pad_chunks`` the eager chunk pads a
-short group of two or more to the full chunk by repeating its last batch,
-as the JAX package does: padded training steps are gated no-ops on the
-parameters and Adam's state (``Optimizer.step(valid=...)``, ``n_valid`` a
-device tensor), padded forwards are dropped. A CUDA graph runs only a
-group's real steps or forwards, one graph per group length
-(``_chunk_len``): padded steps are exact no-ops, so the result is the
-same, and a capture costs less than the padded compute.
+second captured, every later one replayed; one graph per group length);
+on the CPU the same steps run eagerly. The port pads nothing, on any
+device: with ``tpu.pad_chunks`` the JAX package pads a short group to the
+full chunk by repeating its last batch, so that every tail length shares
+one XLA executable, gates the padded steps into no-ops on the parameters
+and optimizer state and drops the padded forwards. Those steps change
+nothing, so the port's real steps reach the parameters JAX's padded chunk
+reaches, and the port does not read ``pad_chunks``.
 Evaluation runs under ``torch.inference_mode()``; its outputs stay on the
 device and are read back once, after the last batch (per batch only when
 hardset mining needs the answers). Training keeps each step's loss on the
@@ -53,9 +51,8 @@ real questions, reduces the gradients and steps the masters
 would take for the global batches (``mesh_groups``: the ranks agree on
 each global batch's spec, program shapes and unique-image count), and
 checkpoints fall at those boundaries; the steps of a chunk run eagerly,
-one step at a time, with no padded steps and no CUDA graph (gloo cannot be
-captured, and each step's exchange of sizes and keys is a host
-collective).
+one step at a time, with no CUDA graph (gloo cannot be captured, and each
+step's exchange of sizes and keys is a host collective).
 Every batch under the mesh carries its global batch's reductions over the
 question axis (``types.batch_flags``, exchanged with the keys), so a rank
 computes its rows as one device computes them in the global batch.
@@ -81,7 +78,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dfol_vqa_tpu_torch.compiler.program_compiler import pack_arrays, pack_meta
+from dfol_vqa_tpu_torch.compiler.program_compiler import pack_meta
 from dfol_vqa_tpu_torch.config import Config
 from dfol_vqa_tpu_torch.data.features import PAD_LADDER
 from dfol_vqa_tpu_torch.data.loader import LoadedBatch
@@ -140,16 +137,7 @@ def with_global_flags(batch: LoadedBatch, parts: Sequence[dict]) -> LoadedBatch:
     ``types.batch_flags`` ``parts``."""
     batch.arrays.update({k: np.bitwise_or.reduce([p[k] for p in parts]) for k in parts[0]})
     batch.meta = pack_meta(batch.arrays)
-    batch.packed = pack_arrays(batch.arrays, batch.meta)
     return batch
-
-
-def pad_chunk(x: torch.Tensor, k: int) -> torch.Tensor:
-    """A (g, ...) stack padded to (k, ...) by repeating its last element."""
-    g = x.shape[0]
-    if g >= k:
-        return x
-    return torch.cat([x, x[-1:].expand((k - g,) + tuple(x.shape[1:]))])
 
 
 def _shapes(tensors: Sequence[torch.Tensor]) -> tuple:
@@ -258,54 +246,35 @@ class VQATrainer:
         (loss / shares).backward()
         return loss.detach()
 
-    def _chunk_len(self, n: int, chunk: int) -> int:
-        """The steps or forwards a group of ``n`` batches runs: for ``n`` >=
-        2 with ``pad_chunks`` the ``chunk`` that the eager path pads it to,
-        as the JAX package does; ``n`` without, in a CUDA graph, which runs
-        the real ones only (one graph per group length), and for a lone
-        batch, which the JAX package does not pad either."""
-        if n > 1 and self.cfg.tpu.pad_chunks and not self.graphs.capture:
-            return max(chunk, n)
-        return n
-
     def _train_chunk(self, params: OracleParams, opt: Optimizer, group: List[LoadedBatch],
                      objects: torch.Tensor, obj_mask: torch.Tensor,
                      arrays: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator]) -> torch.Tensor:
-        """The steps of a group of k >= 1 batches (stacked tensors), through
-        ``self.graphs`` (one CUDA graph per key on one card), as the JAX
-        package's ``_train_step_chunk`` or, padded (``_chunk_len``), its
-        ``_train_step_chunk_padded``: padded to ``train_chunk`` by repeating
-        the last batch, the steps past the group's length gated no-ops. A
-        lone batch runs ``_grads`` and ``opt.step()`` once, as the JAX
-        package's one-step path, never padded.
-        Returns the real steps' losses on the device. A padded step runs its
-        forward and backward like any other, so with dropout it draws masks
-        and advances ``generator`` (JAX keeps its rng on a padded step; the
-        masks differ from JAX's anyway). Steps are padded only where nothing
-        is captured, so ``n_valid`` is no input of a graph."""
+        """The k steps of a group of k >= 1 batches (stacked tensors), each
+        ``_grads`` then ``opt.step()``, through ``self.graphs`` (one CUDA
+        graph per key on one card), as the JAX package's
+        ``_train_step_chunk`` or, for a lone batch, its one-step path. Every
+        device runs these steps and only these (the module docstring: the
+        JAX package's padded steps are no-ops). Returns the k losses on the
+        device."""
         b0 = group[0]
-        k = self._chunk_len(len(group), self.cfg.tpu.train_chunk)
-        padded = k > len(group)
+        k = len(group)
         names = sorted(arrays)
-        inputs = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
-        if padded:
-            n_valid = torch.full((), len(group), dtype=torch.int64, device=self.device)
+        inputs = [objects, obj_mask] + [arrays[n] for n in names]
 
         def steps(objects, obj_mask, *rest):
             losses = []
             for i in range(k):
                 loss = self._grads(params, objects[i], obj_mask[i],
                                    {n: t[i] for n, t in zip(names, rest)}, b0.spec, generator)
-                opt.step(valid=n_valid > i if padded else None)
+                opt.step()
                 losses.append(loss)
             return (torch.stack(losses) if k > 1 else losses[0][None],)
 
-        key = ("train", b0.spec, b0.meta, _shapes(inputs), k, padded, id(opt),
-               param_key(params))
+        key = ("train", b0.spec, b0.meta, _shapes(inputs), k, id(opt), param_key(params))
         gen = generator if self.cfg.dropout > 0 else None
         (losses,) = self.graphs.run(key, steps, inputs, generator=gen)
-        return losses[:len(group)]
+        return losses
 
     def train_step(self, params, opt: Optimizer, batch: Optional[LoadedBatch],
                    generator: Optional[torch.Generator] = None,
@@ -435,8 +404,9 @@ class VQATrainer:
         and ``checkpointing_frequency`` is checked after each chunk, at the
         global steps the JAX trainer checks it. One difference remains:
         randomness (dropout masks) comes from a ``torch.Generator`` seeded
-        with ``seed``, so with dropout on the masks differ from JAX's; the
-        repository's training cells run at ``dropout=0.0``.
+        with ``seed``, so with dropout on the masks differ from JAX's (the
+        benchmark's training cells run at ``dropout=0.1``, as their stage
+        files do).
 
         Under the mesh ``params`` (the same on every rank; rank 0's are
         broadcast) is split into a ``ShardedParams`` for the run and gets
@@ -550,11 +520,11 @@ class VQATrainer:
                       ) -> Iterator[Tuple[LoadedBatch, Dict[str, torch.Tensor]]]:
         """(batch, outputs on the device: ``log_probability``, ``match``,
         ``answer_flags``) for every batch of ``loader``, in order. A group of
-        one batch runs ``Interpreter.forward``; a group of k >= 2 runs
-        ``forward_many`` (padded as ``_chunk_len`` says, the padded outputs
-        dropped), one CUDA graph per key on one card, as the JAX package's
-        ``_eval_chunked``. ``params`` is the whole tree or, under the mesh, a
-        ``ShardedParams`` (its gathered working tree is read).
+        one batch runs ``Interpreter.forward``; a group of k >= 2 runs its k
+        forwards through ``forward_many``, one CUDA graph per key on one
+        card, as the JAX package's ``_eval_chunked``. ``params`` is the
+        whole tree or, under the mesh, a ``ShardedParams`` (its gathered
+        working tree is read).
 
         The eval graphs belong to one parameter tree: evaluating another
         drops them, and the trainer holds the tree they read, so its tensors
@@ -587,9 +557,8 @@ class VQATrainer:
                                               {k: v[0] for k, v in arrays.items()}, b0.spec)
                 yield b0, out
                 continue
-            k = self._chunk_len(len(group), chunk)
             names = sorted(arrays)
-            inputs = [pad_chunk(t, k) for t in [objects, obj_mask] + [arrays[n] for n in names]]
+            inputs = [objects, obj_mask] + [arrays[n] for n in names]
 
             def forwards(objects, obj_mask, *rest):
                 with torch.inference_mode():

@@ -256,6 +256,7 @@ def build_eval_golden() -> Dict[str, np.ndarray]:
     from dfol_vqa_tpu.train.checkpoint import _flatten
     from dfol_vqa_tpu.train.trainer import VQATrainer
     from dfol_vqa_tpu_torch.data import evalset
+    from tests.jax_batches import JaxLoader
 
     ont = GQAOntology()
     cfg = evalset.demo_eval_config(tiny=True, stream_dtype="float32")
@@ -279,9 +280,9 @@ def build_eval_golden() -> Dict[str, np.ndarray]:
         out[p + "log_probability"] = np.asarray(res["log_probability"])
         out[p + "answer_flags"] = np.asarray(res["answer_flags"])
     trainer = VQATrainer(cfg, interp)
-    out["test_epoch/error"] = np.asarray(trainer.test_epoch(loader, params))
+    out["test_epoch/error"] = np.asarray(trainer.test_epoch(JaxLoader(loader), params))
     out["test_epoch/counts"] = trainer.last_test_counts
-    preds = trainer.predict(loader, params, io.StringIO())
+    preds = trainer.predict(JaxLoader(loader), params, io.StringIO())
     out["predict"] = np.array(json.dumps(preds))
     return out
 
@@ -505,6 +506,7 @@ def build_chunk_golden() -> Dict[str, np.ndarray]:
     from dfol_vqa_tpu.train.checkpoint import _flatten
     from dfol_vqa_tpu.train.trainer import VQATrainer
     from dfol_vqa_tpu_torch.ontology import GQAOntology
+    from tests.jax_batches import JaxLoader
 
     ont = GQAOntology()
     cfg, world, files, train_ld, val_ld = chip_smoke.chunk_golden_setup(ont)
@@ -514,7 +516,7 @@ def build_chunk_golden() -> Dict[str, np.ndarray]:
         out[f"datasets/{name}"] = np.array(json.dumps(f, sort_keys=True))
     trainer = VQATrainer(cfg, Interpreter(cfg, JOntology()))
     seen = chip_smoke.record_validation(trainer)
-    params, _, losses = trainer.train(train_ld, val_ld, params)
+    params, _, losses = trainer.train(JaxLoader(train_ld), JaxLoader(val_ld), params)
     before = {k: out[f"params/{k}"] for k in _flatten(jax.tree.map(np.asarray, params))}
     out.update({f"update/{k}": v - before[k]
                 for k, v in _flatten(jax.tree.map(np.asarray, params)).items()})

@@ -16,12 +16,14 @@ chunk on the card, eagerly here) at the same boundaries.
   epoch's end at 6; a per-step check would validate at 3 and 6), the
   parameters within the train loop's Adam bound and the epoch loss within
   1e-4, the error vectors equal.
-* A short group padded to the chunk: its padded steps leave the parameters
-  and Adam's state bitwise as the real steps left them, as sequential
-  steps do (``tests/test_chunk_padding``), and a full padded chunk equals
-  the unpadded one; the padded chunk against JAX's padded executable.
-* ``test_epoch`` and ``predict`` at ``eval_chunk=4`` (groups of 4 and 2,
-  padded) equal ``eval_chunk=1`` and JAX's chunked evaluation
+* The port pads nothing: a short group under ``pad_chunks`` runs its own
+  steps only, bitwise as many sequential steps (parameters, Adam's state,
+  and at dropout 0.1 the generator), and equals JAX's padded chunk
+  (``_train_step_chunk_padded``, whose padded steps are gated no-ops,
+  ``tests/test_chunk_padding``); ``pad_chunks`` changes nothing in a full
+  chunk; a short eval group reaches ``forward_many`` at its own length.
+* ``test_epoch`` and ``predict`` at ``eval_chunk=4`` (groups of 4 and 2)
+  equal ``eval_chunk=1`` and JAX's chunked evaluation
   (``tests/test_chunk_mesh``): error vectors, counts and predictions
   equal, every batch's log-probabilities within 1e-6, answer flags and
   matches bitwise.
@@ -32,6 +34,7 @@ chunk on the card, eagerly here) at the same boundaries.
   parameters.
 """
 
+import copy
 import io
 import json
 import os
@@ -43,6 +46,7 @@ import pytest
 import torch
 
 import chip_smoke
+from dfol_vqa_tpu.compiler.program_compiler import pack_arrays as jpack_arrays
 from dfol_vqa_tpu.data.device_prefetch import chunk_prefetch as jchunk_prefetch
 from dfol_vqa_tpu.data.device_prefetch import quantize_objects as jquantize
 from dfol_vqa_tpu.models.interpreter import Interpreter as JInterpreter
@@ -57,6 +61,7 @@ from dfol_vqa_tpu_torch.train import trainer as tr
 from dfol_vqa_tpu_torch.train.optim import Optimizer
 
 from tests.test_torch_mesh import CHILD_TIMEOUT, FEATURES, mesh_data, questions  # noqa: F401
+from tests.jax_batches import JaxLoader
 from tests.test_torch_train_loop import assert_params_close
 
 LR = 1e-3
@@ -220,8 +225,10 @@ def test_chunked_train_validates_where_jax_does(ontology, setup, tmp_path, pad):
             ("port", tr.VQATrainer(cfg, Interpreter(cfg, ontology), device="cpu"),
              params_from_numpy(jax.tree.map(np.asarray, jparams)))):
         steps = recording(trainer)
-        out = trainer.train(run_loader(ontology, cfg, world),
-                            eval_loader(ontology, cfg, world), params,
+        train_ld, val_ld = run_loader(ontology, cfg, world), eval_loader(ontology, cfg, world)
+        if name == "jax":
+            train_ld, val_ld = JaxLoader(train_ld), JaxLoader(val_ld)
+        out = trainer.train(train_ld, val_ld, params,
                             last_export_path_base=str(tmp_path / name / "last"),
                             best_export_path_base=str(tmp_path / name / "best"))
         runs[name] = (trainer, steps, *out)
@@ -247,9 +254,10 @@ def chunk_inputs(ontology, cfg, world, n):
 
 
 def test_padded_steps_are_exact_no_ops(ontology, setup):
-    """Three batches padded to eight: parameters and Adam's state equal
-    three sequential steps' bitwise; and the port's padded chunk against
-    JAX's ``_train_step_chunk_padded``."""
+    """A group of three at ``train_chunk=8`` with ``pad_chunks``, which
+    the JAX package pads to eight: the port's chunk equals three sequential
+    steps bitwise (parameters, Adam's state, losses) and JAX's padded chunk
+    (``_train_step_chunk_padded``), whose five padded steps are no-ops."""
     _, world, jparams = setup
     cfg = chunk_config(True, chunk=8)
     start = jax.tree.map(np.asarray, jparams)
@@ -278,7 +286,7 @@ def test_padded_steps_are_exact_no_ops(ontology, setup):
     pad = lambda x: jt._pad_chunk(jnp.asarray(x), 8)  # noqa: E731
     jp, _, jlosses, _, _ = jt._train_step_chunk_padded(group[0].spec, group[0].meta, 8)(
         jp, jt._tx.init(jp), pad(np.stack([b.objects for b in group])),
-        pad(np.stack([b.obj_mask for b in group])), pad(np.stack([b.packed for b in group])),
+        pad(np.stack([b.obj_mask for b in group])), pad(np.stack([jpack_arrays(b.arrays, b.meta) for b in group])),
         jax.random.PRNGKey(0), np.int32(3))
     np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses)[:3], rtol=1e-5)
     assert_params_close(flatten(params_to_numpy(padded)), flatten(jax.tree.map(np.asarray, jp)),
@@ -286,6 +294,9 @@ def test_padded_steps_are_exact_no_ops(ontology, setup):
 
 
 def test_full_padded_chunk_equals_unpadded(ontology, setup):
+    """A full chunk of four, ``pad_chunks`` off and on: the same losses,
+    parameters and Adam state bitwise (the port does not read the
+    flag)."""
     _, world, jparams = setup
     start = jax.tree.map(np.asarray, jparams)
     group, objects, obj_mask, arrays = chunk_inputs(ontology, chunk_config(True), world, 4)
@@ -331,9 +342,9 @@ def test_chunked_eval_equals_per_batch_and_jax(ontology, eval_setup):
     four = port_eval(ontology, cfg, world, tparams, 4)
     cfg.tpu.eval_chunk = 4
     jt = JVQATrainer(cfg, jinterp)
-    jouts = jt._eval_chunked(eval_loader(ontology, cfg, world), jparams)
-    jerror = jt.test_epoch(eval_loader(ontology, cfg, world), jparams)
-    jpreds = jt.predict(eval_loader(ontology, cfg, world), jparams, io.StringIO())
+    jouts = jt._eval_chunked(JaxLoader(eval_loader(ontology, cfg, world)), jparams)
+    jerror = jt.test_epoch(JaxLoader(eval_loader(ontology, cfg, world)), jparams)
+    jpreds = jt.predict(JaxLoader(eval_loader(ontology, cfg, world)), jparams, io.StringIO())
     assert len(one[0]) == len(four[0]) == len(jouts) == 6
     for (b1, o1), (b4, o4), (_, jo) in zip(one[0], four[0], jouts):
         assert b1.compiled.question_ids == b4.compiled.question_ids
@@ -349,6 +360,63 @@ def test_chunked_eval_equals_per_batch_and_jax(ontology, eval_setup):
     np.testing.assert_array_equal(four[2], one[2])
     np.testing.assert_array_equal(four[2], jt.last_test_counts)
     assert four[3] == one[3] == jpreds
+
+
+@pytest.mark.parametrize("case", ["train", "eval"])
+def test_a_short_group_runs_its_own_steps_only(ontology, setup, eval_setup, case):
+    """Under ``pad_chunks`` the port pads no short group. Training: three
+    batches at ``train_chunk=8`` and dropout 0.1 run three forwards and
+    leave the parameters, Adam's state and the dropout generator where
+    three sequential ``compute_grads`` + ``opt.step()`` leave them (padded
+    steps would draw five more steps' masks). Evaluation: at
+    ``eval_chunk=4`` the group of two reaches ``forward_many`` with a
+    leading axis of two."""
+    if case == "eval":
+        cfg, world, _, _, tparams = eval_setup
+        cfg = copy.deepcopy(cfg)
+        cfg.tpu.eval_chunk = 4
+        cfg.tpu.pad_chunks = True
+        trainer = tr.VQATrainer(cfg, Interpreter(cfg, ontology), device="cpu")
+        lengths, real = [], trainer.interp.forward_many
+
+        def forward_many(params, objects, *rest):
+            lengths.append(objects.shape[0])
+            return real(params, objects, *rest)
+
+        trainer.interp.forward_many = forward_many
+        outs = list(trainer._eval_chunked(eval_loader(ontology, cfg, world), tparams))
+        assert len(outs) == 6 and lengths == [4, 2]
+        assert all(o["match"].shape == outs[0][1]["match"].shape for _, o in outs)
+        return
+    _, world, jparams = setup
+    cfg = chunk_config(True, chunk=8)
+    cfg.dropout = 0.1
+    start = jax.tree.map(np.asarray, jparams)
+    group, objects, obj_mask, arrays = chunk_inputs(ontology, cfg, world, 3)
+    trainer = tr.VQATrainer(cfg, Interpreter(cfg, ontology), device="cpu")
+    seq, chunked = params_from_numpy(start), params_from_numpy(start)
+    opt_seq, opt_chunk = Optimizer(cfg, seq), Optimizer(cfg, chunked)
+    gen_seq, gen_chunk = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    seq_losses = []
+    for b in group:
+        seq_losses.append(trainer.compute_grads(seq, b, gen_seq))
+        opt_seq.step()
+    forwards, real = [], trainer.interp.forward
+
+    def forward(*args, **kwargs):
+        forwards.append(args[1].shape)
+        return real(*args, **kwargs)
+
+    trainer.interp.forward = forward
+    losses = trainer._train_chunk(chunked, opt_chunk, group, objects, obj_mask, arrays,
+                                  gen_chunk)
+    assert len(forwards) == 3
+    assert torch.equal(losses, torch.stack(seq_losses))
+    assert torch.equal(gen_chunk.get_state(), gen_seq.get_state())
+    for a, b in zip(list(seq.parameters()) + adam_state(opt_seq),
+                    list(chunked.parameters()) + adam_state(opt_chunk)):
+        assert torch.equal(a, b)
+    assert float(opt_chunk.adam.state[opt_chunk.trainable[0]]["step"]) == 3.0
 
 
 # ------------------------------------------------------------ the mesh

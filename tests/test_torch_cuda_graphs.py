@@ -12,8 +12,9 @@ and eval configs, dropout 0), over chunks of four batches and lone ones:
   leaves them (each leaf's change within 3e-4 of its largest change, the
   chip smoke's ``TRAIN_GRAD_RTOL``; the losses within 1e-5 relative), for
   the first group (eager), the second (captured, then replayed) and the
-  third (replayed), against the eager path padded or not; under
-  ``pad_chunks`` a short group's graph runs its real steps only;
+  third (replayed), with ``pad_chunks`` on and off (the port pads
+  nothing); under ``pad_chunks`` a short group's graph runs its real steps
+  only;
 * a lone step of the calibrator configuration at dropout 0.1, from one
   state and one seed, gives the eager step's loss when warm, captured and
   replayed; two replays from one state without a new seed draw different
@@ -88,7 +89,7 @@ def assert_updates_close(got, want, start):
 @pytest.mark.parametrize("pad", [True, False])
 def test_train_chunk_replay_equals_eager(cuda, ontology, pad, n):
     """Three groups of ``n`` batches (one key): eager, captured and
-    replayed, replayed; a lone group is never padded."""
+    replayed, replayed; no group is padded."""
     cfg, groups = train_groups(ontology, 3, chunk=n)
     cfg.tpu.pad_chunks = pad
     params = Interpreter(cfg, ontology).init_params(torch.Generator().manual_seed(0), cuda)
@@ -166,7 +167,7 @@ def test_padded_steps_change_nothing_in_a_graph(cuda, ontology):
     files = trainset.train_datasets(world, (("exist", 2, 6 * trainset.TINY_BATCH),), seed=3)
     groups = list(chunk_prefetch(trainset.train_loader(cfg, ontology, world, files, seed=2), 2,
                                  cuda))
-    cfg.tpu.train_chunk = CHUNK  # each group of two pads to four
+    cfg.tpu.train_chunk = CHUNK  # each group of two, short of the chunk
     params = Interpreter(cfg, ontology).init_params(torch.Generator().manual_seed(0), cuda)
     trainer = VQATrainer(cfg, Interpreter(cfg, ontology), device=cuda)
     eager = VQATrainer(cfg, Interpreter(cfg, ontology), device=cuda)

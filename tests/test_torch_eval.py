@@ -32,6 +32,7 @@ from dfol_vqa_tpu_torch.models import oracle as om
 from dfol_vqa_tpu_torch.models.interpreter import Interpreter, spec_needs_relations
 from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train import trainer as tr
+from tests.jax_batches import JaxLoader
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +102,7 @@ def test_test_epoch_and_hardsets_equal_jax(setup, loader, tmp_path):
     cfg, _, jinterp, jparams, tinterp, tparams = setup
     jt = JVQATrainer(cfg, jinterp, hardset_path=str(tmp_path / "jax"))
     tt = tr.VQATrainer(cfg, tinterp, hardset_path=str(tmp_path / "port"), device="cpu")
-    want, _ = jt.test(loader, jparams)
+    want, _ = jt.test(JaxLoader(loader), jparams)
     got, seconds = tt.test(loader, tparams)
     assert tt._prepare_output_metric_dict(got) == jt._prepare_output_metric_dict(want)
     np.testing.assert_array_equal(got, want)
@@ -121,7 +122,8 @@ def test_error_buckets_match_jax():
 def test_predict_equals_jax(setup, loader, submission):
     cfg, _, jinterp, jparams, tinterp, tparams = setup
     jout, tout = io.StringIO(), io.StringIO()
-    want = JVQATrainer(cfg, jinterp).predict(loader, jparams, jout, is_submission=submission)
+    want = JVQATrainer(cfg, jinterp).predict(JaxLoader(loader), jparams, jout,
+                                             is_submission=submission)
     got = tr.VQATrainer(cfg, tinterp, device="cpu").predict(loader, tparams, tout,
                                                            is_submission=submission)
     assert got == want and len(got) == 60
@@ -133,7 +135,7 @@ def test_test_loads_a_jax_checkpoint(setup, loader, tmp_path):
     cfg, _, jinterp, _, tinterp, tparams = setup
     other = jinterp.init_params(jax.random.PRNGKey(5))
     jckpt.save(str(tmp_path), cfg.model_name, other, global_step=12)
-    want = JVQATrainer(cfg, jinterp).test_epoch(loader, other)
+    want = JVQATrainer(cfg, jinterp).test_epoch(JaxLoader(loader), other)
     tt = tr.VQATrainer(cfg, tinterp, device="cpu")
     got, _ = tt.test(loader, tparams, import_path_base=str(tmp_path))
     np.testing.assert_array_equal(got, want)

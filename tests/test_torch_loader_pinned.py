@@ -160,7 +160,6 @@ def test_gather_and_scale_equal_the_zeroed_gather(monkeypatch, compiled, case, b
     same(got.obj_scale, want.obj_scale, "obj_scale")
     for k in want.arrays:
         same(got.arrays[k], want.arrays[k], k)
-    same(got.packed, want.packed, "packed")
     # batch_unique is the same gather, returned as before
     for a, b, what in zip(source.batch_unique(ids, O), (objects, mask, idx), "omi"):
         same(a, b, what)
@@ -192,7 +191,6 @@ def test_fork_workers_equal_the_thread_path(ontology, monkeypatch, pinned):
         assert a.meta == b.meta and sorted(a.arrays) == sorted(b.arrays)
         for k in a.arrays:
             same(a.arrays[k], b.arrays[k], k)
-        same(a.packed, b.packed, "packed")
 
 
 def test_cannot_pin_keeps_numpy_and_can_pin_gives_blocks(ontology, monkeypatch):

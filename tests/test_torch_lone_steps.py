@@ -93,9 +93,8 @@ def test_a_lone_group_runs_through_the_cache_unpadded_as_before(ontology, pad):
     assert torch.equal(gen.get_state(), gen_before.get_state())
     assert len(trainer.graphs.keys) == 3
     for key, (group, *_) in zip(trainer.graphs.keys, groups):
-        kind, spec, meta, shapes, k, padded = key[:6]
-        assert (kind, spec, meta, k, padded) == ("train", group[0].spec, group[0].meta, 1,
-                                                 False)
+        kind, spec, meta, shapes, k = key[:5]
+        assert (kind, spec, meta, k) == ("train", group[0].spec, group[0].meta, 1)
         assert all(shape[0] == 1 for shape, _ in shapes)
 
 

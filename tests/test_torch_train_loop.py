@@ -37,6 +37,7 @@ from dfol_vqa_tpu_torch.train import checkpoint as ckpt
 from dfol_vqa_tpu_torch.train import trainer as tr
 from dfol_vqa_tpu_torch.train.optim import Optimizer
 from chip_smoke import adam_bound, grads_of, trainable_keys
+from tests.jax_batches import JaxLoader
 from tests.test_torch_terminals import RELATING, TERMINALS, terminal_batch
 
 GRAD_RTOL = 1e-5
@@ -171,8 +172,11 @@ def test_train_matches_the_jax_trainer(ontology, setup, tmp_path):
             ("jax", JVQATrainer(cfg, JInterpreter(cfg, ontology)), jparams),
             ("port", tr.VQATrainer(cfg, Interpreter(cfg, ontology), device="cpu"),
              params_from_numpy(jax.tree.map(np.asarray, jparams)))):
-        out = trainer.train(shuffled_loader(ontology, cfg, world, seed=1),
-                            shared_loader(ontology, cfg, world), params,
+        train_ld = shuffled_loader(ontology, cfg, world, seed=1)
+        val_ld = shared_loader(ontology, cfg, world)
+        if name == "jax":
+            train_ld, val_ld = JaxLoader(train_ld), JaxLoader(val_ld)
+        out = trainer.train(train_ld, val_ld, params,
                             last_export_path_base=str(tmp_path / name / "last"),
                             best_export_path_base=str(tmp_path / name / "best"), seed=0)
         runs[name] = (trainer, *out)
