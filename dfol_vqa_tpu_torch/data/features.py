@@ -20,17 +20,28 @@ copy to the card reads directly (``data/transfer.py``); ``objects`` is a
 numpy view of it for every host consumer. Without, it is a numpy array.
 The loader asks for ``pinned`` where its process can page-lock memory
 (``data/loader.can_pin``).
+
+The block is written by one call into a C++ routine
+(``csrc/scene_gather.cpp``, built at first use by ``ops/cuda_build``),
+which holds no GIL and deals the scenes to ``gather_threads`` threads.
+Python keeps the dedup, the pad ladder and each scene's ``image`` call,
+the source's own API.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
+import os
 import zlib
 from os.path import join
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from dfol_vqa_tpu_torch.ops import cuda_build
 
 # trailing non-feature columns of an object row: image w,h + bbox x,y,w,h
 # (featurizer.py docstring; reference batch_gqa_boxfeatures_pipeline.py:71)
@@ -51,6 +62,28 @@ def row_scale(rows: np.ndarray) -> np.ndarray:
     feats = rows[..., :-GEOM_DIM]
     peak = np.abs(np.maximum(feats.max(axis=-1), -feats.min(axis=-1)))
     return np.maximum(peak / 127.0, SCALE_FLOOR).astype(np.float32)
+
+
+def gather_threads(nbytes: int) -> int:
+    """The native pass's threads for a block of ``nbytes``: the calling
+    thread alone under 4 MB, where a thread costs more than its share;
+    else up to 4 of the cores this process may run on, less two (the
+    trainer's thread and the transfer worker's)."""
+    if nbytes < 4 << 20:
+        return 1
+    return max(1, min(4, len(os.sched_getaffinity(0)) - 2))
+
+
+@functools.lru_cache(maxsize=None)
+def scene_gather_lib() -> ctypes.CDLL:
+    """The native scene pass (``csrc/scene_gather.cpp``), built once per
+    source hash; raises where it cannot be built or loaded."""
+    def configure(lib):
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.dfol_scene_gather.argtypes = [p, p, i64, i64, i64, i64, p, p, p, ctypes.c_int]
+        lib.dfol_scene_gather.restype = None
+
+    return cuda_build.load("scene_gather", ["scene_gather.cpp"], configure, host=True)[0]
 
 
 def pinned_empty(shape) -> torch.Tensor:
@@ -105,10 +138,11 @@ class FeatureSource:
         return g.objects, g.mask, g.img_index
 
     def gather_unique(self, image_ids: List[str], O: int, pad_ladder=PAD_LADDER,
-                      pinned: bool = False) -> SceneBlock:
+                      pinned: bool = False, threads: Optional[int] = None) -> SceneBlock:
         """``batch_unique``'s block written in one pass, with each row's
         ``row_scale`` (module docstring); in page-locked memory with
-        ``pinned``."""
+        ``pinned``; on ``threads`` threads in place of ``gather_threads``'
+        count."""
         uniq: dict = {}
         idx = np.zeros(len(image_ids), np.int32)
         for i, im in enumerate(image_ids):
@@ -124,16 +158,22 @@ class FeatureSource:
         shape = (U_pad, O, self.box_dim + GEOM_DIM)
         block = pinned_empty(shape) if pinned else None
         objs = block.numpy() if block is not None else np.empty(shape, np.float32)
-        mask = np.zeros((U_pad, O), np.float32)
-        scale = np.full((U_pad, O), SCALE_FLOOR, np.float32)
-        for im, u in uniq.items():
+        rows, counts = [], np.empty(U, np.int64)
+        for im, u in uniq.items():  # u counts up from 0
             row, n = self.image(im)
-            n = min(n, O)
-            objs[u, :n] = row[:n]
-            objs[u, n:] = 0.0
-            mask[u, :n] = 1.0
-            scale[u, :n] = row_scale(objs[u, :n])
-        objs[U:] = 0.0
+            k = counts[u] = min(n, O)
+            r = np.ascontiguousarray(row[:k], np.float32)
+            if r.shape != (k, shape[2]):
+                raise ValueError(f"scene {im!r}: rows {r.shape} for {k} objects of width "
+                                 f"{shape[2]}")
+            rows.append(r)
+        ptrs = np.array([r.ctypes.data for r in rows], np.uintp)
+        mask = np.empty((U_pad, O), np.float32)
+        scale = np.empty((U_pad, O), np.float32)
+        scene_gather_lib().dfol_scene_gather(
+            ptrs.ctypes.data, counts.ctypes.data, U, U_pad, O, shape[2], objs.ctypes.data,
+            mask.ctypes.data, scale.ctypes.data,
+            gather_threads(objs.nbytes) if threads is None else threads)
         return SceneBlock(objs, mask, idx, scale, block)
 
 

@@ -1,13 +1,16 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes: the CUDA
+sources with nvcc, the host's C++ sources (``host=True``) with the host's
+C++ compiler.
 
 Each library is compiled at first use, from the sources in the checkout,
 into ``dfol_vqa_tpu_torch/_build/<name>-<hash>/`` (listed in .gitignore),
-where the hash covers the sources, the headers in ``csrc/`` and the nvcc
-flags. The sources expose a
+where the hash covers the sources, the headers in ``csrc/`` and the
+compiler's flags. The sources expose a
 plain C interface, so the build needs no PyTorch headers and takes seconds;
-libraries of different names build concurrently (one lock per name). Every
-source defines ``dfol_cuda_error_string``, which ``check`` uses to name a
-failed launch. Nothing here runs at import time.
+libraries of different names build concurrently (one lock per name), and
+concurrent processes each build into a file of their own and rename it
+into place. Every CUDA source defines ``dfol_cuda_error_string``, which
+``check`` uses to name a failed launch. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no flag that changes float results (no -ffast-math; no fused multiply-adds)
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 
 
 @dataclasses.dataclass
@@ -60,10 +65,20 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(sources: Sequence[str], csrc_dir: str = CSRC_DIR) -> str:
-    """Hash of the nvcc flags, the sources and every header in ``csrc_dir``
-    (a source may include any of them), so an edited header rebuilds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def find_cxx() -> str:
+    for name in ("c++", "g++", "clang++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found: put c++, g++ or clang++ on PATH")
+
+
+def _digest(sources: Sequence[str], csrc_dir: str = CSRC_DIR,
+            flags: Sequence[str] = NVCC_FLAGS) -> str:
+    """Hash of the compiler's flags, the sources and every header in
+    ``csrc_dir`` (a source may include any of them), so an edited header
+    rebuilds."""
+    h = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(os.path.join(csrc_dir, f) for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
     for path in [*sources, *headers]:
         h.update(os.path.basename(path).encode())
@@ -72,24 +87,24 @@ def _digest(sources: Sequence[str], csrc_dir: str = CSRC_DIR) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(name: str, sources: Sequence[str]) -> Built:
-    out_dir = os.path.join(BUILD_DIR, f"{name}-{_digest(sources)}")
+def _build(name: str, sources: Sequence[str], compiler: str, flags: Sequence[str]) -> Built:
+    out_dir = os.path.join(BUILD_DIR, f"{name}-{_digest(sources, flags=flags)}")
     out = os.path.join(out_dir, f"lib{name}.so")
     log_path = os.path.join(out_dir, "build.log")
-    nvcc = find_nvcc()
-    shown = [nvcc, *NVCC_FLAGS, "-o", out, *sources]
+    shown = [compiler, *flags, "-o", out, *sources]
     if os.path.isfile(out):
         with open(log_path) as f:
             return Built(out, shown, 0.0, f.read())
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
+    proc = subprocess.run([compiler, *flags, "-o", tmp, *sources],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}) "
+                           f"building {name}:\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
@@ -97,18 +112,23 @@ def _build(name: str, sources: Sequence[str]) -> Built:
 
 
 def load(name: str, sources: Sequence[str],
-         configure: Optional[Callable[[ctypes.CDLL], None]] = None) -> Tuple[ctypes.CDLL, Built]:
+         configure: Optional[Callable[[ctypes.CDLL], None]] = None,
+         host: bool = False) -> Tuple[ctypes.CDLL, Built]:
     """Build (once per source hash) and load ``lib<name>.so``; ``configure``
-    declares the argtypes/restype of its functions."""
+    declares the argtypes/restype of its functions. ``host``: C++ for the
+    host, built with ``find_cxx`` and ``HOST_FLAGS``, with no
+    ``dfol_cuda_error_string``."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with lock:
         hit = _LOADED.get(name)
         if hit is None:
-            built = _build(name, [os.path.join(CSRC_DIR, s) for s in sources])
+            compiler, flags = (find_cxx(), HOST_FLAGS) if host else (find_nvcc(), NVCC_FLAGS)
+            built = _build(name, [os.path.join(CSRC_DIR, s) for s in sources], compiler, flags)
             lib = ctypes.CDLL(built.path)
-            lib.dfol_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.dfol_cuda_error_string.restype = ctypes.c_char_p
+            if not host:
+                lib.dfol_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.dfol_cuda_error_string.restype = ctypes.c_char_p
             if configure is not None:
                 configure(lib)
             if hasattr(lib, "dfol_pair_tail_slices"):

@@ -14,17 +14,20 @@ modules, and nothing of the JAX package in the port.
   (``compiler/normalize``, ``preprocess``, ``preprocess_cli``, ``verifier``)
   by source text, imports renamed (their behaviour against JAX is
   ``tests/test_torch_preprocess.py``);
-* the CUDA build hash covers the headers in ``csrc/``.
+* the CUDA build hash covers the headers in ``csrc/``, and the package
+  data ships every source in ``csrc/``.
 """
 
 import ast
 import dataclasses
+import fnmatch
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tomllib
 
 import numpy as np
 import pytest
@@ -282,3 +285,17 @@ def test_build_hash_covers_headers(tmp_path):
     assert edited != before
     (csrc / "new_tile.cuh").write_text("#pragma once\n")
     assert cuda_build._digest(sources, str(csrc)) != edited
+
+
+def test_package_data_ships_every_native_source():
+    """An installed package builds its libraries from the files its package
+    data names: each source and header in ``csrc/`` (the CUDA kernels and
+    the loader's ``scene_gather.cpp``) matches one of its globs."""
+    root = os.path.dirname(cuda_build.PACKAGE_DIR)
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["dfol_vqa_tpu_torch"]
+    rel = os.path.relpath(cuda_build.CSRC_DIR, cuda_build.PACKAGE_DIR)
+    files = sorted(os.listdir(cuda_build.CSRC_DIR))
+    assert "scene_gather.cpp" in files
+    for name in files:
+        assert any(fnmatch.fnmatch(f"{rel}/{name}", g) for g in globs), name

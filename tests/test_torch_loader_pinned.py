@@ -19,8 +19,15 @@ copy to the card (``data/features.gather_unique``, ``data/loader``,
 * the copy to the device hands the block itself (no host copy), a
   group's stack from blocks equals one from numpy arrays, and the int8 and
   bfloat16 transfers read the same bytes with a block as without;
-  ``transfer.stage``'s ``pinned`` tag is 0 off the card.
+  ``transfer.stage``'s ``pinned`` tag is 0 off the card;
+* the native pass (``csrc/scene_gather.cpp``, built here by the host's C++
+  compiler) is bitwise the zeroed gather on every case above, on one
+  thread and on three, and on a block split over the threads that
+  ``gather_threads`` gives, or more threads than cores; a failed build
+  raises.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -34,6 +41,7 @@ from dfol_vqa_tpu_torch.data.loader import BatchLoader, LoadedBatch
 from dfol_vqa_tpu_torch.data.synthetic import generate_questions
 from dfol_vqa_tpu_torch.data.transfer import chunk_prefetch, to_device_batch
 from dfol_vqa_tpu_torch.ontology import GQAOntology
+from dfol_vqa_tpu_torch.ops import cuda_build
 from dfol_vqa_tpu_torch.utils import profiling
 
 D, O = 16, 6  # feature columns, object slots
@@ -89,6 +97,10 @@ def scene(seed, n, kind="normal", rows=O):
         out[:, :D] = -np.abs(out[:, :D])
     elif kind == "zero":  # every other object row all zero, geometry too
         out[::2] = 0.0
+    elif kind == "nan":  # a NaN among a real row's features
+        out[1, 3] = np.nan
+    elif kind == "strided":  # rows that are not C-contiguous
+        out = np.asfortranarray(out)
     return out, n
 
 
@@ -102,6 +114,8 @@ CASES = {
     "more_objects": ([scene(0, 9, rows=9), scene(1, O + 1, rows=8)], [1, 0]),
     "negative_max": ([scene(i, 4, "negative") for i in range(3)], [0, 1, 2]),
     "zero_rows": ([scene(i, n, "zero") for i, n in enumerate((O, 5, 2))], [2, 1, 0, 2]),
+    "nan_in_a_row": ([scene(0, 4, "nan"), scene(1, O)], [1, 0]),
+    "non_contiguous": ([scene(i, n, "strided") for i, n in enumerate((O, 3, 0))], [0, 2, 1]),
 }
 
 
@@ -163,6 +177,79 @@ def test_gather_and_scale_equal_the_zeroed_gather(monkeypatch, compiled, case, b
     # batch_unique is the same gather, returned as before
     for a, b, what in zip(source.batch_unique(ids, O), (objects, mask, idx), "omi"):
         same(a, b, what)
+
+
+def case_source(case):
+    scenes, which = CASES[case]
+    return Rows({f"im{i}": s for i, s in enumerate(scenes)}), [f"im{i}" for i in which]
+
+
+def same_as_zeroed(g, source, ids):
+    objects, mask, idx = zeroed_gather(source, ids, O)
+    same(g.objects, objects, "objects")
+    same(g.mask, mask, "mask")
+    same(g.img_index, idx, "img_index")
+    same(g.scale, block_scale(objects), "scale")
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("block", ["numpy", "tensor"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_native_pass_equals_the_zeroed_gather(monkeypatch, case, block, threads):
+    source, ids = case_source(case)
+    made = nan_blocks(monkeypatch)
+    g = source.gather_unique(ids, O, pinned=block == "tensor", threads=threads)
+    same_as_zeroed(g, source, ids)
+    if block == "tensor":
+        assert len(made) == 1 and g.pinned is made[0]
+        assert np.shares_memory(g.objects, made[0].numpy())
+
+
+def test_a_failed_build_raises(monkeypatch):
+    def fail(*args, **kwargs):
+        raise RuntimeError("c++ failed")
+
+    monkeypatch.setattr(cuda_build, "load", fail)
+    features.scene_gather_lib.cache_clear()
+    source, ids = case_source("fewer_objects")
+    try:
+        with pytest.raises(RuntimeError, match="c\\+\\+ failed"):
+            source.gather_unique(ids, O)
+    finally:
+        features.scene_gather_lib.cache_clear()
+
+
+@pytest.mark.parametrize("threads", [None, 16], ids=["gather_threads", "more_than_cores"])
+def test_a_large_block_is_split_over_threads(monkeypatch, threads):
+    """Ten scenes of 50-120 rows at the published width: a 6.6 MB block,
+    over the one-thread limit, so ``gather_threads`` deals it to up to four
+    threads; sixteen threads share its sixteen scenes on fewer cores."""
+    lib, asked = features.scene_gather_lib(), []
+
+    class Spy:
+        def dfol_scene_gather(self, *args):
+            asked.append(args[-1])
+            lib.dfol_scene_gather(*args)
+
+    monkeypatch.setattr(features, "scene_gather_lib", Spy)
+    source = SyntheticFeatures(box_dim=2048, min_objects=50, max_objects=120, seed=4)
+    ids = [f"im{i % 10}" for i in range(23)]
+    g = source.gather_unique(ids, 100, threads=threads)
+    assert g.objects.nbytes == 16 * 100 * 2054 * 4 >= 4 << 20
+    want = threads or max(1, min(4, len(os.sched_getaffinity(0)) - 2))
+    assert asked == [want] == [threads or features.gather_threads(g.objects.nbytes)]
+    objects, mask, idx = zeroed_gather(source, ids, 100)
+    same(g.objects, objects, "objects")
+    same(g.mask, mask, "mask")
+    same(g.scale, block_scale(objects), "scale")
+
+
+def test_gather_threads_follow_the_cores_and_the_block(monkeypatch):
+    assert features.gather_threads((4 << 20) - 1) == 1
+    for cores, want in ((1, 1), (2, 1), (3, 1), (4, 2), (5, 3), (6, 4), (96, 4)):
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid, n=cores: set(range(n)))
+        assert features.gather_threads(4 << 20) == want, cores
+        assert features.gather_threads((4 << 20) - 1) == 1
 
 
 def batches(ontology, workers: int, pinned: bool, monkeypatch):
@@ -238,3 +325,4 @@ def test_groups_from_blocks_equal_groups_from_numpy(ontology, monkeypatch, trans
         assert torch.equal(m1, m2) and sorted(a1) == sorted(a2)
         for k in a1:
             assert torch.equal(a1[k], a2[k]), k
+
